@@ -1,0 +1,21 @@
+"""Device resolution for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``None`` means the CUDA card; the CPU only when asked for by name.
+
+    Raises when CUDA is requested (explicitly or by default) and no CUDA
+    device is present, so a run meant for the card never quietly lands on
+    the host.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "mfm_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path on "
+            "the host")
+    return dev

@@ -1,0 +1,90 @@
+"""Configuration of the covariance stack (counterpart of ``mfm_tpu/config.py``).
+
+Only :class:`RiskModelConfig` is ported in this slice: the fields that
+``RiskModel.run`` and ``run_fused`` read, with the same defaults and
+validation.  The reference's serving-loop ``quarantine`` policy arrives
+with the stateful serving slice (ROADMAP.md §A 7).  Settings whose
+implementation has not been ported yet raise ``NotImplementedError``
+instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+def _is_count(x) -> bool:
+    return isinstance(x, int) and not isinstance(x, bool) and x >= 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RiskModelConfig:
+    """Hyper-parameters of the covariance stack.
+
+    Defaults match ``Barra-master/demo.py:38-42``: Newey-West q=2 tau=252,
+    eigenfactor adjustment M=100 scale=1.4, vol-regime tau=42.  See
+    ``mfm_tpu/config.py:154-283`` for the meaning of each field.
+    """
+
+    nw_lags: int = 2
+    nw_half_life: float = 252.0
+    nw_method: str = "scan"
+    eigen_n_sims: int = 100
+    eigen_scale_coef: float = 1.4
+    eigen_sim_length: int | None = None  # None => use panel length T
+    eigen_sim_sweeps: int | str | None = "auto"
+    eigen_chunk: int | str | None = "auto"
+    eigen_mc_dtype: str | None = None
+    eigen_incremental: bool = False
+    vol_regime_half_life: float = 42.0
+    seed: int = 0
+
+    def identity(self) -> tuple:
+        """Every field that can change the numbers (``eigen_chunk`` is an
+        execution knob: chunked and full-batch runs are identical)."""
+        return (
+            self.nw_lags, self.nw_half_life, self.nw_method,
+            self.eigen_n_sims, self.eigen_scale_coef, self.eigen_sim_length,
+            self.eigen_sim_sweeps, self.eigen_mc_dtype,
+            self.eigen_incremental, self.vol_regime_half_life, self.seed,
+        )
+
+    def __post_init__(self):
+        s = self.eigen_sim_sweeps
+        if not (s is None or s == "auto" or _is_count(s)):
+            raise ValueError(
+                f"eigen_sim_sweeps must be an int >= 1, None, or 'auto'; "
+                f"got {s!r}")
+        if self.nw_method not in ("scan", "associative"):
+            raise ValueError(
+                f"nw_method must be 'scan' or 'associative', "
+                f"got {self.nw_method!r}")
+        c = self.eigen_chunk
+        if not (c is None or c == "auto" or _is_count(c)):
+            raise ValueError(
+                f"eigen_chunk must be an int >= 1, None, or 'auto'; got {c!r}")
+        if self.eigen_mc_dtype not in (None, "bfloat16"):
+            raise ValueError(
+                f"eigen_mc_dtype must be None or 'bfloat16', "
+                f"got {self.eigen_mc_dtype!r}")
+        if not isinstance(self.eigen_incremental, bool):
+            raise ValueError(
+                f"eigen_incremental must be a bool, "
+                f"got {self.eigen_incremental!r}")
+        if self.eigen_incremental and self.eigen_sim_length is not None:
+            raise ValueError(
+                "eigen_incremental=True tracks the growing panel length "
+                "(sim_length == T) by construction; a pinned "
+                f"eigen_sim_length ({self.eigen_sim_length}) contradicts it "
+                "— pick one")
+        if self.nw_method == "associative":
+            raise NotImplementedError(
+                "nw_method='associative' is not ported yet "
+                "(ROADMAP.md §A 16)")
+        if self.eigen_mc_dtype is not None:
+            raise NotImplementedError(
+                "eigen_mc_dtype='bfloat16' is not ported yet "
+                "(ROADMAP.md §A 7)")
+        if self.eigen_incremental:
+            raise NotImplementedError(
+                "eigen_incremental=True is not ported yet (ROADMAP.md §A 7)")

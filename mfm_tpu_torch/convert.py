@@ -1,0 +1,108 @@
+"""Carry a reference run's state across to the port, and results back.
+
+The risk model has no trained weights; what both packages must share to
+compute the same thing is the configuration, the panel, and the
+Monte-Carlo ``sim_covs`` (M, K, K) — the random draws cannot match between
+``jax.random`` and ``torch.Generator``, so a comparison injects them.
+
+- :func:`config_from_reference` builds the port's ``RiskModelConfig`` from
+  the reference config's fields as a plain dict (``dataclasses.asdict``);
+- :func:`to_port` turns the numpy panel and ``sim_covs`` into tensors;
+- :func:`outputs_to_numpy` brings a ``RiskModelOutputs`` back to numpy;
+- :func:`budget_check` holds two sets of outputs against the per-stage
+  float32 budgets of ``tools/parity_budget.json``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from mfm_tpu_torch.config import RiskModelConfig
+
+_PANEL = ("ret", "cap", "styles", "industry", "valid")
+
+
+def config_from_reference(fields: Mapping) -> RiskModelConfig:
+    """The port's config from the reference ``RiskModelConfig``'s fields.
+
+    The reference's ``quarantine`` policy is accepted only while disabled
+    (the serving slice ports it), and a ``mesh`` entry only at one shard
+    per axis (the port runs on one device); unknown fields raise.
+    """
+    fields = dict(fields)
+    quarantine = fields.pop("quarantine", None) or {}
+    if quarantine.get("enabled", False):
+        raise NotImplementedError(
+            "the quarantine policy is not ported yet (ROADMAP.md §A 7)")
+    mesh = fields.pop("mesh", None) or {}
+    if any(v > 1 for v in mesh.values()):
+        raise NotImplementedError(
+            "the device mesh is not ported yet (ROADMAP.md §A 16)")
+    known = {f.name for f in dataclasses.fields(RiskModelConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"fields unknown to the port's RiskModelConfig: {unknown}")
+    return RiskModelConfig(**fields)
+
+
+def to_port(arrays: Mapping, device, dtype=torch.float32) -> dict:
+    """Numpy panel (``ret, cap, styles, industry, valid``) and optional
+    ``sim_covs`` -> tensors on ``device``: floats in ``dtype``, industry
+    codes int32, the universe mask bool."""
+    out = {}
+    for name, x in arrays.items():
+        x = np.asarray(x)
+        if name == "industry":
+            t = torch.from_numpy(x.astype(np.int32))
+        elif name == "valid":
+            t = torch.from_numpy(x.astype(bool))
+        elif name in _PANEL or name == "sim_covs":
+            t = torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+        else:
+            raise ValueError(f"unknown array {name!r}; expected "
+                             f"{_PANEL + ('sim_covs',)}")
+        out[name] = t.to(device)
+    return out
+
+
+def outputs_to_numpy(outputs) -> dict:
+    """``RiskModelOutputs`` -> ``{field: numpy array}``."""
+    return {k: v.detach().cpu().numpy() for k, v in outputs._asdict().items()}
+
+
+def budget_check(got: Mapping, want: Mapping, budget: Mapping):
+    """Hold numpy outputs ``got`` against ``want`` within per-field budgets
+    (the ``risk`` entry of ``tools/parity_budget.json``), the way
+    ``tools/tpu_parity.py compare`` does: over the entries finite on both
+    sides, ``|got - want| / max|want|`` has its max and median under the
+    field's ``max_rel`` / ``median_rel`` (``default`` for unlisted fields);
+    the finite patterns must agree and ``*_valid`` masks match exactly.
+
+    Returns ``(records, failed)``: one record per float field and the list
+    of failed checks (empty when everything holds).
+    """
+    records, failed = {}, []
+    for name in want:
+        x, y = np.asarray(got[name]), np.asarray(want[name])
+        if name.endswith("_valid"):
+            if not np.array_equal(x, y):
+                failed.append(name)
+            continue
+        if not np.array_equal(np.isfinite(x), np.isfinite(y)):
+            failed.append(name + ":finiteness")
+        m = np.isfinite(x) & np.isfinite(y)
+        scale = max(float(np.abs(y[m]).max()), 1e-30) if m.any() else 1.0
+        d = np.abs(x[m].astype(np.float64) - y[m]) / scale
+        rec = {"max_rel": float(d.max()) if d.size else 0.0,
+               "median_rel": float(np.median(d)) if d.size else 0.0}
+        lim = budget.get(name, budget["default"])
+        if rec["max_rel"] > lim["max_rel"]:
+            failed.append(name + ":max_rel")
+        if rec["median_rel"] > lim.get("median_rel", np.inf):
+            failed.append(name + ":median_rel")
+        records[name] = rec
+    return records, failed
