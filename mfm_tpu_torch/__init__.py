@@ -6,7 +6,9 @@ has a counterpart at the same place: ``mfm_tpu/ops/xreg.py`` ->
 anything of ``mfm_tpu``.  Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``; on a CUDA tensor the two Jacobi eigh
 kernels of ``ops/eigh_cuda.py`` run (hand-written for Hopper in
-``csrc/jacobi_eigh.cu``), on a CPU tensor their plain PyTorch versions.
+``csrc/jacobi_eigh_warp.cu`` for float32 at n <= 46, in
+``csrc/jacobi_eigh.cu`` otherwise), on a CPU tensor their plain PyTorch
+versions.
 
 Layout
 ------

@@ -37,8 +37,10 @@
 // A and a write of w, h (0.3 ms), so the roofline bound is operations.  This
 // simple design is instead paced by shared-memory traffic and the three
 // block barriers per round (about 15x the bound at that shape on an H100,
-// PERF.md); keeping the matrix in registers and packing several matrices
-// per block are the next steps.
+// PERF.md).  float32 at the n of jacobi_eigh_warp.cu goes to that file's
+// design instead (one warp per matrix, the matrix in registers); this one
+// carries float64 and the other n, and is the warp design's yardstick in
+// chip_smoke.py.
 
 #include <cuda_runtime.h>
 

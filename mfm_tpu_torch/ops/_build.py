@@ -6,7 +6,10 @@ wrappers load with ``ctypes``.  PyTorch's own extension loader is not used:
 a source that includes PyTorch's headers takes minutes to compile, a plain
 C one seconds.  Libraries land in ``build/kernels/`` at the checkout root,
 named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused.  Nothing is built at import time.
+and an unchanged one is reused.  Beside each library lies nvcc's report
+(``-Xptxas -v``: each kernel's registers, stack frame and spill bytes),
+kept on success too; :func:`ptxas_report` parses it.  Nothing is built at
+import time.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -46,6 +50,10 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
+def _log(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build_all() -> dict[str, Path]:
     """Compile every kernel source whose library is missing — one ``nvcc``
     per source, all started together — and return ``{stem: library}``.
@@ -66,6 +74,7 @@ def build_all() -> dict[str, Path]:
         for src, out, tmp, proc in procs:
             _, err = proc.communicate()
             if proc.returncode == 0:
+                _log(out).write_text(err)
                 os.replace(tmp, out)  # atomic: a reader never sees a torn file
             else:
                 tmp.unlink(missing_ok=True)
@@ -79,3 +88,28 @@ def build_all() -> dict[str, Path]:
 def load(stem: str) -> ctypes.CDLL:
     """The built library of ``csrc/<stem>.cu``, building it at first use."""
     return ctypes.CDLL(str(build_all()[stem]))
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)' for '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(stem: str) -> list[dict]:
+    """Each kernel of ``csrc/<stem>.cu`` as ``-Xptxas -v`` reported it when
+    the library was built: mangled name, registers, stack frame and spill
+    bytes.  Builds the library if it is missing."""
+    text = _log(build_all()[stem]).read_text()
+    kernels, cur = [], None
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            cur = {"kernel": m.group(1), "arch": m.group(2)}
+            kernels.append(cur)
+        elif cur is not None and (m := _FRAME.search(line)):
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        elif cur is not None and (m := _REGS.search(line)):
+            cur["registers"] = int(m.group(1))
+    return kernels

@@ -20,9 +20,11 @@ interleaving [L[0], L[n-1], L[1], L[n-2], ...] that makes pairs adjacent,
 the basis change between consecutive rounds is pi = f^-1 . g . f — the same
 permutation every round, and of order n-1, so whole sweeps return the basis
 to its start.  The plain versions keep the matrix in that permuted basis
-(pair extraction is a strided view); the CUDA kernels keep it in original
-index order and rotate the pairs :func:`_round_bases` names.  Both emit in
-the matrix's ORIGINAL index order ("slot order").
+(pair extraction is a strided view), and so does the float32 warp design of
+the CUDA kernels (a lane a pair of rows, pi a shift between lanes); the
+block design keeps it in original index order and rotates the pairs
+:func:`_round_bases` names.  All emit in the matrix's ORIGINAL index order
+("slot order").
 """
 
 from __future__ import annotations

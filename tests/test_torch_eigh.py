@@ -20,9 +20,11 @@ from mfm_tpu.ops.eigh_pallas import (
     jacobi_eigh_weighted_diag_tpu,
 )
 from mfm_tpu_torch.ops import eigh as E
+from mfm_tpu_torch.ops import eigh_cuda as C
 from mfm_tpu_torch.ops.eigh_cuda import (
     jacobi_eigh_cuda,
     jacobi_eigh_weighted_diag_cuda,
+    launch_counts,
 )
 
 torch.set_num_threads(2)
@@ -195,7 +197,7 @@ def test_cuda_wrappers_run_plain_version_on_cpu_tensors():
     rng = np.random.default_rng(4)
     A = torch.from_numpy(_psd(rng, 3, 8))
     d0 = torch.rand((3, 8), generator=torch.Generator().manual_seed(0))
-    before = (jacobi_eigh_cuda.launches, jacobi_eigh_weighted_diag_cuda.launches)
+    before = launch_counts()
     w, V = jacobi_eigh_cuda(A, sort=False, canonical_signs=False)
     ws, Vs = E.jacobi_eigh_slots(A)
     assert torch.equal(w, ws) and torch.equal(V, Vs)
@@ -204,16 +206,19 @@ def test_cuda_wrappers_run_plain_version_on_cpu_tensors():
     assert torch.equal(ww, wp) and torch.equal(hh, hp)
     wsorted, _ = jacobi_eigh_cuda(A)
     assert torch.equal(wsorted, torch.sort(ws, dim=-1).values)
-    assert (jacobi_eigh_cuda.launches,
-            jacobi_eigh_weighted_diag_cuda.launches) == before
+    assert launch_counts() == before
 
 
+@pytest.mark.parametrize("design", ["block", "warp"])
 @pytest.mark.parametrize("bad", ["odd", "dtype", "strided", "rank", "d0"])
-def test_cuda_wrappers_reject_what_the_kernel_cannot_take(bad):
-    A = torch.eye(8).repeat(2, 1, 1)
-    d0 = torch.ones((2, 8))
+def test_cuda_wrappers_reject_what_the_kernel_cannot_take(bad, design):
+    """At an n that a float32 CUDA tensor would take to either design."""
+    n = 8 if design == "warp" else max(C.WARP_N) + 2
+    assert C.design_for(n, torch.float32) == design
+    A = torch.eye(n).repeat(2, 1, 1)
+    d0 = torch.ones((2, n))
     if bad == "odd":
-        A, d0 = torch.eye(7).repeat(2, 1, 1), torch.ones((2, 7))
+        A, d0 = torch.eye(n - 1).repeat(2, 1, 1), torch.ones((2, n - 1))
     elif bad == "dtype":
         A = A.to(torch.float16)
     elif bad == "strided":
@@ -221,7 +226,7 @@ def test_cuda_wrappers_reject_what_the_kernel_cannot_take(bad):
     elif bad == "rank":
         A = A[0]
     else:
-        d0 = torch.ones((2, 8), dtype=torch.float64)
+        d0 = torch.ones((2, n), dtype=torch.float64)
     err = TypeError if bad == "dtype" else ValueError
     with pytest.raises(err):
         jacobi_eigh_weighted_diag_cuda(A, d0)
