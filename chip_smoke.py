@@ -13,10 +13,18 @@ stocks, P=31 industries, Q=10 styles, K=42 factors, M=100 eigen
 simulations, float32) and checks that the main path went through the warp
 design of both kernels and agrees with the same path run on the plain
 versions within the ``risk`` budgets of ``tools/parity_budget.json``.
-Then it times each kernel at the main path's shapes, the two designs in
-turns (block, warp, warp, block), beside its plain version, its bound, the
-warp design's ceiling and ``torch.linalg.eigh``, and samples the SM clock
-from ``nvidia-smi`` while each warp kernel runs.
+Then it drives the daily serving step at the same width — ``init_state``
+on the first 1350 dates, the last 40 as one-date updates and as a slab —
+in four phases (``serve_update``, ``serve_guarded``, ``serve_incremental``,
+``serve_checkpoint``), each held against the full-history run and each
+required to go through the warp design of both kernels and to be bitwise
+the full run; one more (``serve_bitwise_ops``) requires each op of the
+update to keep a date's bits at the batch sizes an update gives it.  Last
+it times each kernel at the main path's shapes, the two designs in turns
+(block, warp, warp, block), beside its plain version, its bound, the warp
+design's ceiling and ``torch.linalg.eigh``, and, after holding it against
+its plain version there, at the shapes a one-date update launches, and
+samples the SM clock from ``nvidia-smi`` while each warp kernel runs.
 
 Output: the card's name and power limit first; one JSON line per phase;
 the ``{"kernels": [...]}`` line second to last; and last
@@ -27,6 +35,7 @@ the last line is printed.  Without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -311,6 +320,515 @@ def outputs_finite(out, valid):
     return checks
 
 
+# -- the daily serving step ---------------------------------------------------
+
+#: the serving split: init on the first SERVE_T0 dates, then the rest one by
+#: one.  In incremental mode the sweep cap of the simulated eighs moves from
+#: 5 to 4 at 32*K = 1344 consumed draws, and update == suffix holds inside
+#: one tier, so the init keeps at least 1344 dates.
+SERVE_T0 = 1350
+
+
+def max_abs_diff(got, want) -> float:
+    """max |got - want| over entries finite in both (0 for bools that
+    agree, inf for any disagreement in finiteness or in a bool)."""
+    if not got.is_floating_point():
+        return 0.0 if torch.equal(got, want) else float("inf")
+    if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+        return float("inf")
+    m = torch.isfinite(want)
+    return float((got[m].double() - want[m].double()).abs().max()) \
+        if m.any() else 0.0
+
+
+def same(got, want) -> bool:
+    """Bitwise equality, NaN in the same places counting as equal."""
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    return torch.equal(torch.isnan(got), torch.isnan(want)) and \
+        torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def carry_leaves(state, guard=False) -> dict:
+    """The named carry leaves of a ``RiskModelState``."""
+    t, S, A, Z, Ps, hs, gs, Slags, xlags = state.nw_carry
+    out = {"nw_t": t, "nw_S": S, "nw_A": A, "nw_Z": Z,
+           **{f"nw_Ps{i}": x for i, x in enumerate(Ps)},
+           **{f"nw_hs{i}": x for i, x in enumerate(hs)},
+           **{f"nw_gs{i}": x for i, x in enumerate(gs)},
+           **{f"nw_Slags{i}": x for i, x in enumerate(Slags)},
+           **{f"nw_xlags{i}": x for i, x in enumerate(xlags)},
+           "vr_num": state.vr_num, "vr_den": state.vr_den}
+    if state.eig_R is not None:
+        out.update(eig_R=state.eig_R, eig_p=state.eig_p, eig_n=state.eig_n)
+    if guard:
+        out.update(last_good_cov=state.last_good_cov,
+                   staleness=state.staleness, guard_ring=state.guard_ring,
+                   guard_ring_pos=state.guard_ring_pos)
+    return out
+
+
+def compare_carries(a, b, guard=False) -> dict:
+    """Bitwise flag, each carry leaf's max |diff| and the largest relative
+    difference over the leaves of two states."""
+    la, lb = carry_leaves(a, guard), carry_leaves(b, guard)
+    diff = {k: max_abs_diff(la[k], lb[k]) for k in lb}
+    rel = max(diff[k] / (float(lb[k].abs().max()) or 1.0) for k in lb)
+    return {"bitwise": all(same(la[k], lb[k]) for k in lb), "max_rel": rel,
+            "max_abs_diff": diff}
+
+
+def compare_rows(got, want) -> dict:
+    """Per-field max |diff| and the bitwise flag of two RiskModelOutputs."""
+    return {"bitwise": all(same(getattr(got, f), getattr(want, f))
+                           for f in want._fields),
+            "max_abs_diff": {f: max_abs_diff(getattr(got, f),
+                                             getattr(want, f))
+                             for f in want._fields}}
+
+
+def cat_rows(rows):
+    return type(rows[0])(*(torch.cat([getattr(r, f) for r in rows])
+                           for f in rows[0]._fields))
+
+
+def suffix(out, a, b=None):
+    return type(out)(*(x[a:b] for x in out))
+
+
+def suffix_rows(out, rows):
+    return type(out)(*(x[rows] for x in out))
+
+
+def serving_launches(n_updates: int, what: str) -> dict:
+    """Launches per update of each kernel and design on a serving path,
+    counted since the last reset; requires the warp design of both kernels
+    and no block design."""
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts
+
+    counts = launch_counts()
+    require(counts["jacobi_eigh/warp"] >= 1
+            and counts["jacobi_eigh_weighted/warp"] >= 1,
+            f"{what} did not launch the warp design of both kernels: {counts}")
+    require(counts["jacobi_eigh/block"] == 0
+            and counts["jacobi_eigh_weighted/block"] == 0,
+            f"{what} launched a block-design kernel: {counts}")
+    return {k: v / n_updates for k, v in counts.items()}
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()`` on the host clock, ending in a
+    device synchronise."""
+    sync()
+    t0 = time.perf_counter()
+    r = fn()
+    sync()
+    return r, time.perf_counter() - t0
+
+
+def wall_stats(walls) -> dict:
+    s = sorted(walls)
+    return {"median_ms": 1e3 * statistics.median(s),
+            "p99_ms": 1e3 * s[min(len(s) - 1, int(0.99 * len(s)))],
+            "max_ms": 1e3 * s[-1], "n": len(s)}
+
+
+def serve_update(ctx) -> dict:
+    """Phase serve_update: init_state on [0:T0], the remaining dates as
+    single-date updates and as one slab, held against the full run."""
+    from mfm_tpu_torch.convert import budget_check, outputs_to_numpy
+    from mfm_tpu_torch.ops.eigh_cuda import reset_launches
+
+    model, sim_covs, T, budget = (ctx["model"], ctx["sim_covs"], ctx["T"],
+                                  ctx["budget"])
+    T0 = SERVE_T0
+    (full_out, full_state), init_full_s = timed(
+        lambda: model(slice(0, T)).init_state(sim_covs=sim_covs,
+                                              sim_length=T))
+    fused = compare_rows(full_out, ctx["fused_out"])
+    (_, st0), init_s = timed(lambda: model(slice(0, T0)).init_state(
+        sim_covs=sim_covs, sim_length=T))
+
+    st, rows, walls = st0, [], []
+    reset_launches()
+    for t in range(T0, T):
+        (o, st), dt = timed(lambda: model(slice(t, t + 1)).update(st))
+        rows.append(o)
+        walls.append(dt)
+    per_update = serving_launches(T - T0, "serve_update")
+    seq_state = st
+    o_slab, st_slab = model(slice(T0, T)).update(st0)
+    seq_rows = cat_rows(rows)
+    want = suffix(full_out, T0)
+    records, failed = budget_check(outputs_to_numpy(seq_rows),
+                                   outputs_to_numpy(want), budget)
+    _, failed_slab = budget_check(outputs_to_numpy(o_slab),
+                                  outputs_to_numpy(want), budget)
+    carries = {"singles_vs_slab": compare_carries(seq_state, st_slab),
+               "slab_vs_full": compare_carries(st_slab, full_state),
+               "singles_vs_full": compare_carries(seq_state, full_state)}
+    differ = lambda a, b: [i for i in range(a.shape[0])
+                           if not same(a[i], b[i])]
+    res = {
+        "T0": T0, "updates": T - T0,
+        "singles_dates_differing": {
+            f: differ(getattr(seq_rows, f), getattr(want, f))
+            for f in ("factor_ret", "specific_ret", "r2")},
+        "init_state_s": init_s, "init_state_full_s": init_full_s,
+        "init_state_full_vs_run_fused": fused,
+        "singles_vs_full": compare_rows(seq_rows, want),
+        "slab_vs_full": compare_rows(o_slab, want),
+        "singles_vs_slab": compare_rows(seq_rows, o_slab),
+        "carries": carries, "budget_failed": failed + failed_slab,
+        "budget_records": records,
+        "update_wall": wall_stats(walls),
+        "launches_per_update": per_update,
+        "profile_one_update": profile_run(
+            lambda: model(slice(T - 1, T)).update(seq_state)),
+    }
+    emit("serve_update", **res)
+    require(not failed and not failed_slab,
+            f"serve_update rows outside the risk budgets: {failed + failed_slab}")
+    require(all(c["bitwise"] for c in carries.values()),
+            f"serve_update: singles, slab and full run carries differ: "
+            f"{carries}")
+    require(res["singles_vs_full"]["bitwise"]
+            and res["slab_vs_full"]["bitwise"],
+            "serve_update: the updates' rows are not bitwise the full run's")
+    ctx["unguarded_init"] = st0
+    return res
+
+
+def keep_layout(src, x):
+    """``x`` (rows gathered from ``src``) laid out in memory in ``src``'s
+    dimension order, so an op sees the strides it sees in the full run
+    (a transposed operand takes another cuBLAS kernel)."""
+    order = sorted(range(src.dim()), key=src.stride, reverse=True)
+    inverse = sorted(range(src.dim()), key=order.__getitem__)
+    return x.permute(order).contiguous().permute(inverse)
+
+
+def serve_bitwise_ops(ctx) -> dict:
+    """Phase serve_bitwise_ops: each op of the update path keeps a date's
+    bits at the batch sizes an update gives it.  Each op of the regression
+    (``ops/xreg.py``), of the eigen stage and of the vol-regime statistic
+    runs on the full run's own inputs, once over all T dates and once over
+    the rows of a serving slab: the 40 appended dates at once, and each of
+    them as the copies a one-date update runs (``MIN_REGRESSION_DATES`` for
+    the regression, ``MIN_EIGEN_DATES`` for the eigen stage, one for the
+    vol-regime statistic).  ``mismatches`` counts the dates whose rows
+    differ; an op with any breaks update == suffix and fails the run."""
+    from mfm_tpu_torch.models.eigen import _bias_ratios, sim_sweeps_for
+    from mfm_tpu_torch.models.risk_model import (
+        MIN_EIGEN_DATES,
+        MIN_REGRESSION_DATES,
+    )
+    from mfm_tpu_torch.ops import xreg
+    from mfm_tpu_torch.ops.eigh import batched_eigh, pinv_psd
+    from mfm_tpu_torch.ops.masked import masked_var
+
+    m = ctx["model"](slice(0, ctx["T"]))
+    T, P, K = m.T, m.n_industries, m.K
+    X, valid, capz = xreg.regression_design(
+        m.ret, m.cap, m.styles, m.industry, m.valid, n_industries=P)
+    w = torch.sqrt(capz)
+    ind_oh = X[..., 1:1 + P].transpose(-1, -2).contiguous()
+    ind_cap = xreg._rowdot(ind_oh, capz[..., None, :])
+    R = xreg._constraint_matrix(ind_cap, m.Q)
+    Xr = X @ R
+    XtW = Xr.transpose(-1, -2) * (w / w.sum(-1, keepdim=True))[..., None, :]
+    G = XtW @ Xr
+    Ginv = pinv_psd(G)
+    zero = torch.zeros((), device=X.device)
+    retz = torch.where(valid, m.ret, zero)
+    omega = R @ (Ginv @ XtW)
+    fr = xreg._rowdot(omega, retz[..., None, :])
+    spec = retz - xreg._rowdot(X, fr[..., None, :])
+    out = ctx["fused_out"]
+    eye = torch.eye(K, device=X.device)
+    F0 = torch.where(out.nw_valid[:, None, None], out.nw_cov, eye)
+    D0, U0 = batched_eigh(F0, canonical_signs=False)
+    s = torch.sqrt(torch.clamp_min(D0, 0.0))
+    sim = ctx["sim_covs"]
+    sweeps = sim_sweeps_for(K, torch.float32, T)
+    var = out.eigen_cov.diagonal(dim1=-2, dim2=-1)
+    reg, eig = MIN_REGRESSION_DATES, MIN_EIGEN_DATES
+
+    ops = {
+        "regression_design": (
+            lambda r, c, st, i, v: xreg.regression_design(
+                r, c, st, i, v, n_industries=P)[0],
+            (m.ret, m.cap, m.styles, m.industry, m.valid), reg),
+        "sum over N, innermost (weights)": (
+            lambda w: w / w.sum(-1, keepdim=True), (w,), reg),
+        "rowdot X' capz (industry caps)": (
+            lambda a, b: xreg._rowdot(a, b[..., None, :]), (ind_oh, capz),
+            reg),
+        "matmul X @ R": (lambda a, b: a @ b, (X, R), reg),
+        "matmul XtW @ Xr (normal matrix)": (lambda a, b: a @ b, (XtW, Xr),
+                                            reg),
+        "pinv_psd (jacobi_eigh kernel + matmul)": (pinv_psd, (G,), reg),
+        "matmul R @ (Ginv @ XtW)": (lambda r, g, x: r @ (g @ x),
+                                    (R, Ginv, XtW), reg),
+        "rowdot omega ret (factor returns)": (
+            lambda o, r: xreg._rowdot(o, r[..., None, :]), (omega, retz),
+            reg),
+        "rowdot X f (residuals)": (
+            lambda x, f: xreg._rowdot(x, f[..., None, :]), (X, fr), reg),
+        "masked_var over N, innermost (r2)": (
+            lambda x, v: masked_var(x, v, dim=-1, ddof=0), (spec, valid),
+            reg),
+        "batched_eigh F0 (jacobi_eigh kernel)": (
+            lambda a: batched_eigh(a, canonical_signs=False)[0], (F0,), eig),
+        "_bias_ratios (weighted kernel, sort, mean over M)": (
+            lambda sc, d: _bias_ratios(
+                sc[:, None, :, None] * sim[None] * sc[:, None, None, :], d,
+                sweeps, True), (s, D0), eig),
+        "matmul U0 diag U0' (eigen rebuild)": (
+            lambda u, d: (u * d[:, None, :]) @ u.transpose(-1, -2), (U0, D0),
+            eig),
+        "mean over K (vol-regime bias statistic)": (
+            lambda f, v: (f ** 2 / v).mean(dim=-1), (out.factor_ret, var), 1),
+    }
+    dev = X.device
+    res = {}
+    for name, (fn, args, copies) in ops.items():
+        full = fn(*args)
+
+        def matches(rows):
+            return same(fn(*(keep_layout(a, a[rows]) for a in args)),
+                        full[rows])
+
+        res[name] = {
+            "slab": matches(torch.arange(SERVE_T0, T, device=dev)),
+            "copies": copies,
+            "mismatches": sum(
+                not matches(torch.tensor([t] * copies, device=dev))
+                for t in range(SERVE_T0, T))}
+    emit("serve_bitwise_ops", dates=T - SERVE_T0, ops=res)
+    moved = [k for k, r in res.items() if not r["slab"] or r["mismatches"]]
+    require(not moved, f"serve_bitwise_ops: these ops give a date other bits "
+            f"at an update's batch size: {moved}")
+    return res
+
+
+def serve_guarded(ctx) -> dict:
+    """Phase serve_guarded: update_guarded over a slab with one
+    NaN-poisoned date, against the same slab with the date cut out."""
+    import numpy as np
+
+    from mfm_tpu_torch import RiskModelConfig
+    from mfm_tpu_torch.config import QuarantinePolicy
+    from mfm_tpu_torch.convert import budget_check, outputs_to_numpy
+    from mfm_tpu_torch.ops.eigh_cuda import reset_launches
+    from mfm_tpu_torch.serve.guard import REASON_NAN_DENSITY
+
+    model, panel, sim_covs, T = (ctx["model"], ctx["panel"],
+                                 ctx["sim_covs"], ctx["T"])
+    T0, off = SERVE_T0, 10
+    gcfg = RiskModelConfig(quarantine=QuarantinePolicy(enabled=True))
+    t_bad = T0 + off
+    ret = panel[0].copy()
+    universe = np.nonzero(panel[4][t_bad])[0]
+    ret[t_bad, universe[: int(round(0.6 * len(universe)))]] = np.nan
+    bad = (ret,) + tuple(panel[1:])
+
+    (_, gst), init_s = timed(lambda: model(slice(0, T0), gcfg).init_state(
+        sim_covs=sim_covs, sim_length=T))
+    reset_launches()
+    (o_g, rep, st_g), slab_s = timed(
+        lambda: model(slice(T0, T), gcfg, bad).update_guarded(gst))
+    slab_launches = serving_launches(1, "serve_guarded slab")
+    q = rep.quarantined.cpu()
+    reasons = rep.reasons.cpu()
+    keep = np.r_[T0:t_bad, t_bad + 1:T]
+    o_c, _, st_c = model(keep, gcfg).update_guarded(gst)
+    healthy = np.r_[0:off, off + 1:T - T0]
+    cut_rows = compare_rows(suffix_rows(o_g, healthy), o_c)
+    cut_carries = compare_carries(st_g, st_c, guard=True)
+    served_ok = same(rep.served_cov[off], o_g.vr_cov[off - 1]) and \
+        bool(o_g.eigen_valid[off - 1])
+
+    # a clean slab: the guards change nothing
+    o_clean, rep_clean, _ = model(slice(T0, T), gcfg).update_guarded(gst)
+    o_u, _ = model(slice(T0, T)).update(ctx["unguarded_init"])
+    _, failed = budget_check(outputs_to_numpy(o_clean), outputs_to_numpy(o_u),
+                             ctx["budget"])
+
+    st, walls = gst, []
+    reset_launches()
+    for t in range(T0, T):
+        (_, _, st), dt = timed(
+            lambda: model(slice(t, t + 1), gcfg, bad).update_guarded(st))
+        walls.append(dt)
+    per_update = serving_launches(T - T0, "serve_guarded")
+    singles_carries = compare_carries(st, st_g, guard=True)
+    res = {
+        "T0": T0, "poisoned_offset": off, "init_state_s": init_s,
+        "slab_update_s": slab_s, "slab_launches": slab_launches,
+        "quarantined": np.nonzero(q.numpy())[0].tolist(),
+        "reasons_at_poisoned": int(reasons[off]),
+        "staleness_at_poisoned": int(rep.staleness[off]),
+        "served_is_last_healthy_vr_cov": served_ok,
+        "cut_slab_rows": cut_rows, "cut_slab_carries": cut_carries,
+        "clean_vs_unguarded": compare_rows(o_clean, o_u),
+        "clean_quarantined": int(rep_clean.quarantined.sum()),
+        "clean_budget_failed": failed,
+        "quarantine_count": int(st.quarantine_count),
+        "singles_vs_slab_carries": singles_carries,
+        "update_wall": wall_stats(walls),
+        "launches_per_update": per_update,
+    }
+    emit("serve_guarded", **res)
+    require(res["quarantined"] == [off]
+            and res["reasons_at_poisoned"] & REASON_NAN_DENSITY,
+            "serve_guarded: the poisoned date, and only it, must quarantine "
+            "with the nan_density bit")
+    require(served_ok and res["staleness_at_poisoned"] == 1,
+            "serve_guarded: the quarantined date must serve the last healthy "
+            "vr_cov at staleness 1")
+    require(cut_carries["bitwise"],
+            f"serve_guarded: carries differ from the cut slab's: {cut_carries}")
+    require(not failed and res["clean_quarantined"] == 0
+            and res["clean_vs_unguarded"]["bitwise"],
+            f"serve_guarded: a clean guarded slab is not the unguarded one: "
+            f"{failed}")
+    require(res["quarantine_count"] == 1 and singles_carries["bitwise"],
+            "serve_guarded: the single-date loop must quarantine once and "
+            "land on the slab's carries")
+    ctx["guarded_init"], ctx["gcfg"], ctx["bad"] = gst, gcfg, bad
+    return res
+
+
+def serve_incremental(ctx) -> dict:
+    """Phase serve_incremental: the causal eigen mode, init on [0:T0] and
+    the rest as single-date updates and as a slab, against the full
+    incremental init."""
+    from mfm_tpu_torch import RiskModelConfig
+    from mfm_tpu_torch.convert import budget_check, outputs_to_numpy
+    from mfm_tpu_torch.models.eigen import draw_bucket, simulated_eigen_draws
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+
+    model, T, K, M = ctx["model"], ctx["T"], ctx["K"], ctx["M"]
+    T0 = SERVE_T0
+    icfg = RiskModelConfig(eigen_incremental=True)
+    bucket = draw_bucket(T)
+    d_big = simulated_eigen_draws(icfg.seed, K, bucket, M,
+                                  device=ctx["device"])
+    d_half = simulated_eigen_draws(icfg.seed, K, bucket // 2, M,
+                                   device=ctx["device"])
+    prefix_ok = bool(torch.equal(d_big[..., : bucket // 2], d_half))
+    del d_big, d_half
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    (_, st0), init_s = timed(lambda: model(slice(0, T0), icfg).init_state())
+    init_launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    (full_out, full_state), init_full_s = timed(
+        lambda: model(slice(0, T), icfg).init_state())
+
+    st, rows, walls = st0, [], []
+    reset_launches()
+    for t in range(T0, T):
+        (o, st), dt = timed(lambda: model(slice(t, t + 1), icfg).update(st))
+        rows.append(o)
+        walls.append(dt)
+    per_update = serving_launches(T - T0, "serve_incremental")
+    o_slab, st_slab = model(slice(T0, T), icfg).update(st0)
+    seq_rows, want = cat_rows(rows), suffix(full_out, T0)
+    _, failed = budget_check(outputs_to_numpy(seq_rows),
+                             outputs_to_numpy(want), ctx["budget"])
+    _, failed_slab = budget_check(outputs_to_numpy(o_slab),
+                                  outputs_to_numpy(want), ctx["budget"])
+    carries = {"singles_vs_slab": compare_carries(st, st_slab),
+               "slab_vs_full": compare_carries(st_slab, full_state)}
+    res = {
+        "T0": T0, "bucket": bucket, "prefix_half_bucket_bitwise": prefix_ok,
+        "init_bucket": st0.eig_draws.shape[-1],
+        "init_state_s": init_s, "init_state_full_s": init_full_s,
+        "init_launches": init_launches, "init_peak_mem_gb": peak_gb,
+        "singles_vs_full": compare_rows(seq_rows, want),
+        "slab_vs_full": compare_rows(o_slab, want),
+        "carries": carries, "budget_failed": failed + failed_slab,
+        "update_wall": wall_stats(walls),
+        "launches_per_update": per_update,
+    }
+    emit("serve_incremental", **res)
+    require(prefix_ok and full_state.eig_draws.shape[-1] == bucket,
+            f"serve_incremental: the {bucket // 2} draw bucket is not the "
+            f"prefix of the {bucket} one the full init uses")
+    require(not failed and not failed_slab,
+            f"serve_incremental rows outside the risk budgets: "
+            f"{failed + failed_slab}")
+    require(all(c["bitwise"] for c in carries.values()),
+            f"serve_incremental: carries differ: {carries}")
+    require(res["singles_vs_full"]["bitwise"]
+            and res["slab_vs_full"]["bitwise"],
+            "serve_incremental: the updates' rows are not bitwise the full "
+            "init's")
+    return res
+
+
+def serve_checkpoint(ctx) -> dict:
+    """Phase serve_checkpoint: the guarded state through save_risk_state /
+    load_risk_state, the next update_guarded bitwise the in-memory one,
+    and the torn and stale refusals."""
+    import tempfile
+
+    from mfm_tpu_torch.data.artifacts import (
+        ArtifactCorruptError,
+        ArtifactStaleError,
+        load_risk_state,
+        save_risk_state,
+    )
+
+    model, gcfg, bad, gst = (ctx["model"], ctx["gcfg"], ctx["bad"],
+                             ctx["guarded_init"])
+    T0, T = SERVE_T0, ctx["T"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        _, save_s = timed(lambda: save_risk_state(path, gst))
+        (loaded, meta), load_s = timed(
+            lambda: load_risk_state(path, ctx["device"]))
+        size = os.path.getsize(path)
+        on_card = all(x.device.type == ctx["device"]
+                      for x in carry_leaves(loaded, True).values())
+        mem = model(slice(T0, T), gcfg, bad).update_guarded(gst)
+        dsk = model(slice(T0, T), gcfg, bad).update_guarded(loaded)
+        rows = compare_rows(dsk[0], mem[0])
+        report = all(same(a, b) for a, b in zip(dsk[1], mem[1]))
+        carries = compare_carries(dsk[2], mem[2], guard=True)
+
+        old = Path(path).read_bytes()
+        save_risk_state(path, gst)
+        Path(path).write_bytes(old)
+        try:
+            load_risk_state(path, ctx["device"])
+            stale = False
+        except ArtifactStaleError:
+            stale = True
+        torn = os.path.join(tmp, "torn.npz")
+        save_risk_state(torn, gst)
+        data = Path(torn).read_bytes()
+        Path(torn).write_bytes(data[: len(data) // 2])
+        try:
+            load_risk_state(torn, ctx["device"])
+            corrupt = False
+        except ArtifactCorruptError:
+            corrupt = True
+    res = {"save_s": save_s, "load_s": load_s, "bytes": size,
+           "generation": meta["generation"], "loaded_on_card": on_card,
+           "rows": rows, "report_bitwise": report, "carries": carries,
+           "stale_refused": stale, "torn_refused": corrupt}
+    emit("serve_checkpoint", **res)
+    require(on_card and rows["bitwise"] and report and carries["bitwise"],
+            "serve_checkpoint: the loaded state does not continue bitwise")
+    require(stale and corrupt,
+            "serve_checkpoint: a stale or torn checkpoint was not refused")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -321,6 +839,10 @@ def main() -> int:
     from mfm_tpu_torch.convert import budget_check, outputs_to_numpy
     from mfm_tpu_torch.data.synthetic import CSI300, synthetic_risk_inputs
     from mfm_tpu_torch.models.eigen import sim_sweeps_for, simulated_eigen_covs
+    from mfm_tpu_torch.models.risk_model import (
+        MIN_EIGEN_DATES,
+        MIN_REGRESSION_DATES,
+    )
     from mfm_tpu_torch.ops import _build
     from mfm_tpu_torch.ops import eigh as E
     from mfm_tpu_torch.ops.eigh_cuda import (
@@ -428,6 +950,21 @@ def main() -> int:
     emit("main_path_profile", **profile_run(
         lambda: rm.run_fused(sim_covs=sim_covs, sim_length=T)))
 
+    # -- phase 5: the daily serving step at CSI300 width -------------------
+    def serve_model(sl, cfg=config, data=panel):
+        return RiskModel(*(p[sl] for p in data), n_industries=P, config=cfg,
+                         device="cuda")
+
+    ctx = {"model": serve_model, "panel": panel, "sim_covs": sim_covs,
+           "T": T, "K": K, "M": M, "fused_out": out, "device": "cuda",
+           "budget": budget["risk"]}
+    serving = serve_update(ctx)
+    serve_bitwise_ops(ctx)
+    serve_guarded(ctx)
+    serve_incremental(ctx)
+    serve_checkpoint(ctx)
+    del ctx
+
     # -- phase 4: each kernel at the main path's shapes --------------------
     # the inputs are the ones this run's eigen stage gave the kernels
     eye = torch.eye(K, device="cuda")
@@ -500,14 +1037,58 @@ def main() -> int:
                     design_ceiling_ms=1e3 * t_ops * 2 * 32 / (n // 2),
                     flops=ops, bytes=in_bytes + out_bytes)
 
-    B, Bf = G.shape[0], F0.shape[0]
-    bounds = {
-        "weighted": bound(B, K, sw * (K - 1), 4 * B * (K * K + K),
-                          4 * B * 2 * K, extra_ops=3 * K * K * B),
-        "full": bound(Bf, K, sf * (K - 1), 4 * Bf * K * K,
-                      4 * Bf * (K * K + K)),
+    bound_of = {
+        "weighted": lambda b: bound(b, K, sw * (K - 1), 4 * b * (K * K + K),
+                                    4 * b * 2 * K, extra_ops=3 * K * K * b),
+        "full": lambda b: bound(b, K, sf * (K - 1), 4 * b * K * K,
+                                4 * b * (K * K + K)),
     }
+    B, Bf = G.shape[0], F0.shape[0]
+    bounds = {"weighted": bound_of["weighted"](B), "full": bound_of["full"](Bf)}
     emit("kernel_bounds", **bounds)
+
+    # each kernel at the shapes a one-date update launches, held against
+    # its plain version there first: the regression runs
+    # MIN_REGRESSION_DATES copies of the date (the pinv's normal matrices,
+    # n=41 padded to 42), the eigen stage MIN_EIGEN_DATES copies (the F0s,
+    # and M simulated matrices each); and at one copy's, 1 and M
+    serve_calls = {
+        "weighted": lambda b: _launch_weighted(G[-b:], d0[-b:], sw, "warp"),
+        "full": lambda b: _launch_eigh(F0[-b:], sf, "warp"),
+    }
+    serve_batches = {"weighted": [MIN_EIGEN_DATES * M],
+                     "full": [MIN_EIGEN_DATES, MIN_REGRESSION_DATES]}
+    one_copy = {"weighted": M, "full": 1}
+    checks = {}
+    for key, batches in serve_batches.items():
+        for b in batches + [one_copy[key]]:
+            got = serve_calls[key](b)
+            sync()
+            if key == "full":
+                want = E.jacobi_eigh_slots(F0[-b:], sf)
+                ok = all(map(torch.equal, got, want))
+            else:
+                want = E.jacobi_eigh_weighted_diag_slots(G[-b:], d0[-b:], sw)
+                ok = (torch.equal(got[0], want[0])
+                      and rel_per_matrix(got[1], want[1]) <= 1e-4)
+            checks[f"{key}@{b}"] = bool(ok)
+    A41 = F0[-MIN_REGRESSION_DATES:, :K - 1, :K - 1].contiguous()
+    pinv_rel = rel_per_matrix(E.pinv_psd(A41), E.pinv_psd(A41, kernels=False))
+    checks[f"pinv_psd@{MIN_REGRESSION_DATES}"] = pinv_rel <= 1e-4
+    serve = {
+        key: {"serve_shapes": [[b, K, K] for b in batches],
+              "serve_ms": [time_ms(lambda: serve_calls[key](b), 200)
+                           for b in batches],
+              "serve_one_copy_ms": time_ms(
+                  lambda: serve_calls[key](one_copy[key]), 200)}
+        for key, batches in serve_batches.items()}
+    emit("serve_kernel_times", checks=checks, pinv_rel=pinv_rel, **{
+        key: {**serve[key], "serve_bound_ms": [
+            bound_of[key](b)["bound_ms"] for b in serve_batches[key]]}
+        for key in serve})
+    require(all(checks.values()),
+            f"a kernel disagrees with its plain version at an update's "
+            f"shape: {checks}")
 
     def entry(name, key, replaces, err, shape, sweeps, kernel):
         return {"name": name, "route": "cuda", "design": "warp",
@@ -518,7 +1099,10 @@ def main() -> int:
                 "bound_by": bounds[key]["bound_by"],
                 "prev_design": "block", "prev_design_source": SOURCES["block"],
                 "registers": ptxas[kernel]["registers"],
-                "spill_bytes": ptxas[kernel]["spill_bytes"]}
+                "spill_bytes": ptxas[kernel]["spill_bytes"],
+                "serve_launches_per_update":
+                    serving["launches_per_update"][f"{name}/warp"],
+                **serve[key]}
 
     kernels = [
         entry("jacobi_eigh_weighted", "weighted",

@@ -12,18 +12,27 @@ versions.
 
 Layout
 ------
-- :mod:`mfm_tpu_torch.config`  — ``RiskModelConfig``
+- :mod:`mfm_tpu_torch.config`  — ``RiskModelConfig``, ``QuarantinePolicy``
 - :mod:`mfm_tpu_torch.ops`     — masked cross-sections, batched Jacobi eigh,
                                  the constrained WLS regression
 - :mod:`mfm_tpu_torch.models`  — Newey-West, eigenfactor adjustment,
-                                 vol-regime adjustment, ``RiskModel``
-- :mod:`mfm_tpu_torch.convert` — reference config / numpy panels -> port
-- :mod:`mfm_tpu_torch.data`    — seeded synthetic panels
+                                 vol-regime adjustment, ``RiskModel`` and
+                                 its resumable ``RiskModelState``
+- :mod:`mfm_tpu_torch.serve`   — the daily serving step's input guards
+- :mod:`mfm_tpu_torch.convert` — reference config / numpy panels / states
+                                 -> port, and results back
+- :mod:`mfm_tpu_torch.data`    — seeded synthetic panels, fenced npz
+                                 checkpoints
 """
 
-from mfm_tpu_torch.config import RiskModelConfig
-from mfm_tpu_torch.models.risk_model import RiskModel, RiskModelOutputs
+from mfm_tpu_torch.config import QuarantinePolicy, RiskModelConfig
+from mfm_tpu_torch.models.risk_model import (
+    RiskModel,
+    RiskModelOutputs,
+    RiskModelState,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["RiskModel", "RiskModelConfig", "RiskModelOutputs"]
+__all__ = ["QuarantinePolicy", "RiskModel", "RiskModelConfig",
+           "RiskModelOutputs", "RiskModelState"]

@@ -1,4 +1,5 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the one host read
+of a per-date mask."""
 
 from __future__ import annotations
 
@@ -19,3 +20,14 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path on "
             "the host")
     return dev
+
+
+def host_flags(mask, T: int) -> list[bool]:
+    """A (T,) per-date bool mask (tensor or sequence; None means no date)
+    as a host list — one device read for a mask that lives on the card."""
+    if mask is None:
+        return [False] * T
+    flags = [bool(x) for x in torch.as_tensor(mask).reshape(-1).tolist()]
+    if len(flags) != T:
+        raise ValueError(f"skip_mask has {len(flags)} dates, the slab {T}")
+    return flags

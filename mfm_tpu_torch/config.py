@@ -1,11 +1,9 @@
 """Configuration of the covariance stack (counterpart of ``mfm_tpu/config.py``).
 
-Only :class:`RiskModelConfig` is ported in this slice: the fields that
-``RiskModel.run`` and ``run_fused`` read, with the same defaults and
-validation.  The reference's serving-loop ``quarantine`` policy arrives
-with the stateful serving slice (ROADMAP.md §A 7).  Settings whose
-implementation has not been ported yet raise ``NotImplementedError``
-instead of being ignored.
+:class:`RiskModelConfig` and the serving loop's :class:`QuarantinePolicy`,
+with the reference's fields, defaults, validation and ``identity()``.
+Settings whose implementation has not been ported yet raise
+``NotImplementedError`` instead of being ignored.
 """
 
 from __future__ import annotations
@@ -15,6 +13,49 @@ import dataclasses
 
 def _is_count(x) -> bool:
     return isinstance(x, int) and not isinstance(x, bool) and x >= 1
+
+
+@dataclasses.dataclass(frozen=True)
+class QuarantinePolicy:
+    """Input-guard thresholds for the daily serving loop (serve/guard.py).
+
+    Disabled by default: the full-history fit trusts its inputs; the
+    serving path, appending slabs from a live feed, is where a bad date
+    must be caught before it enters the Newey-West / vol-regime carries.
+    A date that trips any check is quarantined: the model serves the last
+    healthy covariance with a staleness counter and the carries skip the
+    date entirely.  The thresholds decide which dates enter the sums, so
+    they are part of :meth:`RiskModelConfig.identity`.
+    """
+
+    enabled: bool = False
+    #: quarantine when the non-finite fraction of returns inside the
+    #: universe exceeds this
+    max_nan_frac: float = 0.05
+    #: |ret - median| > mad_k * MAD marks an outlier cell; the date is
+    #: quarantined when the outlier fraction exceeds ``max_outlier_frac``
+    mad_k: float = 10.0
+    max_outlier_frac: float = 0.05
+    #: quarantine when the universe falls below this fraction of the
+    #: trailing-median universe over ``universe_window`` healthy dates
+    min_universe_frac: float = 0.5
+    universe_window: int = 63
+
+    def identity(self) -> tuple:
+        return (self.enabled, self.max_nan_frac, self.mad_k,
+                self.max_outlier_frac, self.min_universe_frac,
+                self.universe_window)
+
+    def __post_init__(self):
+        if not _is_count(self.universe_window):
+            raise ValueError(f"universe_window must be a positive int, "
+                             f"got {self.universe_window!r}")
+        for name in ("max_nan_frac", "max_outlier_frac", "min_universe_frac"):
+            v = getattr(self, name)
+            if not 0.0 <= float(v) <= 1.0:
+                raise ValueError(f"{name} must be in [0, 1], got {v!r}")
+        if float(self.mad_k) <= 0:
+            raise ValueError(f"mad_k must be positive, got {self.mad_k!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,15 +79,21 @@ class RiskModelConfig:
     eigen_incremental: bool = False
     vol_regime_half_life: float = 42.0
     seed: int = 0
+    #: serving-loop input guards and degraded mode (serve/guard.py)
+    quarantine: QuarantinePolicy = dataclasses.field(
+        default_factory=QuarantinePolicy)
 
     def identity(self) -> tuple:
         """Every field that can change the numbers (``eigen_chunk`` is an
-        execution knob: chunked and full-batch runs are identical)."""
+        execution knob: chunked and full-batch runs are identical).  Equal
+        to the reference's tuple, so checkpoints stamp alike in both
+        packages."""
         return (
             self.nw_lags, self.nw_half_life, self.nw_method,
             self.eigen_n_sims, self.eigen_scale_coef, self.eigen_sim_length,
             self.eigen_sim_sweeps, self.eigen_mc_dtype,
             self.eigen_incremental, self.vol_regime_half_life, self.seed,
+            self.quarantine.identity(),
         )
 
     def __post_init__(self):
@@ -84,7 +131,4 @@ class RiskModelConfig:
         if self.eigen_mc_dtype is not None:
             raise NotImplementedError(
                 "eigen_mc_dtype='bfloat16' is not ported yet "
-                "(ROADMAP.md §A 7)")
-        if self.eigen_incremental:
-            raise NotImplementedError(
-                "eigen_incremental=True is not ported yet (ROADMAP.md §A 7)")
+                "(ROADMAP.md §A 8)")

@@ -1,14 +1,18 @@
 """Carry a reference run's state across to the port, and results back.
 
 The risk model has no trained weights; what both packages must share to
-compute the same thing is the configuration, the panel, and the
-Monte-Carlo ``sim_covs`` (M, K, K) — the random draws cannot match between
-``jax.random`` and ``torch.Generator``, so a comparison injects them.
+compute the same thing is the configuration, the panel, the Monte-Carlo
+``sim_covs`` (M, K, K) — the random draws cannot match between
+``jax.random`` and ``torch.Generator``, so a comparison injects them — and,
+for the serving step, the resumable state.
 
 - :func:`config_from_reference` builds the port's ``RiskModelConfig`` from
   the reference config's fields as a plain dict (``dataclasses.asdict``);
 - :func:`to_port` turns the numpy panel and ``sim_covs`` into tensors;
-- :func:`outputs_to_numpy` brings a ``RiskModelOutputs`` back to numpy;
+- :func:`state_from_reference` loads a checkpoint the reference wrote;
+- :func:`outputs_to_numpy`, :func:`state_to_numpy` and
+  :func:`report_to_numpy` bring outputs, states and guard reports back to
+  numpy, in the reference's dtypes and npz keys;
 - :func:`budget_check` holds two sets of outputs against the per-stage
   float32 budgets of ``tools/parity_budget.json``.
 """
@@ -21,7 +25,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from mfm_tpu_torch.config import RiskModelConfig
+from mfm_tpu_torch.config import QuarantinePolicy, RiskModelConfig
+from mfm_tpu_torch.data.artifacts import load_risk_state, state_arrays
 
 _PANEL = ("ret", "cap", "styles", "industry", "valid")
 
@@ -29,15 +34,15 @@ _PANEL = ("ret", "cap", "styles", "industry", "valid")
 def config_from_reference(fields: Mapping) -> RiskModelConfig:
     """The port's config from the reference ``RiskModelConfig``'s fields.
 
-    The reference's ``quarantine`` policy is accepted only while disabled
-    (the serving slice ports it), and a ``mesh`` entry only at one shard
-    per axis (the port runs on one device); unknown fields raise.
+    The ``quarantine`` policy's dict becomes a :class:`QuarantinePolicy`;
+    a ``mesh`` entry is accepted only at one shard per axis (the port runs
+    on one device); unknown fields raise.
     """
     fields = dict(fields)
-    quarantine = fields.pop("quarantine", None) or {}
-    if quarantine.get("enabled", False):
-        raise NotImplementedError(
-            "the quarantine policy is not ported yet (ROADMAP.md §A 7)")
+    quarantine = fields.pop("quarantine", None)
+    if quarantine is not None:
+        fields["quarantine"] = (quarantine if isinstance(
+            quarantine, QuarantinePolicy) else QuarantinePolicy(**quarantine))
     mesh = fields.pop("mesh", None) or {}
     if any(v > 1 for v in mesh.values()):
         raise NotImplementedError(
@@ -72,6 +77,30 @@ def to_port(arrays: Mapping, device, dtype=torch.float32) -> dict:
 def outputs_to_numpy(outputs) -> dict:
     """``RiskModelOutputs`` -> ``{field: numpy array}``."""
     return {k: v.detach().cpu().numpy() for k, v in outputs._asdict().items()}
+
+
+def state_from_reference(npz_path: str, device=None):
+    """A ``RiskModelState`` from a checkpoint the reference's
+    ``save_risk_state`` wrote — the format is shared, so this is the
+    port's :func:`~mfm_tpu_torch.data.artifacts.load_risk_state`, tensors
+    on ``device`` (None: the card).  Returns ``(state, meta)``."""
+    return load_risk_state(npz_path, device)
+
+
+def state_to_numpy(state) -> dict:
+    """A ``RiskModelState``'s arrays under the checkpoint's npz keys, plus
+    ``sim_length``, ``eigen_batch_hint`` and ``stamp``."""
+    arrays, _ = state_arrays(state)
+    return {**arrays, "sim_length": state.sim_length,
+            "eigen_batch_hint": state.eigen_batch_hint, "stamp": state.stamp}
+
+
+def report_to_numpy(report) -> dict:
+    """A ``GuardReport`` -> ``{field: numpy array}``, ``reasons`` as the
+    reference's uint32."""
+    out = {k: v.detach().cpu().numpy() for k, v in report._asdict().items()}
+    out["reasons"] = out["reasons"].astype(np.uint32)
+    return out
 
 
 def budget_check(got: Mapping, want: Mapping, budget: Mapping):

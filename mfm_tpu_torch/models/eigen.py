@@ -15,16 +15,22 @@ are the simulated eigenvalues and ``D_hat_i = sum_k W_ki^2 D0_k``; and all
 (T, M) decompositions run as ONE flat batch — the weighted Jacobi kernel
 on the card, which never writes the eigenvectors out.
 
-Draws come from an explicit ``torch.Generator``; they cannot match
-``jax.random``'s, so parity with the reference injects ``sim_covs``.
-Not ported in this slice: the bfloat16 Monte-Carlo, the incremental
-(causal) mode and the device-mesh branch (ROADMAP.md §A 7, §A 16).
+The incremental (causal) mode, :func:`eigen_risk_adjust_incremental`,
+re-estimates the simulated covariances at each date from the draw columns
+consumed so far, carried as exact raw prefix moments, so a daily update
+is the suffix of the full-history run.
+
+Draws come from explicit ``torch.Generator``s; they cannot match
+``jax.random``'s, so parity with the reference injects ``sim_covs`` (or
+the incremental mode's draw tensor).  Not ported in this slice: the
+bfloat16 Monte-Carlo and the device-mesh branch (ROADMAP.md §A 8, §A 16).
 """
 
 from __future__ import annotations
 
 import torch
 
+from mfm_tpu_torch._device import host_flags
 from mfm_tpu_torch.ops.eigh import (
     _sweeps_for,
     batched_eigh,
@@ -67,6 +73,67 @@ def simulated_eigen_covs(generator: torch.Generator, n_factors: int,
                         dtype=dtype, device=generator.device)
     d = draws - draws.mean(dim=-1, keepdim=True)
     return (d @ d.transpose(-1, -2)) / (sim_length - 1)
+
+
+def draw_bucket(T: int) -> int:
+    """Power-of-two draw-bucket capacity >= T (floor 64): the incremental
+    mode's draw tensor is regenerated only when the history crosses a
+    power of two."""
+    b = 64
+    while b < T:
+        b *= 2
+    return b
+
+
+def _fmix32(h: int) -> int:
+    """MurmurHash3's 32-bit finalizer, a bijection on [0, 2**32)."""
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+    return h ^ (h >> 16)
+
+
+def _column_seed(seed: int, t: int) -> int:
+    """The CPU generator seed of draw column ``t``.  The CPU generator
+    keeps only 32 bits of a seed, so (seed, t) is mixed into 32 bits, one
+    to one in t for a given seed: no two columns of a tensor repeat."""
+    key = _fmix32((seed ^ (seed >> 32)) & 0xFFFFFFFF)
+    return _fmix32(key ^ (t & 0xFFFFFFFF))
+
+
+def simulated_eigen_draws(seed: int, n_factors: int, bucket: int,
+                          n_sims: int, dtype=torch.float32,
+                          device=None) -> torch.Tensor:
+    """The frozen (M, K, bucket) standard-normal draw tensor behind the
+    incremental mode, generated **per column**: column t is
+    ``torch.randn((M, K))`` from a CPU generator seeded with (seed, t),
+    then the tensor moves to ``device``.
+
+    Per-column generation makes a bigger bucket a strict prefix-extension
+    of a smaller one, bitwise, so a bucket rollover rewrites no column
+    already consumed.  One ``torch.randn((M, K, bucket))`` would not: its
+    values depend on the total count (and on CUDA, Philox's offsets do).
+    Drawing on the CPU gives the same tensor on every device, so the CPU
+    tests pin what the card uses.  The values cannot match the reference's
+    ``jax.random.fold_in`` draws; parity tests inject the draw tensor.
+    """
+    cols = [torch.randn((n_sims, n_factors), dtype=dtype,
+                        generator=torch.Generator().manual_seed(
+                            _column_seed(seed, t)))
+            for t in range(bucket)]
+    return torch.stack(cols, dim=-1).to(device)
+
+
+def eigen_carry_init(n_sims: int, n_factors: int, dtype=torch.float32,
+                     device=None) -> tuple:
+    """The ``(R, p, n)`` raw prefix moments of the incremental mode before
+    any date: R (M, K, K) sum of per-column outer products, p (M, K)
+    column sum, n (int32) columns consumed."""
+    return (torch.zeros((n_sims, n_factors, n_factors), dtype=dtype,
+                        device=device),
+            torch.zeros((n_sims, n_factors), dtype=dtype, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
 
 
 # working-set accounting for the chunked Monte-Carlo: the G tensor itself
@@ -187,9 +254,89 @@ def eigen_risk_adjust_by_time(
         v2 = torch.cat([v2_of(s[a:a + chunk], D0[a:a + chunk])
                         for a in range(0, T, chunk)])
 
+    return _rebuild(U0, D0, v2, scale_coef, valid & psd)
+
+
+def _rebuild(U0, D0, v2, scale_coef, ok):
+    """F0_hat = U0 diag(v^2 D0) U0' with v scaled from the bias ratios v2;
+    NaN where ``ok`` is False."""
     v = scale_coef * (torch.sqrt(v2) - 1.0) + 1.0
     out = (U0 * (v * v * D0)[:, None, :]) @ U0.transpose(-1, -2)
-    ok = valid & psd
     out = torch.where(ok[:, None, None], out,
                       torch.full_like(out, float("nan")))
     return out, ok
+
+
+@highest_matmul_precision
+def eigen_risk_adjust_incremental(
+    covs: torch.Tensor,
+    valid: torch.Tensor,
+    draws: torch.Tensor,
+    carry: tuple,
+    scale_coef: float = 1.4,
+    *,
+    sim_sweeps: int | None = None,
+    chunk: int | None = None,
+    skip_mask=None,
+    kernels: bool = True,
+):
+    """Causal (expanding-draw) eigen adjustment, the incremental mode.
+
+    Each date that is not skipped consumes the next column of the frozen
+    per-column ``draws`` (M, K, bucket) (:func:`simulated_eigen_draws`) and
+    folds it into the raw prefix moments ``carry = (R, p, n)``
+    (:func:`eigen_carry_init`) BEFORE its own bias is measured, so date t's
+    simulated covariances ``C_m(t) = (R - p p'/n) / (n - 1)`` estimate
+    from exactly the draws available at date t.  The moment recursion runs
+    date by date in order and the carry is exact, so a slab resumed from a
+    carry is bitwise the suffix of the full-history run, for any chunk or
+    slab boundary.  Each product is rounded before its sum (``o = x x'``
+    before ``R + o``, ``mu p'`` before ``R - mu p'``), as in the
+    reference; PyTorch rounds every op, so no fused multiply-add can
+    change that between runs.  Dates with n < 2 get the identity (they
+    are Newey-West-invalid anyway).
+
+    ``skip_mask`` ((T,) bool, read to the host once) excises dates: a
+    skipped date consumes no column and leaves (R, p, n) untouched.
+    ``sim_sweeps`` is resolved by the caller from the running count
+    (:func:`sim_sweeps_for`).  ``chunk`` bounds the (chunk, M, K, K) G
+    transient; chunked == unchunked.  Returns ``(out, ok, carry_out)``.
+    """
+    T, K = covs.shape[0], covs.shape[-1]
+    M = draws.shape[0]
+    eye = torch.eye(K, dtype=covs.dtype, device=covs.device)
+    safe = torch.where(valid[:, None, None], covs, eye)
+    # sign-invariant F0 basis, as in eigen_risk_adjust_by_time
+    D0, U0 = batched_eigh(safe, canonical_signs=False, kernels=kernels)
+    psd = D0[..., 0] >= 0
+    s = torch.sqrt(torch.clamp_min(D0, 0.0))
+    skip = host_flags(skip_mask, T)
+
+    R, p, n = carry
+    n = int(n)
+    step = T if chunk is None or chunk >= T else chunk
+    v2 = []
+    for a in range(0, T, step):
+        c = min(step, T - a)
+        Cs = torch.empty((c, M, K, K), dtype=covs.dtype, device=covs.device)
+        for i in range(c):
+            if not skip[a + i]:
+                x = draws[:, :, n]  # column n: the next unconsumed draw
+                o = x[:, :, None] * x[:, None, :]
+                R = R + o
+                p = p + x
+                n += 1
+            if n >= 2:
+                mu = p / float(n)
+                pp = mu[:, :, None] * p[:, None, :]
+                Cs[i] = (R - pp) / float(n - 1)
+            else:
+                Cs[i] = eye
+        s_c = s[a:a + c]
+        G = s_c[:, None, :, None] * Cs * s_c[:, None, None, :]
+        v2.append(_bias_ratios(G, D0[a:a + c], sim_sweeps, kernels))
+    v2 = (torch.cat(v2) if v2
+          else torch.zeros((0, K), dtype=covs.dtype, device=covs.device))
+    out, ok = _rebuild(U0, D0, v2, scale_coef, valid & psd)
+    return out, ok, (R, p, torch.tensor(n, dtype=torch.int32,
+                                        device=covs.device))

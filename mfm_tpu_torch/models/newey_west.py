@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from mfm_tpu_torch._device import host_flags
 from mfm_tpu_torch.utils.prec import highest_matmul_precision
 
 
@@ -89,6 +90,7 @@ def newey_west_expanding(ret: torch.Tensor, q: int = 2,
 def newey_west_expanding_resume(
     ret: torch.Tensor, q: int = 2, half_life: float = 252.0,
     min_valid: int | None = None, carry: tuple | None = None,
+    skip_mask=None,
 ):
     """The "scan" method of :func:`newey_west_expanding`, checkpointable.
 
@@ -97,14 +99,22 @@ def newey_west_expanding_resume(
     :func:`nw_init_carry`); dates ``[0:T0]`` then ``[T0:T]`` from the
     returned carry give bitwise the covariances of one uninterrupted pass.
     ``q``, ``half_life`` and ``min_valid`` must match across resumed calls.
-    The reference's ``skip_mask`` (quarantined dates) comes with the
-    serving slice (ROADMAP.md §A 7).
+
+    ``skip_mask`` ((T,) bool tensor or sequence, the quarantine verdicts of
+    serve/guard.py) excises dates: at a masked date the whole carry passes
+    through unchanged — no decay, no ``t`` increment — so the carry after
+    (good, BAD, good) equals the carry after (good, good) bitwise.  The
+    mask is read to the host once (``t`` is a host integer here), and a
+    masked date's candidate carry is dropped, never blended in, so a NaN
+    in the date cannot reach the sums.  The masked date's stacked output V
+    is the discarded candidate and its ``valid`` is False.
     """
     T, K = ret.shape
     dtype, dev = ret.dtype, ret.device
     lam = torch.tensor(0.5, dtype=dtype, device=dev) ** (1.0 / half_life)
     kmin = K if min_valid is None else min_valid
     state = nw_init_carry(K, q, dtype, dev) if carry is None else carry
+    skip = host_flags(skip_mask, T)
     t = int(state[0])
     S, A, Z, Ps, hs, gs, Slags, xlags = state[1:]
     covs = torch.empty((T, K, K), dtype=dtype, device=dev)
@@ -134,6 +144,9 @@ def newey_west_expanding_resume(
                  + z_l * mumu) / Znew
             V = V + (1.0 - lag / (1.0 + q)) * (G + G.T)
         covs[i] = V
+        if skip[i]:
+            valid.append(False)
+            continue
         valid.append(t1 > q and t1 > kmin)
         t = t1
         S, A, Z = Snew, Anew, Znew

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from mfm_tpu_torch._device import host_flags
 
 def vr_init_carry(dtype, device=None) -> tuple:
     """The ``(num, den)`` EWMA state before any date — the resumable
@@ -39,14 +40,19 @@ def vol_regime_adjust_by_time(factor_ret, covs, valid, half_life: float = 42.0):
 
 
 def vol_regime_adjust_resume(factor_ret, covs, valid, half_life: float = 42.0,
-                             carry: tuple | None = None):
+                             carry: tuple | None = None, skip_mask=None):
     """:func:`vol_regime_adjust_by_time`, checkpointable.
 
     Returns ``(adjusted_covs, lamb, carry_out)``; ``carry`` resumes the
     ``(num, den)`` recursion from a previous call's ``carry_out``, so dates
-    ``[0:T0]`` then ``[T0:T]`` match one uninterrupted pass bitwise.  The
-    reference's ``skip_mask`` (quarantined dates) comes with the serving
-    slice (ROADMAP.md §A 7).
+    ``[0:T0]`` then ``[T0:T]`` match one uninterrupted pass bitwise.
+
+    ``skip_mask`` ((T,) bool, the quarantine verdicts) excises dates: at a
+    masked date ``(num, den)`` pass through unchanged.  That is stronger
+    than an invalid date, which still decays both sums; a quarantined date
+    leaves the time axis, so (good, BAD, good) matches (good, good)
+    bitwise.  The masked date's stored multiplier is the frozen carry's
+    ratio, the value a degraded-mode reader would see.
     """
     dtype, dev = factor_ret.dtype, factor_ret.device
     lam = torch.tensor(0.5, dtype=dtype, device=dev) ** (1.0 / half_life)
@@ -59,10 +65,12 @@ def vol_regime_adjust_resume(factor_ret, covs, valid, half_life: float = 42.0,
     T = B2z.shape[0]
 
     num, den = vr_init_carry(dtype, dev) if carry is None else carry
+    skip = host_flags(skip_mask, T)
     fvm2 = []
     for i in range(T):
-        num = lam * num + okf[i] * B2z[i]
-        den = lam * den + okf[i]
+        if not skip[i]:
+            num = lam * num + okf[i] * B2z[i]
+            den = lam * den + okf[i]
         # before any valid date numpy sums over empty arrays yield 0.0, not NaN
         fvm2.append(torch.where(den > 0, num / den, zero))
     fvm2 = torch.stack(fvm2) if T else torch.zeros((0,), dtype=dtype, device=dev)

@@ -17,6 +17,15 @@ leading T axis written out here:
 The per-date pseudo-inverse is hoisted into ONE batched
 :func:`~mfm_tpu_torch.ops.eigh.pinv_psd` over all T normal matrices — the
 Jacobi eigh kernel on the card.
+
+Every sum over the stocks runs over the innermost, contiguous dimension,
+so that a date's numbers do not depend on how many dates share the call
+(from 16 dates on; ``RiskModel`` pads a shorter slab) and a daily update
+is bitwise the suffix of a full-history run.  On the card a batched
+matrix-vector product (cuBLAS) and a reduction over an outer dimension
+both change their summation order with the batch size; matrix-matrix
+products and contiguous innermost reductions over 16 or more rows do
+not (``chip_smoke.py``, phase ``serve_bitwise_ops``).
 """
 
 from __future__ import annotations
@@ -28,6 +37,13 @@ import torch
 from mfm_tpu_torch.ops.eigh import pinv_psd
 from mfm_tpu_torch.ops.masked import masked_var, zscore_cap_weighted
 from mfm_tpu_torch.utils.prec import highest_matmul_precision
+
+
+def _rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b) over the last dimension — a batched matrix-vector
+    product as an elementwise product and a contiguous innermost sum,
+    whose per-row order does not depend on the number of rows."""
+    return (a * b).sum(dim=-1)
 
 
 class CrossSectionResult(NamedTuple):
@@ -77,8 +93,10 @@ def regression_design(ret, cap, styles, industry, valid, *, n_industries: int,
     zero = torch.zeros((), dtype=dtype, device=styles.device)
 
     if standardize_styles:
-        s = zscore_cap_weighted(styles, cap[..., None], valid[..., None],
-                                dim=-2)
+        # stocks innermost: the z-score's sums over N are contiguous
+        s = zscore_cap_weighted(styles.transpose(-1, -2).contiguous(),
+                                cap[..., None, :], valid[..., None, :],
+                                dim=-1).transpose(-1, -2)
     else:
         s = styles
     s = torch.where(valid[..., None], s, zero)
@@ -116,8 +134,8 @@ def _normal_equations(ret, cap, styles, industry, valid, *, n_industries,
     w = w / w.sum(dim=-1, keepdim=True)
 
     if P:
-        ind_oh = X[..., 1:1 + P]
-        ind_cap = (ind_oh.transpose(-1, -2) @ capz[..., None])[..., 0]
+        ind_oh = X[..., 1:1 + P].transpose(-1, -2).contiguous()  # (T, P, N)
+        ind_cap = _rowdot(ind_oh, capz[..., None, :])
         R = _constraint_matrix(ind_cap, Q)  # (T, K, K-1)
         Xr = X @ R  # (T, N, K-1)
     else:
@@ -135,8 +153,8 @@ def _solve_from_normal(normal: _NormalEq, Ginv: torch.Tensor, *,
     """Second half of the regression given ``Ginv = pinv(G)``."""
     X, retz, valid, R, XtW, _ = normal
     omega = Ginv @ XtW if R is None else R @ (Ginv @ XtW)  # (T, K, N)
-    factor_ret = (omega @ retz[..., None])[..., 0]  # (T, K)
-    spec = retz - (X @ factor_ret[..., None])[..., 0]
+    factor_ret = _rowdot(omega, retz[..., None, :])  # (T, K)
+    spec = retz - _rowdot(X, factor_ret[..., None, :])
     # equal-weight population variance over the date's universe
     r2 = 1.0 - masked_var(spec, valid, dim=-1, ddof=0) / masked_var(
         retz, valid, dim=-1, ddof=0)

@@ -278,7 +278,6 @@ def test_port_imports_neither_jax_nor_the_reference_package():
 
 
 @pytest.mark.parametrize("fields", [
-    {"eigen_incremental": True},
     {"eigen_mc_dtype": "bfloat16"},
     {"nw_method": "associative"},
     {"mesh": {"n_date_shards": 2, "n_stock_shards": 1}},
@@ -288,10 +287,20 @@ def test_unported_features_raise(fields):
         config_from_reference(fields)
 
 
-def test_config_from_reference_keeps_every_field_and_identity():
-    ref = RefConfig(eigen_n_sims=17, eigen_chunk=5, eigen_sim_sweeps=4, seed=3)
+@pytest.mark.parametrize("quarantine", [
+    {}, {"quarantine": {"enabled": True}},
+    {"quarantine": {"enabled": True, "mad_k": 6.0, "universe_window": 21}},
+])
+def test_config_from_reference_keeps_every_field_and_identity(quarantine):
+    from mfm_tpu.config import QuarantinePolicy as RefPolicy
+
+    q = ({"quarantine": RefPolicy(**quarantine["quarantine"])}
+         if quarantine else {})
+    ref = RefConfig(eigen_n_sims=17, eigen_chunk=5, eigen_sim_sweeps=4, seed=3,
+                    **q)
     port = config_from_reference(dataclasses.asdict(ref))
-    assert port.identity() == ref.identity()[:-1]  # all but the quarantine
+    assert port.identity() == ref.identity()
+    assert port.quarantine.enabled == bool(quarantine)
     assert port.eigen_chunk == 5
     with pytest.raises(ValueError):
         RiskModelConfig(eigen_chunk=0)
