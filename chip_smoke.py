@@ -19,7 +19,17 @@ in four phases (``serve_update``, ``serve_guarded``, ``serve_incremental``,
 ``serve_checkpoint``), each held against the full-history run and each
 required to go through the warp design of both kernels and to be bitwise
 the full run; one more (``serve_bitwise_ops``) requires each op of the
-update to keep a date's bits at the batch sizes an update gives it.  Last
+update to keep a date's bits at the batch sizes an update gives it.  Then
+the risk pipeline at the same width, in five phases: ``pipeline_ingest``
+(the synthetic barra table, ~398,000 rows, densified),
+``pipeline_run`` (``run_risk_pipeline``, bitwise ``run_fused`` on the
+densified arrays), ``pipeline_analytics`` (specific risk, portfolio risk,
+``portfolio_bias(100)`` and the eigenfactor bias statistics, held to the
+same functions on the CPU), ``pipeline_append`` (a checkpoint at 1350
+dates appended to 1390, bitwise the full run; a guarded append
+quarantining a collapsed date) and ``eigen_mc_bf16`` (the bfloat16
+Monte-Carlo: its bias-stat gate, and its incremental mode bitwise and
+through a checkpoint).  The pipeline needs no pandas.  Last
 it times each kernel at the main path's shapes, the two designs in turns
 (block, warp, warp, block), beside its plain version, its bound, the warp
 design's ceiling and ``torch.linalg.eigh``, and, after holding it against
@@ -829,6 +839,432 @@ def serve_checkpoint(ctx) -> dict:
     return res
 
 
+# -- the risk pipeline ----------------------------------------------------------
+
+def analytics_on(result):
+    """The pandas-free analytics of a pipeline result, with their walls:
+    the shrunk specific-risk panel, the portfolio-risk helper at the last
+    date (equal weights on the first 50 stocks in its universe with a
+    specific-vol estimate), ``portfolio_bias(100)`` and
+    ``bias_stats_summary``."""
+    import numpy as np
+
+    from mfm_tpu_torch.models.bias import bias_stats_summary
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+
+    walls, launches = {}, {}
+    (raw, shrunk), walls["specific_risk_s"] = timed(
+        lambda: result._specific_panels(42.0, 10, 1.0, 10))
+    design_valid = result._design(slice(-1, None))[1][0].cpu().numpy()
+    held = np.nonzero(design_valid & np.isfinite(shrunk[-1]))[0][:50]
+    w = np.zeros(shrunk.shape[1])
+    w[held] = 1.0 / len(held)
+    risk, walls["portfolio_risk_s"] = timed(
+        lambda: result._portfolio_risk(w, -1, None, 42.0, 10, 1.0, 10))
+    reset_launches()
+    bias, walls["portfolio_bias_s"] = timed(
+        lambda: result.portfolio_bias(n_portfolios=100))
+    launches["portfolio_bias"] = launch_counts()
+    o = result.outputs
+    reset_launches()
+    summary, walls["bias_stats_summary_s"] = timed(
+        lambda: bias_stats_summary(o.nw_cov, o.nw_valid, o.eigen_cov,
+                                   o.eigen_valid, o.factor_ret))
+    launches["bias_stats_summary"] = launch_counts()
+    return {"raw": raw, "shrunk": shrunk, "held": len(held), "risk": risk,
+            "portfolio_bias": bias, "summary": summary, "walls": walls,
+            "launches": launches}
+
+
+def numbers(tree) -> list:
+    """The numbers of a nested dict/list in a fixed order (None kept)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in numbers(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in numbers(v)]
+    return [tree] if tree is None or isinstance(tree, (int, float)) else []
+
+
+def max_rel_diff(got, want, floor=0.0) -> float:
+    """max |got - want| / max(|want|, floor) over two equal-length number
+    lists (NaN if any is NaN); inf where one is None and the other not."""
+    worst = 0.0
+    for a, b in zip(got, want, strict=True):
+        if (a is None) != (b is None):
+            return float("inf")
+        if a is not None:
+            d = abs(a - b) / max(abs(b), floor, 1e-300)
+            worst = d if not d <= worst else worst  # a NaN sticks
+    return worst
+
+
+def pipeline_ingest(ctx) -> dict:
+    """Phase pipeline_ingest: the CSI300 barra table, made and densified."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.barra import barra_frame_to_arrays
+    from mfm_tpu_torch.data.synthetic import synthetic_barra_table
+
+    T, N, P, Q = ctx["shape"]
+    (table, style_names), make_s = timed(
+        lambda: synthetic_barra_table(T=T, N=N, P=P, Q=Q, seed=0))
+    arrays, densify_s = timed(lambda: barra_frame_to_arrays(table))
+    rows = len(table["date"])
+    res = {"rows": rows, "columns": list(table), "make_s": make_s,
+           "densify_s": densify_s, "dates": len(arrays.dates),
+           "stocks": len(arrays.stocks), "industries": arrays.n_industries,
+           "valid_cells": int(arrays.valid.sum())}
+    emit("pipeline_ingest", **res)
+    require((len(arrays.dates), len(arrays.stocks), arrays.n_industries,
+             len(style_names)) == (T, N, P, Q)
+            and res["valid_cells"] == rows,
+            f"pipeline_ingest: the table densified to the wrong shape: {res}")
+    require(0.94 * T * N < rows < 0.96 * T * N + T * P,
+            f"pipeline_ingest: {rows} rows, not the table's ~5% missing")
+    ctx["table"], ctx["arrays"] = table, arrays
+    return res
+
+
+def pipeline_run(ctx) -> dict:
+    """Phase pipeline_run: run_risk_pipeline on the table, bitwise
+    RiskModel.run_fused on the densified arrays, through the warp design
+    of both kernels."""
+    import numpy as np
+
+    from mfm_tpu_torch import PipelineConfig, RiskModel, run_risk_pipeline
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+
+    table, arrays, sim_covs, T = (ctx["table"], ctx["arrays"],
+                                  ctx["sim_covs"], ctx["T"])
+    cfg = PipelineConfig()
+
+    def run():
+        return run_risk_pipeline(table, config=cfg, sim_covs=sim_covs,
+                                 sim_length=T, device=ctx["device"])
+
+    sync()
+    reset_launches()
+    result = run()
+    sync()
+    launches = serving_launches(1, "pipeline_run")
+    f32 = [np.asarray(x, np.float32) for x in (arrays.ret, arrays.cap,
+                                               arrays.styles)]
+    direct = RiskModel(*f32, arrays.industry, arrays.valid,
+                       n_industries=arrays.n_industries, config=cfg.risk,
+                       device=ctx["device"]).run_fused(sim_covs=sim_covs,
+                                                       sim_length=T)
+    vs_direct = compare_rows(result.outputs, direct)
+    finite = outputs_finite(result.outputs, result.model.valid)
+    walls = [timed(run)[1] for _ in range(3)]
+    res = {"launches": launches, "vs_run_fused": vs_direct,
+           "finite": finite, "wall_median_s": statistics.median(walls),
+           "walls_s": walls}
+    emit("pipeline_run", **res)
+    require(vs_direct["bitwise"],
+            "pipeline_run: outputs are not bitwise run_fused's on the "
+            "densified arrays")
+    require(all(finite.values()), f"pipeline_run: non-finite outputs: "
+            f"{finite}")
+    ctx["pipeline"] = result
+    return res
+
+
+#: float32 tolerances of the analytics on the card against the same
+#: functions on the CPU over the card's outputs.  The inputs are the same
+#: bits, so only the order of sums differs (~1e-7 relative); the
+#: eigen-portfolio weights of nearly equal eigenvalues amplify that, most
+#: on the early, near-singular Newey-West dates (1e-7 relative noise on the
+#: outputs moved a bias stat by 2.6e-3 relative at T=420 on the CPU)
+ANALYTICS_TOL = {"specific_vol": 1e-5, "portfolio_risk": 1e-5,
+                 "portfolio_bias": 2e-3, "bias_stats_summary": 2e-2}
+
+
+def pipeline_analytics(ctx) -> dict:
+    """Phase pipeline_analytics: the specific-risk panel, portfolio risk,
+    portfolio_bias(100) and bias_stats_summary on the card, held to their
+    identities and to the same functions on the CPU."""
+    import numpy as np
+
+    from mfm_tpu_torch.pipeline import RiskPipelineResult
+
+    result = ctx["pipeline"]
+    card = analytics_on(result)
+    cpu_out = type(result.outputs)(*(x.cpu() for x in result.outputs))
+    host = analytics_on(RiskPipelineResult(outputs=cpu_out,
+                                           arrays=result.arrays))
+    r = card["risk"]
+    contrib_rel = abs(float(r["factor_risk_contribution"].sum())
+                      - r["factor_var"]) / r["factor_var"]
+    total_rel = abs(r["total_vol"] ** 2 - r["factor_var"]
+                    - r["specific_var"]) / r["total_vol"] ** 2
+
+    def panel_rel(a, b):
+        both = np.isfinite(a) & np.isfinite(b)
+        same_nan = bool((np.isfinite(a) == np.isfinite(b)).all())
+        return (float(np.abs(a[both] - b[both]).max() / np.abs(b[both]).max())
+                if same_nan else float("inf"))
+
+    keys = ("factor_var", "specific_var", "total_vol")
+    vs_cpu = {
+        "specific_vol": max(panel_rel(card["raw"], host["raw"]),
+                            panel_rel(card["shrunk"], host["shrunk"])),
+        "portfolio_risk": max_rel_diff(
+            [r[k] for k in keys] + r["factor_exposures"].tolist(),
+            [host["risk"][k] for k in keys]
+            + host["risk"]["factor_exposures"].tolist(),
+            floor=float(np.abs(host["risk"]["factor_exposures"]).max())),
+        "portfolio_bias": max_rel_diff(numbers(card["portfolio_bias"]),
+                                       numbers(host["portfolio_bias"]),
+                                       floor=1.0),
+        "bias_stats_summary": max_rel_diff(numbers(card["summary"]),
+                                           numbers(host["summary"]),
+                                           floor=1.0),
+    }
+    bias_launches = card["launches"]["bias_stats_summary"]
+    res = {"held_stocks": card["held"], "walls": card["walls"],
+           "cpu_walls": host["walls"],
+           "portfolio_risk": {k: r[k] for k in keys},
+           "sum_contributions_rel": contrib_rel,
+           "total_vol_identity_rel": total_rel,
+           "vs_cpu": vs_cpu, "tolerance": ANALYTICS_TOL,
+           "launches": card["launches"],
+           # the aggregates; the 100 per-portfolio values stay out
+           "portfolio_bias": {
+               scope: {k: v for k, v in agg.items() if k != "bias"}
+               for scope, agg in card["portfolio_bias"].items()
+               if isinstance(agg, dict)},
+           "bias_stats_summary": card["summary"]}
+    emit("pipeline_analytics", **res)
+    require(card["held"] == 50, "pipeline_analytics: fewer than 50 stocks "
+            "in the last date's universe with a specific vol")
+    require(contrib_rel <= 1e-5 and total_rel <= 1e-5,
+            f"pipeline_analytics: portfolio risk identities fail: "
+            f"contributions {contrib_rel}, total {total_rel}")
+    failed = [k for k, v in vs_cpu.items() if not v <= ANALYTICS_TOL[k]]
+    require(not failed, f"pipeline_analytics: the card disagrees with the "
+            f"CPU on {failed}: {vs_cpu}")
+    require(bias_launches["jacobi_eigh/warp"] == 4
+            and bias_launches["jacobi_eigh/block"] == 0
+            and bias_launches["jacobi_eigh_weighted/warp"] == 0,
+            f"pipeline_analytics: bias_stats_summary must launch the full "
+            f"kernel's warp design 4 times: {bias_launches}")
+    ctx["bias_launches"] = bias_launches
+    return res
+
+
+def drop_rows_of_date(table, date, frac, seed=0):
+    """``table`` without ``frac`` of the rows of ``date``, each industry's
+    first member kept (the constraint needs every industry present)."""
+    import numpy as np
+
+    names, industry = table["stocknames"], table["industry"]
+    codes, first_row = np.unique(industry, return_index=True)
+    keep_stock = np.isin(names, names[first_row])
+    on_date = np.nonzero(table["date"] == date)[0]
+    droppable = on_date[~keep_stock[on_date]]
+    drop = np.random.default_rng(seed).choice(
+        droppable, int(round(frac * len(on_date))), replace=False)
+    keep = np.ones(len(names), bool)
+    keep[drop] = False
+    return {k: v[keep] for k, v in table.items()}
+
+
+def pipeline_append(ctx) -> dict:
+    """Phase pipeline_append: with_state on the first 1350 dates, the
+    checkpoint, append_risk_pipeline on the whole table, against
+    with_state over all 1390; and a guarded append whose date 1360 lost
+    60% of its rows."""
+    import tempfile
+
+    import numpy as np
+
+    from mfm_tpu_torch import (
+        PipelineConfig,
+        RiskModelConfig,
+        append_risk_pipeline,
+        run_risk_pipeline,
+        save_pipeline_state,
+    )
+    from mfm_tpu_torch.config import QuarantinePolicy
+    from mfm_tpu_torch.ops.eigh_cuda import reset_launches
+    from mfm_tpu_torch.serve.guard import REASON_UNIVERSE_COLLAPSE
+
+    table, sim_covs, T = ctx["table"], ctx["sim_covs"], ctx["T"]
+    T0 = SERVE_T0
+    dates = np.unique(table["date"])
+    head = {k: v[table["date"] < dates[T0]] for k, v in table.items()}
+    inject = dict(sim_covs=sim_covs, sim_length=T, device=ctx["device"])
+    cfg = PipelineConfig()
+    gcfg = PipelineConfig(risk=RiskModelConfig(
+        quarantine=QuarantinePolicy(enabled=True)))
+    full, full_s = timed(lambda: run_risk_pipeline(
+        table, config=cfg, with_state=True, **inject))
+    first, head_s = timed(lambda: run_risk_pipeline(
+        head, config=cfg, with_state=True, **inject))
+    off = 10
+    poisoned = drop_rows_of_date(table, dates[T0 + off], 0.6)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        _, save_s = timed(lambda: save_pipeline_state(path, first))
+        reset_launches()
+        app, append_s = timed(lambda: append_risk_pipeline(
+            path, table, config=cfg, device=ctx["device"]))
+        launches = serving_launches(1, "pipeline_append")
+        gfirst = run_risk_pipeline(head, config=gcfg, with_state=True,
+                                   **inject)
+        gpath = os.path.join(tmp, "guarded", "state.npz")
+        save_pipeline_state(gpath, gfirst)
+        gapp, guarded_s = timed(lambda: append_risk_pipeline(
+            gpath, poisoned, config=gcfg, device=ctx["device"]))
+    quarantined = np.nonzero(gapp.report.quarantined.cpu().numpy())[0]
+    reasons = int(gapp.report.reasons[off])
+    res = {"T0": T0, "appended": len(app.arrays.dates),
+           "with_state_full_s": full_s, "with_state_head_s": head_s,
+           "save_s": save_s, "append_s": append_s,
+           "guarded_append_s": guarded_s, "launches": launches,
+           "rows_vs_full": compare_rows(app.outputs, suffix(full.outputs, T0)),
+           "carries_vs_full": compare_carries(app.state, full.state),
+           "last_date": app.state.last_date,
+           "guarded_rows_on_poisoned_date": int(
+               (poisoned["date"] == dates[T0 + off]).sum()),
+           "guarded_quarantined": quarantined.tolist(),
+           "guarded_reasons_at_poisoned": reasons}
+    emit("pipeline_append", **res)
+    require(res["appended"] == T - T0
+            and res["last_date"] == full.state.last_date,
+            "pipeline_append: the append did not cover the new dates")
+    require(res["rows_vs_full"]["bitwise"]
+            and res["carries_vs_full"]["bitwise"],
+            "pipeline_append: the append is not bitwise the full run's "
+            "suffix")
+    require(res["guarded_quarantined"] == [off]
+            and reasons & REASON_UNIVERSE_COLLAPSE,
+            "pipeline_append: the collapsed date, and only it, must "
+            "quarantine with the universe bit")
+    return res
+
+
+def eigen_mc_bf16(ctx) -> dict:
+    """Phase eigen_mc_bf16: the bfloat16 Monte-Carlo with its own draws at
+    CSI300 width and at the parity budget's shape, and its incremental
+    mode's bitwise suffix and checkpoint."""
+    import json
+    import tempfile
+
+    import numpy as np
+
+    from mfm_tpu_torch import (
+        PipelineConfig,
+        RiskModel,
+        RiskModelConfig,
+        run_risk_pipeline,
+    )
+    from mfm_tpu_torch.data.artifacts import load_risk_state, save_risk_state
+    from mfm_tpu_torch.models.bias import eigenfactor_bias_stat
+    from mfm_tpu_torch.ops.eigh_cuda import reset_launches
+
+    def bias_delta(outs, burn_in=0):
+        """max over ranks of | |b_bf16 - 1| - |b_f32 - 1| |, the gate of
+        ``eigen_mc_bf16``, over the eigen-valid dates from ``burn_in``."""
+        stats = {}
+        for mc, o in outs.items():
+            late = torch.arange(o.factor_ret.shape[0],
+                                device=o.factor_ret.device) >= burn_in
+            stats[mc] = eigenfactor_bias_stat(
+                o.eigen_cov, o.eigen_valid & late, o.factor_ret).cpu().numpy()
+        return float(np.max(np.abs(np.abs(stats["bfloat16"] - 1.0)
+                                   - np.abs(stats[None] - 1.0))))
+
+    csi, walls = {}, {}
+    for mc in (None, "bfloat16"):
+        cfg = PipelineConfig(risk=RiskModelConfig(eigen_mc_dtype=mc))
+        reset_launches()
+        res_mc, walls[str(mc)] = timed(lambda: run_risk_pipeline(
+            arrays=ctx["arrays"], config=cfg, device=ctx["device"]))
+        serving_launches(1, f"eigen_mc_bf16 CSI300 {mc}")
+        csi[mc] = res_mc.outputs
+    csi_delta = {"all_valid_dates": bias_delta(csi),
+                 "after_burn_in_252": bias_delta(csi, burn_in=252)}
+    csi_finite = outputs_finite(csi["bfloat16"], res_mc.model.valid)
+    del csi
+
+    entry = json.loads((ROOT / "tools" / "parity_budget.json").read_text())[
+        "eigen_mc_bf16"]
+    shp = entry["shape"]
+    Tb, Nb = shp["T"], shp["N"]
+    Pb, Qb, Mb = shp["n_industries"], shp["n_styles"], shp["n_sims"]
+    rng = np.random.default_rng(entry["seed"])
+    panels = (
+        (rng.standard_normal((Tb, Nb)) * 0.02).astype(np.float32),
+        rng.uniform(1.0, 5.0, (Tb, Nb)).astype(np.float32),
+        rng.standard_normal((Tb, Nb, Qb)).astype(np.float32),
+        rng.integers(0, Pb, (Tb, Nb)).astype(np.int32),
+        rng.uniform(size=(Tb, Nb)) > 0.05,
+    )
+    budget = {mc: RiskModel(*panels, n_industries=Pb, device=ctx["device"],
+                            config=RiskModelConfig(
+                                eigen_n_sims=Mb, eigen_sim_length=Tb,
+                                eigen_mc_dtype=mc)).run()
+              for mc in (None, "bfloat16")}
+    budget_delta = bias_delta(budget)
+
+    model, T, T0 = ctx["model"], ctx["T"], SERVE_T0
+    icfg = RiskModelConfig(eigen_incremental=True, eigen_mc_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    (_, st0), init_s = timed(lambda: model(slice(0, T0), icfg).init_state())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    full_out, full_state = model(slice(0, T), icfg).init_state()
+    st, rows, upd = st0, [], []
+    reset_launches()
+    for t in range(T0, T):
+        (o, st), dt = timed(lambda: model(slice(t, t + 1), icfg).update(st))
+        rows.append(o)
+        upd.append(dt)
+    per_update = serving_launches(T - T0, "eigen_mc_bf16 incremental")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        save_risk_state(path, st0)
+        loaded, meta = load_risk_state(path, ctx["device"])
+    mem = model(slice(T0, T), icfg).update(st0)
+    dsk = model(slice(T0, T), icfg).update(loaded)
+    res = {
+        "csi300": {"walls_s": walls, "bias_abs_delta": csi_delta,
+                   "finite": csi_finite},
+        "budget_shape": {"T": Tb, "N": Nb, "P": Pb, "Q": Qb, "M": Mb,
+                         "seed": entry["seed"],
+                         "bias_abs_delta": budget_delta,
+                         "limit": entry["bias_abs_delta"]},
+        "incremental": {
+            "T0": T0, "draws_dtype": str(st0.eig_draws.dtype),
+            "init_state_s": init_s, "init_peak_mem_gb": peak_gb,
+            "update_wall": wall_stats(upd), "launches_per_update": per_update,
+            "singles_vs_full": compare_rows(cat_rows(rows),
+                                            suffix(full_out, T0)),
+            "carries_vs_full": compare_carries(st, full_state),
+            "checkpoint": {
+                "meta_dtype": meta.get("eig_draws_dtype"),
+                "draws_bitwise": bool(torch.equal(loaded.eig_draws,
+                                                  st0.eig_draws)),
+                "rows": compare_rows(dsk[0], mem[0]),
+                "carries": compare_carries(dsk[1], mem[1])}},
+    }
+    emit("eigen_mc_bf16", **res)
+    inc, ck = res["incremental"], res["incremental"]["checkpoint"]
+    require(all(csi_finite.values()),
+            f"eigen_mc_bf16: non-finite CSI300 outputs: {csi_finite}")
+    require(budget_delta <= entry["bias_abs_delta"],
+            f"eigen_mc_bf16: bias delta {budget_delta} over the budget")
+    require(inc["draws_dtype"] == "torch.bfloat16"
+            and inc["singles_vs_full"]["bitwise"]
+            and inc["carries_vs_full"]["bitwise"],
+            "eigen_mc_bf16: the bf16 incremental updates are not bitwise "
+            "the full init's suffix")
+    require(ck["meta_dtype"] == "bfloat16" and ck["draws_bitwise"]
+            and ck["rows"]["bitwise"] and ck["carries"]["bitwise"],
+            "eigen_mc_bf16: the bf16 checkpoint does not round-trip bitwise")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -963,6 +1399,15 @@ def main() -> int:
     serve_guarded(ctx)
     serve_incremental(ctx)
     serve_checkpoint(ctx)
+
+    # -- phase 6: the risk pipeline at CSI300 width ------------------------
+    ctx["shape"] = CSI300
+    pipeline_ingest(ctx)
+    pipeline = pipeline_run(ctx)
+    pipeline_analytics(ctx)
+    pipeline_append(ctx)
+    eigen_mc_bf16(ctx)
+    bias_launches = ctx["bias_launches"]
     del ctx
 
     # -- phase 4: each kernel at the main path's shapes --------------------
@@ -1102,6 +1547,8 @@ def main() -> int:
                 "spill_bytes": ptxas[kernel]["spill_bytes"],
                 "serve_launches_per_update":
                     serving["launches_per_update"][f"{name}/warp"],
+                "pipeline_launches": pipeline["launches"][f"{name}/warp"],
+                "bias_stat_launches": bias_launches[f"{name}/warp"],
                 **serve[key]}
 
     kernels = [

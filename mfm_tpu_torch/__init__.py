@@ -12,27 +12,46 @@ versions.
 
 Layout
 ------
-- :mod:`mfm_tpu_torch.config`  — ``RiskModelConfig``, ``QuarantinePolicy``
-- :mod:`mfm_tpu_torch.ops`     — masked cross-sections, batched Jacobi eigh,
-                                 the constrained WLS regression
-- :mod:`mfm_tpu_torch.models`  — Newey-West, eigenfactor adjustment,
-                                 vol-regime adjustment, ``RiskModel`` and
-                                 its resumable ``RiskModelState``
-- :mod:`mfm_tpu_torch.serve`   — the daily serving step's input guards
-- :mod:`mfm_tpu_torch.convert` — reference config / numpy panels / states
-                                 -> port, and results back
-- :mod:`mfm_tpu_torch.data`    — seeded synthetic panels, fenced npz
-                                 checkpoints
+- :mod:`mfm_tpu_torch.config`   — ``RiskModelConfig``, ``QuarantinePolicy``,
+                                  ``PipelineConfig``
+- :mod:`mfm_tpu_torch.ops`      — masked cross-sections, batched Jacobi eigh,
+                                  the constrained WLS regression
+- :mod:`mfm_tpu_torch.models`   — Newey-West, eigenfactor adjustment,
+                                  vol-regime adjustment, ``RiskModel`` and
+                                  its resumable ``RiskModelState``; specific
+                                  risk and the bias statistics
+- :mod:`mfm_tpu_torch.pipeline` — barra table -> risk model -> result
+                                  tables, analytics and the daily append
+- :mod:`mfm_tpu_torch.serve`    — the daily serving step's input guards
+- :mod:`mfm_tpu_torch.convert`  — reference configs / numpy panels / states
+                                  -> port, and results back
+- :mod:`mfm_tpu_torch.data`     — barra-table ingest, seeded synthetic
+                                  panels and tables, fenced npz checkpoints
+
+Nothing here needs pandas; only the result tables of the pipeline and
+``load_barra_csv`` import it, when called.
 """
 
-from mfm_tpu_torch.config import QuarantinePolicy, RiskModelConfig
+from mfm_tpu_torch.config import (
+    PipelineConfig,
+    QuarantinePolicy,
+    RiskModelConfig,
+)
 from mfm_tpu_torch.models.risk_model import (
     RiskModel,
     RiskModelOutputs,
     RiskModelState,
 )
+from mfm_tpu_torch.pipeline import (
+    RiskPipelineResult,
+    append_risk_pipeline,
+    run_risk_pipeline,
+    save_pipeline_state,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["QuarantinePolicy", "RiskModel", "RiskModelConfig",
-           "RiskModelOutputs", "RiskModelState"]
+__all__ = ["PipelineConfig", "QuarantinePolicy", "RiskModel",
+           "RiskModelConfig", "RiskModelOutputs", "RiskModelState",
+           "RiskPipelineResult", "append_risk_pipeline", "run_risk_pipeline",
+           "save_pipeline_state"]

@@ -1,9 +1,11 @@
-"""Configuration of the covariance stack (counterpart of ``mfm_tpu/config.py``).
+"""Configuration of the risk stack (counterpart of ``mfm_tpu/config.py``).
 
-:class:`RiskModelConfig` and the serving loop's :class:`QuarantinePolicy`,
-with the reference's fields, defaults, validation and ``identity()``.
-Settings whose implementation has not been ported yet raise
-``NotImplementedError`` instead of being ignored.
+:class:`RiskModelConfig`, the serving loop's :class:`QuarantinePolicy` and
+the risk pipeline's :class:`PipelineConfig`, with the reference's fields,
+defaults, validation and ``identity()``.  Settings whose implementation has
+not been ported yet raise ``NotImplementedError`` instead of being ignored.
+The reference's ``PipelineConfig`` also carries ``factors``, ``block`` and
+``rolling_impl``, which configure factor production (ROADMAP.md §A 9).
 """
 
 from __future__ import annotations
@@ -128,7 +130,39 @@ class RiskModelConfig:
             raise NotImplementedError(
                 "nw_method='associative' is not ported yet "
                 "(ROADMAP.md §A 16)")
-        if self.eigen_mc_dtype is not None:
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh shape: ``n_date_shards`` over the date axis,
+    ``n_stock_shards`` over the stock axis.  The port runs on one device,
+    so more than one shard raises."""
+
+    n_date_shards: int = 1
+    n_stock_shards: int = 1
+
+    def __post_init__(self):
+        for name in ("n_date_shards", "n_stock_shards"):
+            if not _is_count(getattr(self, name)):
+                raise ValueError(f"{name} must be a positive int, "
+                                 f"got {getattr(self, name)!r}")
+        if self.n_date_shards * self.n_stock_shards > 1:
             raise NotImplementedError(
-                "eigen_mc_dtype='bfloat16' is not ported yet "
-                "(ROADMAP.md §A 8)")
+                "a device mesh of more than one shard is not ported yet "
+                "(ROADMAP.md §A 16)")
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """The risk pipeline's settings: the covariance stack, the mesh and the
+    compute dtype of the panels (``"float32"`` on the card, ``"float64"``
+    in the parity tests)."""
+
+    risk: RiskModelConfig = dataclasses.field(default_factory=RiskModelConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.dtype not in ("float32", "float64"):
+            raise ValueError(f"dtype must be 'float32' or 'float64', "
+                             f"got {self.dtype!r}")

@@ -7,7 +7,8 @@ compute the same thing is the configuration, the panel, the Monte-Carlo
 for the serving step, the resumable state.
 
 - :func:`config_from_reference` builds the port's ``RiskModelConfig`` from
-  the reference config's fields as a plain dict (``dataclasses.asdict``);
+  the reference config's fields as a plain dict (``dataclasses.asdict``),
+  and :func:`pipeline_config_from_reference` its ``PipelineConfig``;
 - :func:`to_port` turns the numpy panel and ``sim_covs`` into tensors;
 - :func:`state_from_reference` loads a checkpoint the reference wrote;
 - :func:`outputs_to_numpy`, :func:`state_to_numpy` and
@@ -25,7 +26,12 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from mfm_tpu_torch.config import QuarantinePolicy, RiskModelConfig
+from mfm_tpu_torch.config import (
+    MeshConfig,
+    PipelineConfig,
+    QuarantinePolicy,
+    RiskModelConfig,
+)
 from mfm_tpu_torch.data.artifacts import load_risk_state, state_arrays
 
 _PANEL = ("ret", "cap", "styles", "industry", "valid")
@@ -52,6 +58,32 @@ def config_from_reference(fields: Mapping) -> RiskModelConfig:
     if unknown:
         raise ValueError(f"fields unknown to the port's RiskModelConfig: {unknown}")
     return RiskModelConfig(**fields)
+
+
+#: reference PipelineConfig fields that configure factor production
+#: (ROADMAP.md §A 9); no number of the risk pipeline depends on them
+_FACTOR_FIELDS = ("factors", "block", "rolling_impl")
+
+
+def pipeline_config_from_reference(fields: Mapping) -> PipelineConfig:
+    """The port's ``PipelineConfig`` from the reference ``PipelineConfig``'s
+    fields as a plain dict: ``risk`` through :func:`config_from_reference`,
+    ``mesh`` (one shard per axis only) and ``dtype``.  The factor-production
+    fields are dropped; unknown fields raise."""
+    fields = dict(fields)
+    for name in _FACTOR_FIELDS:
+        fields.pop(name, None)
+    unknown = sorted(set(fields) - {"risk", "mesh", "dtype"})
+    if unknown:
+        raise ValueError(f"fields unknown to the port's PipelineConfig: {unknown}")
+    risk = fields.pop("risk", None)
+    if risk is not None and not isinstance(risk, RiskModelConfig):
+        fields["risk"] = config_from_reference(risk)
+    mesh = fields.pop("mesh", None)
+    if mesh is not None:
+        fields["mesh"] = (mesh if isinstance(mesh, MeshConfig)
+                          else MeshConfig(**mesh))
+    return PipelineConfig(**fields)
 
 
 def to_port(arrays: Mapping, device, dtype=torch.float32) -> dict:
@@ -89,10 +121,15 @@ def state_from_reference(npz_path: str, device=None):
 
 def state_to_numpy(state) -> dict:
     """A ``RiskModelState``'s arrays under the checkpoint's npz keys, plus
-    ``sim_length``, ``eigen_batch_hint`` and ``stamp``."""
-    arrays, _ = state_arrays(state)
+    ``sim_length``, ``eigen_batch_hint`` and ``stamp``.  bfloat16 draws
+    come as their uint16 bit pattern, as in the checkpoint, with
+    ``eig_draws_dtype`` naming the dtype."""
+    arrays, meta = state_arrays(state)
+    extra = {"eig_draws_dtype": meta["eig_draws_dtype"]} \
+        if "eig_draws_dtype" in meta else {}
     return {**arrays, "sim_length": state.sim_length,
-            "eigen_batch_hint": state.eigen_batch_hint, "stamp": state.stamp}
+            "eigen_batch_hint": state.eigen_batch_hint, "stamp": state.stamp,
+            **extra}
 
 
 def report_to_numpy(report) -> dict:

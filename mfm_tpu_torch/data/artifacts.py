@@ -207,7 +207,14 @@ def load_artifact(path: str, *, fenced: bool = False, force: bool = False):
 
 
 def _numpy(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    """A tensor as numpy; bfloat16, which numpy lacks (and which npz could
+    not hold anyway), as its bit pattern in a uint16 array."""
+    if not torch.is_tensor(x):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return x.numpy()
 
 
 def save_risk_outputs(path: str, outputs, meta: dict | None = None):
@@ -258,9 +265,13 @@ def state_arrays(state) -> tuple[dict, dict]:
     # or the incremental mode's draw tensor + raw prefix moments
     if state.sim_covs is not None:
         arrays["sim_covs"] = _numpy(state.sim_covs)
+    eig_draws_dtype = None
     if state.eig_draws is not None:
         for k in ("eig_draws", "eig_R", "eig_p", "eig_n"):
             arrays[k] = _numpy(getattr(state, k))
+        if state.eig_draws.dtype == torch.bfloat16:
+            # the bit pattern is stored; the meta names the real dtype
+            eig_draws_dtype = "bfloat16"
     if state.guarded:
         for k in ("last_good_cov", "staleness", "quarantine_count",
                   "guard_ring", "guard_ring_pos"):
@@ -274,6 +285,8 @@ def state_arrays(state) -> tuple[dict, dict]:
         "stamp": _stamp_to_json(state.stamp),
         "last_date": state.last_date,
     }
+    if eig_draws_dtype is not None:
+        meta["eig_draws_dtype"] = eig_draws_dtype
     return arrays, meta
 
 
@@ -309,10 +322,9 @@ def load_risk_state(path: str, device=None, *, force: bool = False):
         raise ValueError(f"{path}: not a risk-state artifact"
                          + (f" — missing field(s) {sorted(missing)}"
                             if missing else ""))
-    if meta.get("eig_draws_dtype"):
-        raise NotImplementedError(
-            f"{path}: {meta['eig_draws_dtype']} draws (eigen_mc_dtype) are "
-            "not ported yet (ROADMAP.md §A 8)")
+    draws_dtype = meta.get("eig_draws_dtype")
+    if draws_dtype not in (None, "bfloat16"):
+        raise ValueError(f"{path}: unknown eig_draws_dtype {draws_dtype!r}")
     own = lambda name: torch.from_numpy(arrays[name].copy()).to(dev)
     unstack = lambda name: own(name).unbind(0)
     nw_carry = (
@@ -331,7 +343,13 @@ def load_risk_state(path: str, device=None, *, force: bool = False):
         )
     eig = {}
     if incremental:
-        eig = {k: own(k) for k in ("eig_draws", "eig_R", "eig_p", "eig_n")}
+        eig = {k: own(k) for k in ("eig_R", "eig_p", "eig_n")}
+        draws = arrays["eig_draws"]
+        eig["eig_draws"] = (
+            own("eig_draws") if draws_dtype is None else
+            # the saved uint16 bit pattern, reinterpreted
+            torch.from_numpy(draws.view(np.int16).copy()).view(
+                torch.bfloat16).to(dev))
     state = RiskModelState(
         nw_carry, own("vr_num"), own("vr_den"),
         own("sim_covs") if "sim_covs" in arrays else None,

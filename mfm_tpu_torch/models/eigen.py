@@ -20,10 +20,17 @@ re-estimates the simulated covariances at each date from the draw columns
 consumed so far, carried as exact raw prefix moments, so a daily update
 is the suffix of the full-history run.
 
+With ``mc_dtype="bfloat16"`` (``RiskModelConfig.eigen_mc_dtype``) the
+draws are bfloat16, the Gram and moment sums accumulate in the compute
+dtype, and G is assembled from the bfloat16-rounded scale factors and
+simulated covariances, then cast up for the full-precision eighs: a
+different realization, gated statistically on the eigenfactor bias stat
+(``tools/parity_budget.json``, entry ``eigen_mc_bf16``), not bitwise.
+
 Draws come from explicit ``torch.Generator``s; they cannot match
 ``jax.random``'s, so parity with the reference injects ``sim_covs`` (or
-the incremental mode's draw tensor).  Not ported in this slice: the
-bfloat16 Monte-Carlo and the device-mesh branch (ROADMAP.md §A 8, §A 16).
+the incremental mode's draw tensor).  Not ported: the device-mesh branch
+(ROADMAP.md §A 16).
 """
 
 from __future__ import annotations
@@ -59,19 +66,36 @@ def sim_sweeps_for(n_factors: int, dtype, sim_length: int) -> int:
     return max(5, full - 2)
 
 
+def _mc(mc_dtype) -> torch.dtype | None:
+    """The Monte-Carlo dtype named by ``eigen_mc_dtype`` (None: the
+    compute dtype)."""
+    return None if mc_dtype is None else getattr(torch, mc_dtype)
+
+
 @highest_matmul_precision
 def simulated_eigen_covs(generator: torch.Generator, n_factors: int,
                          sim_length: int, n_sims: int,
-                         dtype=torch.float32) -> torch.Tensor:
+                         dtype=torch.float32, mc_dtype=None) -> torch.Tensor:
     """Sample covariances C_m of M standard-normal (K, sim_length) draws,
     drawn on ``generator``'s device.
 
     ``np.cov`` semantics: demean each row over the samples, normalize by
-    (sim_length - 1).  Shape (M, K, K).
+    (sim_length - 1).  Shape (M, K, K), always ``dtype``.
+
+    ``mc_dtype`` (``"bfloat16"``): the draws are generated in that dtype;
+    the mean is accumulated in ``dtype`` and rounded back for the
+    subtraction, so the demeaned samples stay in ``mc_dtype``; the Gram
+    products are exact in ``dtype`` and accumulate there, never in a
+    bfloat16 running sum.
     """
+    md = _mc(mc_dtype) or dtype
     draws = torch.randn((n_sims, n_factors, sim_length), generator=generator,
-                        dtype=dtype, device=generator.device)
-    d = draws - draws.mean(dim=-1, keepdim=True)
+                        dtype=md, device=generator.device)
+    if md == dtype:
+        d = draws - draws.mean(dim=-1, keepdim=True)
+    else:
+        d = (draws - draws.to(dtype).mean(dim=-1, keepdim=True).to(md)
+             ).to(dtype)
     return (d @ d.transpose(-1, -2)) / (sim_length - 1)
 
 
@@ -104,11 +128,12 @@ def _column_seed(seed: int, t: int) -> int:
 
 def simulated_eigen_draws(seed: int, n_factors: int, bucket: int,
                           n_sims: int, dtype=torch.float32,
-                          device=None) -> torch.Tensor:
+                          device=None, mc_dtype=None) -> torch.Tensor:
     """The frozen (M, K, bucket) standard-normal draw tensor behind the
     incremental mode, generated **per column**: column t is
-    ``torch.randn((M, K))`` from a CPU generator seeded with (seed, t),
-    then the tensor moves to ``device``.
+    ``torch.randn((M, K))`` from a CPU generator seeded with (seed, t), in
+    ``mc_dtype`` when given (else ``dtype``), then the tensor moves to
+    ``device``.
 
     Per-column generation makes a bigger bucket a strict prefix-extension
     of a smaller one, bitwise, so a bucket rollover rewrites no column
@@ -118,7 +143,8 @@ def simulated_eigen_draws(seed: int, n_factors: int, bucket: int,
     tests pin what the card uses.  The values cannot match the reference's
     ``jax.random.fold_in`` draws; parity tests inject the draw tensor.
     """
-    cols = [torch.randn((n_sims, n_factors), dtype=dtype,
+    md = _mc(mc_dtype) or dtype
+    cols = [torch.randn((n_sims, n_factors), dtype=md,
                         generator=torch.Generator().manual_seed(
                             _column_seed(seed, t)))
             for t in range(bucket)]
@@ -212,6 +238,7 @@ def eigen_risk_adjust_by_time(
     sim_length: int | None = None,
     chunk: int | None = None,
     kernels: bool = True,
+    mc_dtype=None,
 ):
     """Batched adjustment over the date axis.
 
@@ -230,6 +257,10 @@ def eigen_risk_adjust_by_time(
     many dates, so the (T, M, K, K) G transient is never whole; the per-date
     op sequence is the same, so chunked == unchunked.  ``kernels=False``
     runs the plain eigh versions on the card.
+
+    ``mc_dtype`` (``"bfloat16"``): G is assembled in that dtype from the
+    rounded scale factors and simulated covariances (:func:`_assemble_g`)
+    and cast to ``covs.dtype`` for the full-precision eighs.
     """
     T, K = covs.shape[0], covs.shape[-1]
     if sim_sweeps is None and sim_length is not None:
@@ -243,10 +274,12 @@ def eigen_risk_adjust_by_time(
     psd = D0[..., 0] >= 0  # ascending order -> min eigenvalue first
     s = torch.sqrt(torch.clamp_min(D0, 0.0))
 
+    md = _mc(mc_dtype)
+    sim = sim_covs if md is None else sim_covs.to(md)
+
     def v2_of(s_c, d0_c):
-        # simulated covariances in F0's eigenbasis: G = diag(s) C_m diag(s)
-        G = s_c[:, None, :, None] * sim_covs[None] * s_c[:, None, None, :]
-        return _bias_ratios(G, d0_c, sim_sweeps, kernels)
+        return _bias_ratios(_assemble_g(s_c, sim[None], md), d0_c,
+                            sim_sweeps, kernels)
 
     if chunk is None or chunk >= T:
         v2 = v2_of(s, D0)
@@ -255,6 +288,21 @@ def eigen_risk_adjust_by_time(
                         for a in range(0, T, chunk)])
 
     return _rebuild(U0, D0, v2, scale_coef, valid & psd)
+
+
+def _assemble_g(s_c, C, md):
+    """The simulated covariances in F0's eigenbasis, G = diag(s) C_m
+    diag(s), for a (c, K) slab of sqrt-eigenvalues ``s_c`` and C (c or 1,
+    M, K, K).  Under a Monte-Carlo dtype ``md`` (C already in it) there
+    are two roundings, in this order: the (c, K, K) outer product
+    ``S = s_lo s_lo'`` of the rounded scale factors, then the one multiply
+    ``S C``; only the product is cast up to the compute dtype of ``s_c``.
+    """
+    if md is None:
+        return s_c[:, None, :, None] * C * s_c[:, None, None, :]
+    s_lo = s_c.to(md)
+    S = s_lo[:, :, None] * s_lo[:, None, :]
+    return (S[:, None] * C).to(s_c.dtype)
 
 
 def _rebuild(U0, D0, v2, scale_coef, ok):
@@ -279,6 +327,7 @@ def eigen_risk_adjust_incremental(
     chunk: int | None = None,
     skip_mask=None,
     kernels: bool = True,
+    mc_dtype=None,
 ):
     """Causal (expanding-draw) eigen adjustment, the incremental mode.
 
@@ -300,7 +349,10 @@ def eigen_risk_adjust_incremental(
     skipped date consumes no column and leaves (R, p, n) untouched.
     ``sim_sweeps`` is resolved by the caller from the running count
     (:func:`sim_sweeps_for`).  ``chunk`` bounds the (chunk, M, K, K) G
-    transient; chunked == unchunked.  Returns ``(out, ok, carry_out)``.
+    transient; chunked == unchunked.  ``mc_dtype``: bfloat16 draws cast up
+    exactly (the moments always accumulate in the compute dtype) and G
+    assembled as in :func:`eigen_risk_adjust_by_time`, from the simulated
+    covariances rounded to ``mc_dtype``.  Returns ``(out, ok, carry_out)``.
     """
     T, K = covs.shape[0], covs.shape[-1]
     M = draws.shape[0]
@@ -311,6 +363,7 @@ def eigen_risk_adjust_incremental(
     psd = D0[..., 0] >= 0
     s = torch.sqrt(torch.clamp_min(D0, 0.0))
     skip = host_flags(skip_mask, T)
+    md = _mc(mc_dtype)
 
     R, p, n = carry
     n = int(n)
@@ -321,7 +374,8 @@ def eigen_risk_adjust_incremental(
         Cs = torch.empty((c, M, K, K), dtype=covs.dtype, device=covs.device)
         for i in range(c):
             if not skip[a + i]:
-                x = draws[:, :, n]  # column n: the next unconsumed draw
+                # column n: the next unconsumed draw
+                x = draws[:, :, n].to(covs.dtype)
                 o = x[:, :, None] * x[:, None, :]
                 R = R + o
                 p = p + x
@@ -332,8 +386,7 @@ def eigen_risk_adjust_incremental(
                 Cs[i] = (R - pp) / float(n - 1)
             else:
                 Cs[i] = eye
-        s_c = s[a:a + c]
-        G = s_c[:, None, :, None] * Cs * s_c[:, None, None, :]
+        G = _assemble_g(s[a:a + c], Cs if md is None else Cs.to(md), md)
         v2.append(_bias_ratios(G, D0[a:a + c], sim_sweeps, kernels))
     v2 = (torch.cat(v2) if v2
           else torch.zeros((0, K), dtype=covs.dtype, device=covs.device))

@@ -201,8 +201,9 @@ class RiskModel:
             generator.manual_seed(self.config.seed)
         sim_len = self.config.eigen_sim_length or self.T
         return simulated_eigen_covs(generator, self.K, sim_len,
-                                    self.config.eigen_n_sims,
-                                    dtype=dtype), sim_len
+                                    self.config.eigen_n_sims, dtype=dtype,
+                                    mc_dtype=self.config.eigen_mc_dtype
+                                    ), sim_len
 
     def eigen_risk_adj_by_time(self, nw_cov, nw_valid, generator=None,
                                sim_covs=None, sim_length=None):
@@ -220,13 +221,17 @@ class RiskModel:
             sim_sweeps=sweeps, sim_length=sim_length,
             chunk=self._resolve_eigen_chunk(sim_covs.shape[0],
                                             nw_cov.element_size()),
-            kernels=self.kernels)
+            kernels=self.kernels, mc_dtype=self.config.eigen_mc_dtype)
 
     def _resolve_eigen_chunk(self, n_sims: int, itemsize: int) -> int | None:
         """config.eigen_chunk -> a concrete date-chunk size (or None);
-        "auto" sizes it from the device's free memory."""
+        "auto" sizes it from the device's free memory.  Under
+        ``eigen_mc_dtype`` G is assembled in the Monte-Carlo dtype, so its
+        itemsize (2 for bfloat16) sizes the chunk, as in the reference."""
         c = self.config.eigen_chunk
         if c == "auto":
+            if self.config.eigen_mc_dtype is not None:
+                itemsize = getattr(torch, self.config.eigen_mc_dtype).itemsize
             return auto_eigen_chunk(self.T, n_sims, self.K, itemsize,
                                     device=self.device)
         return c
@@ -247,7 +252,7 @@ class RiskModel:
         return simulated_eigen_draws(
             self.config.seed, self.K, draw_bucket(count),
             self.config.eigen_n_sims, dtype=self.ret.dtype,
-            device=self.device)
+            device=self.device, mc_dtype=self.config.eigen_mc_dtype)
 
     def _advance_eigen_host(self, state) -> tuple:
         """Incremental-eigen bookkeeping for one update: advance the date
@@ -272,7 +277,8 @@ class RiskModel:
             self.config.eigen_scale_coef, sim_sweeps=eigen_sweeps,
             chunk=self._resolve_eigen_chunk(eig_draws.shape[0],
                                             nw_cov.element_size()),
-            skip_mask=skip_mask, kernels=self.kernels)
+            skip_mask=skip_mask, kernels=self.kernels,
+            mc_dtype=self.config.eigen_mc_dtype)
 
     # -- stage 4 -----------------------------------------------------------
     def vol_regime_adj_by_time(self, factor_ret, eigen_cov, eigen_valid):
