@@ -1265,6 +1265,259 @@ def eigen_mc_bf16(ctx) -> dict:
     return res
 
 
+# -- factor production -----------------------------------------------------------
+
+def _factor_records(got, want, budget) -> dict:
+    """``budget_check`` of two dicts of (T, N) tensors or arrays against
+    the ``factors`` budgets: per field the max and median |got - want| /
+    max|want| over the entries finite in both, and the failed checks
+    (a NaN-pattern difference included)."""
+    from mfm_tpu_torch.convert import budget_check
+
+    host = lambda d: {k: v.cpu().numpy() if torch.is_tensor(v) else v
+                      for k, v in d.items()}
+    records, failed = budget_check(host(got), host(want), budget)
+    return {"max_rel": max(r["max_rel"] for r in records.values()),
+            "fields": records, "failed": failed}
+
+
+def factor_rolling(ctx) -> dict:
+    """Phase factor_rolling: ``rolling_beta_hsigma`` at bench config 2's
+    shape (T=1390, N=300, float32, 5% NaN, window 252, half-life 63, min
+    42, block 32) on the card under both impls, each held against the same
+    call at float64 on the CPU within the BETA / HSIGMA budgets, and scan
+    against block on the card."""
+    import numpy as np
+
+    from mfm_tpu_torch.ops.rolling import ROLLING_IMPLS, rolling_beta_hsigma
+
+    T, N = ctx["T"], ctx["shape"][1]
+    rng = np.random.default_rng(0)
+    ret = (0.01 * rng.standard_normal((T, N))).astype(np.float32)
+    ret[rng.random((T, N)) < 0.05] = np.nan
+    mkt = (0.008 * rng.standard_normal(T)).astype(np.float32)
+    kw = dict(window=252, half_life=63, min_periods=42, block=32)
+    card = [torch.from_numpy(x).to(ctx["device"]) for x in (ret, mkt)]
+    host = [torch.from_numpy(x).double() for x in (ret, mkt)]
+    res, outs = {"T": T, "N": N, **kw}, {}
+    for impl in ROLLING_IMPLS:
+        def call():
+            return rolling_beta_hsigma(*card, impl=impl, **kw)
+
+        out = dict(zip(("BETA", "HSIGMA"), call()))
+        walls = [timed(call)[1] for _ in range(3)]
+        prof = profile_run(call)
+        want, cpu_s = timed(lambda: rolling_beta_hsigma(*host, impl=impl,
+                                                        **kw))
+        res[impl] = {"wall_median_s": statistics.median(walls),
+                     "walls_s": walls,
+                     "device_kernels": prof["device_kernels"],
+                     "busy_share": prof["busy_share"],
+                     "cpu_float64_s": cpu_s,
+                     "vs_cpu_float64": _factor_records(
+                         out, dict(zip(("BETA", "HSIGMA"), want)),
+                         ctx["factor_budget"])}
+        outs[impl] = out
+    res["scan_vs_block"] = _factor_records(outs["scan"], outs["block"],
+                                           ctx["factor_budget"])
+    emit("factor_rolling", **res)
+    failed = {k: res[k]["vs_cpu_float64"]["failed"] for k in ROLLING_IMPLS}
+    failed["scan_vs_block"] = res["scan_vs_block"]["failed"]
+    require(not any(failed.values()), f"factor_rolling outside the BETA / "
+            f"HSIGMA budgets or NaN patterns differ: {failed}")
+    return res
+
+
+def _factor_panel(ctx):
+    """Bench config 3's raw panel (``synthetic_market_panel(T=1390, N=300,
+    n_industries=31, seed=0)``), made once."""
+    from mfm_tpu_torch.data.synthetic import synthetic_market_panel
+
+    if "factor_panel" not in ctx:
+        T, N, P, _ = ctx["shape"]
+        ctx["factor_panel"] = synthetic_market_panel(T=T, N=N,
+                                                     n_industries=P, seed=0)
+    return ctx["factor_panel"]
+
+
+def factor_engine(ctx) -> dict:
+    """Phase factor_engine: ``FactorEngine.run()`` on bench config 3's
+    panel at float32, block 32, under both impls on the card; every output
+    within its ``factors`` budget of the same run on the CPU at float32,
+    with the same NaN pattern; the distance to the CPU at float64 as
+    information."""
+    from mfm_tpu_torch import FactorEngine
+    from mfm_tpu_torch.data.synthetic import panel_to_engine_fields
+    from mfm_tpu_torch.ops.rolling import ROLLING_IMPLS
+
+    data = _factor_panel(ctx)
+
+    def engine(impl, device, dtype):
+        return FactorEngine(panel_to_engine_fields(data, dtype, device),
+                            torch.tensor(data["index_close"], dtype=dtype),
+                            block=32, rolling_impl=impl, device=device)
+
+    f64, f64_s = timed(lambda: engine("scan", "cpu", torch.float64).run())
+    res, outs = {"T": data["close"].shape[0], "N": data["close"].shape[1],
+                 "cpu_float64_scan_s": f64_s}, {}
+    for impl in ROLLING_IMPLS:
+        eng = engine(impl, ctx["device"], torch.float32)
+        out = eng.run()
+        walls = [timed(eng.run)[1] for _ in range(3)]
+        prof = profile_run(eng.run)
+        cpu, cpu_s = timed(lambda: engine(impl, "cpu", torch.float32).run())
+        res[impl] = {"outputs": len(out),
+                     "wall_median_s": statistics.median(walls),
+                     "walls_s": walls,
+                     "device_kernels": prof["device_kernels"],
+                     "busy_s": prof["busy_s"],
+                     "busy_share": prof["busy_share"],
+                     "top_kernels": prof["top"],
+                     "cpu_float32_s": cpu_s,
+                     "vs_cpu_float32": _factor_records(out, cpu,
+                                                       ctx["factor_budget"]),
+                     "vs_cpu_float64_max_rel": {
+                         k: r["max_rel"] for k, r in _factor_records(
+                             out, f64, ctx["factor_budget"])["fields"].items()}}
+        outs[impl] = out
+    res["scan_vs_block"] = _factor_records(outs["scan"], outs["block"],
+                                           ctx["factor_budget"])
+    emit("factor_engine", **res)
+    require(res["scan"]["outputs"] == 2 + 18 + 5,
+            "factor_engine: not every output came back")
+    failed = {k: res[k]["vs_cpu_float32"]["failed"] for k in ROLLING_IMPLS}
+    require(not any(failed.values()), f"factor_engine: the card disagrees "
+            f"with the CPU at float32 beyond the factors budgets: {failed}")
+    nan_pattern = [f for f in res["scan_vs_block"]["failed"]
+                   if f.endswith(":finiteness")]
+    require(not nan_pattern, f"factor_engine: scan and block NaN patterns "
+            f"differ: {nan_pattern}")
+    return res
+
+
+def factor_pipeline(ctx) -> dict:
+    """Phase factor_pipeline, the slice end to end: ``run_factor_pipeline``
+    on bench config 3's panel gives the barra table (a dict of numpy
+    columns), ``run_risk_pipeline`` runs it on the card; the stages timed
+    apart, the launches counted, the outputs bitwise ``run_fused`` on the
+    densified arrays.
+
+    The table starts where the first stocks have every style (RSTR needs
+    21 + 42 traded days), so its first dates hold few stocks.  A date on
+    which an industry has no row leaves the industry-neutrality constraint
+    undefined (it divides by the last industry's cap) and its NaN factor
+    returns would reach every later date through the Newey-West sums, in
+    the reference as here; the risk run starts at the first date on which
+    every industry has a row, and only leading dates may lack one."""
+    import numpy as np
+
+    from mfm_tpu_torch import (
+        FactorEngine,
+        PipelineConfig,
+        RiskModel,
+        run_factor_pipeline,
+        run_risk_pipeline,
+    )
+    from mfm_tpu_torch.data.barra import barra_frame_to_arrays
+    from mfm_tpu_torch.data.synthetic import (
+        PANEL_META_KEYS,
+        panel_to_engine_fields,
+    )
+    from mfm_tpu_torch.models.eigen import simulated_eigen_covs
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+    from mfm_tpu_torch.pipeline import assemble_barra_table
+
+    data, dev, M = _factor_panel(ctx), ctx["device"], ctx["M"]
+    fields = {k: v for k, v in data.items()
+              if k not in PANEL_META_KEYS or k == "end_date_code"}
+    l1 = np.array([f"sw{c:02d}" for c in data["industry"]])
+    cfg = PipelineConfig(block=32)
+    args = (fields, data["index_close"], l1, data["dates"], data["stocks"],
+            cfg)
+    (table, factors), pipeline_s = timed(
+        lambda: run_factor_pipeline(*args, device=dev))
+
+    # the stages apart: the engine (and the outputs' copy to the host),
+    # the table assembly, the ingest
+    eng = FactorEngine(panel_to_engine_fields(fields, torch.float32, dev),
+                       torch.tensor(data["index_close"], dtype=torch.float32),
+                       block=32, device=dev)
+    host, factors_s = timed(lambda: {k: v.cpu().numpy()
+                                     for k, v in eng.run().items()})
+    again, assembly_s = timed(lambda: assemble_barra_table(
+        host, data["dates"], data["stocks"], l1, fields["circ_mv"],
+        np.isfinite(fields["close"])))
+    same_table = all(np.array_equal(again[k], v, equal_nan=v.dtype.kind == "f")
+                     for k, v in table.items())
+    arrays, ingest_s = timed(lambda: barra_frame_to_arrays(table))
+    P, Q = arrays.n_industries, len(arrays.style_names)
+    K = 1 + P + Q
+    members = np.stack([np.bincount(arrays.industry[t][arrays.valid[t]],
+                                    minlength=P)
+                        for t in range(len(arrays.dates))])
+    covered = (members > 0).all(1)
+    lead = int(np.argmax(covered))
+    start = arrays.dates[lead]
+    risk_table = {k: v[table["date"] >= start] for k, v in table.items()}
+    T1 = len(arrays.dates) - lead
+    sim_covs = simulated_eigen_covs(torch.Generator(device=dev).manual_seed(0),
+                                    K, T1, M)
+
+    def risk():
+        return run_risk_pipeline(risk_table, config=cfg, sim_covs=sim_covs,
+                                 sim_length=T1, device=dev)
+
+    sync()
+    reset_launches()
+    result, risk_pipeline_s = timed(risk)
+    launches = launch_counts()
+    a = result.arrays
+    model = RiskModel(*(np.asarray(x, np.float32)
+                        for x in (a.ret, a.cap, a.styles)),
+                      a.industry, a.valid, n_industries=a.n_industries,
+                      config=cfg.risk, device=dev)
+    direct, risk_s = timed(lambda: model.run_fused(sim_covs=sim_covs,
+                                                   sim_length=T1))
+    vs_direct = compare_rows(result.outputs, direct)
+    finite = outputs_finite(result.outputs, result.model.valid)
+    res = {
+        "rows": len(table["date"]), "dates": len(arrays.dates),
+        "panel_dates": data["close"].shape[0],
+        "first_date": str(arrays.dates[0]), "last_date": str(arrays.dates[-1]),
+        "leading_dates_missing_an_industry": lead,
+        "first_date_stocks": int(members[0].sum()),
+        "first_date_industries": int((members[0] > 0).sum()),
+        "risk_rows": len(risk_table["date"]), "risk_dates": T1,
+        "stocks": len(arrays.stocks), "industries": P, "styles": Q, "K": K,
+        "table_matches_stage_run": same_table,
+        "walls_s": {"run_factor_pipeline": pipeline_s, "factors": factors_s,
+                    "assembly": assembly_s, "ingest": ingest_s,
+                    "risk_run_fused": risk_s,
+                    "run_risk_pipeline": risk_pipeline_s,
+                    "raw_to_risk": pipeline_s + risk_pipeline_s},
+        "launches": launches, "vs_run_fused": vs_direct, "finite": finite,
+    }
+    emit("factor_pipeline", **res)
+    require(K == 42 and (P, Q) == (31, 10),
+            f"factor_pipeline: K = {K} (P={P}, Q={Q}), not 42")
+    require(same_table, "factor_pipeline: the stage-by-stage table differs "
+            "from run_factor_pipeline's")
+    require(bool(covered[lead:].all()) and lead <= 5,
+            f"factor_pipeline: dates past the leading {lead} lack an "
+            "industry")
+    require(launches["jacobi_eigh_weighted/warp"] == 1
+            and launches["jacobi_eigh/warp"] == 2
+            and launches["jacobi_eigh/block"] == 0
+            and launches["jacobi_eigh_weighted/block"] == 0,
+            f"factor_pipeline: the risk run must launch the weighted kernel "
+            f"once and the full kernel twice, warp design only: {launches}")
+    require(vs_direct["bitwise"], "factor_pipeline: outputs are not bitwise "
+            "run_fused's on the densified arrays")
+    require(all(finite.values()), f"factor_pipeline: non-finite outputs: "
+            f"{finite}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -1408,6 +1661,12 @@ def main() -> int:
     pipeline_append(ctx)
     eigen_mc_bf16(ctx)
     bias_launches = ctx["bias_launches"]
+
+    # -- phase 7: factor production at CSI300 width, raw panel to risk ------
+    ctx["factor_budget"] = budget["factors"]
+    factor_rolling(ctx)
+    factor_engine(ctx)
+    factor_launches = factor_pipeline(ctx)["launches"]
     del ctx
 
     # -- phase 4: each kernel at the main path's shapes --------------------
@@ -1549,6 +1808,7 @@ def main() -> int:
                     serving["launches_per_update"][f"{name}/warp"],
                 "pipeline_launches": pipeline["launches"][f"{name}/warp"],
                 "bias_stat_launches": bias_launches[f"{name}/warp"],
+                "factor_pipeline_launches": factor_launches[f"{name}/warp"],
                 **serve[key]}
 
     kernels = [

@@ -12,31 +12,41 @@ versions.
 
 Layout
 ------
-- :mod:`mfm_tpu_torch.config`   — ``RiskModelConfig``, ``QuarantinePolicy``,
+- :mod:`mfm_tpu_torch.config`   — ``FactorConfig``, ``RollingSpec``,
+                                  ``RiskModelConfig``, ``QuarantinePolicy``,
                                   ``PipelineConfig``
-- :mod:`mfm_tpu_torch.ops`      — masked cross-sections, batched Jacobi eigh,
-                                  the constrained WLS regression
+- :mod:`mfm_tpu_torch.panel`    — the dense masked ``Panel``
+- :mod:`mfm_tpu_torch.ops`      — masked cross-sections, rolling-window
+                                  scans, batched Jacobi eigh, the
+                                  constrained WLS regression
+- :mod:`mfm_tpu_torch.factors`  — the 16 sub-factors, post-processing and
+                                  the row-space ``FactorEngine``
 - :mod:`mfm_tpu_torch.models`   — Newey-West, eigenfactor adjustment,
                                   vol-regime adjustment, ``RiskModel`` and
                                   its resumable ``RiskModelState``; specific
                                   risk and the bias statistics
-- :mod:`mfm_tpu_torch.pipeline` — barra table -> risk model -> result
+- :mod:`mfm_tpu_torch.pipeline` — raw panel -> factors -> barra table;
+                                  barra table -> risk model -> result
                                   tables, analytics and the daily append
 - :mod:`mfm_tpu_torch.serve`    — the daily serving step's input guards
 - :mod:`mfm_tpu_torch.convert`  — reference configs / numpy panels / states
                                   -> port, and results back
 - :mod:`mfm_tpu_torch.data`     — barra-table ingest, seeded synthetic
-                                  panels and tables, fenced npz checkpoints
+                                  market panels, risk panels and tables,
+                                  fenced npz checkpoints
 
 Nothing here needs pandas; only the result tables of the pipeline and
 ``load_barra_csv`` import it, when called.
 """
 
 from mfm_tpu_torch.config import (
+    FactorConfig,
     PipelineConfig,
     QuarantinePolicy,
     RiskModelConfig,
+    RollingSpec,
 )
+from mfm_tpu_torch.factors.engine import FactorEngine
 from mfm_tpu_torch.models.risk_model import (
     RiskModel,
     RiskModelOutputs,
@@ -45,13 +55,15 @@ from mfm_tpu_torch.models.risk_model import (
 from mfm_tpu_torch.pipeline import (
     RiskPipelineResult,
     append_risk_pipeline,
+    run_factor_pipeline,
     run_risk_pipeline,
     save_pipeline_state,
 )
 
 __version__ = "0.1.0"
 
-__all__ = ["PipelineConfig", "QuarantinePolicy", "RiskModel",
-           "RiskModelConfig", "RiskModelOutputs", "RiskModelState",
-           "RiskPipelineResult", "append_risk_pipeline", "run_risk_pipeline",
-           "save_pipeline_state"]
+__all__ = ["FactorConfig", "FactorEngine", "PipelineConfig",
+           "QuarantinePolicy", "RiskModel", "RiskModelConfig",
+           "RiskModelOutputs", "RiskModelState", "RiskPipelineResult",
+           "RollingSpec", "append_risk_pipeline", "run_factor_pipeline",
+           "run_risk_pipeline", "save_pipeline_state"]

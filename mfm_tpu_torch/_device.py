@@ -1,8 +1,9 @@
-"""Device resolution for the port's entry points, and the one host read
-of a per-date mask."""
+"""Device resolution for the port's entry points, the move of their inputs
+onto the device, and the one host read of a per-date mask."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,6 +21,14 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path on "
             "the host")
     return dev
+
+
+def on_device(x, device, dtype=None) -> torch.Tensor:
+    """A tensor or numpy array as a tensor on ``device`` (in ``dtype``
+    when given, else its own)."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device=device, dtype=dtype)
 
 
 def host_flags(mask, T: int) -> list[bool]:

@@ -1,20 +1,94 @@
-"""Configuration of the risk stack (counterpart of ``mfm_tpu/config.py``).
+"""Configuration of the whole pipeline (counterpart of ``mfm_tpu/config.py``).
 
-:class:`RiskModelConfig`, the serving loop's :class:`QuarantinePolicy` and
-the risk pipeline's :class:`PipelineConfig`, with the reference's fields,
-defaults, validation and ``identity()``.  Settings whose implementation has
-not been ported yet raise ``NotImplementedError`` instead of being ignored.
-The reference's ``PipelineConfig`` also carries ``factors``, ``block`` and
-``rolling_impl``, which configure factor production (ROADMAP.md §A 9).
+Factor production's :class:`RollingSpec` and :class:`FactorConfig`, the
+covariance stack's :class:`RiskModelConfig`, the serving loop's
+:class:`QuarantinePolicy` and the pipeline's :class:`PipelineConfig`, with
+the reference's fields, defaults, validation and ``identity()``.  Settings
+whose implementation has not been ported yet raise ``NotImplementedError``
+instead of being ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 def _is_count(x) -> bool:
     return isinstance(x, int) and not isinstance(x, bool) and x >= 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RollingSpec:
+    """Window / half-life / min-periods triple of one rolling factor, e.g.
+    BETA's 252 / 63 / 42 (``factor_calculator.py:86``)."""
+
+    window: int
+    half_life: int | None = None
+    min_periods: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorConfig:
+    """Every constant of the style-factor layer; the defaults are the
+    reference's (``mfm_tpu/config.py:29-99``): BETA/HSIGMA 252/63/42,
+    RSTR 504 dates with a 21-date lag (window 483), half-life 126, min 42,
+    DASTD 252/42/42, CMRA 252, STOM/STOQ/STOA 21/15, 63/42, 252/126, the
+    composite weights, the orthogonalization rules and the winsorization
+    at mean +/- 2.5 sample std."""
+
+    beta: RollingSpec = RollingSpec(window=252, half_life=63, min_periods=42)
+    rstr_total: int = 504
+    rstr_lag: int = 21
+    rstr_half_life: int = 126
+    rstr_min_periods: int = 42
+    dastd: RollingSpec = RollingSpec(window=252, half_life=42, min_periods=42)
+    cmra_window: int = 252
+    stom: RollingSpec = RollingSpec(window=21, min_periods=15)
+    stoq: RollingSpec = RollingSpec(window=63, min_periods=42)
+    stoa: RollingSpec = RollingSpec(window=252, min_periods=126)
+
+    winsorize_n_std: float = 2.5
+
+    factors_to_run: Tuple[str, ...] = (
+        "SIZE", "BETA", "RSTR", "DASTD", "CMRA", "NLSIZE", "BP",
+        "LIQUIDITY", "EARNINGS", "GROWTH", "LEVERAGE",
+    )
+
+    #: (name, components, weights): missing components drop out with their
+    #: weight renormalized over the rest
+    composite: Tuple[Tuple[str, Tuple[str, ...], Tuple[float, ...]], ...] = (
+        ("volatility", ("DASTD", "CMRA", "HSIGMA"), (0.7, 0.15, 0.15)),
+        ("leverage", ("MLEV", "DTOA", "BLEV"), (1 / 3, 1 / 3, 1 / 3)),
+        ("liquidity", ("STOM", "STOQ", "STOA"), (0.5, 0.25, 0.25)),
+        ("earnings", ("CETOP", "ETOP"), (0.5, 0.5)),
+        ("growth", ("YOYProfit", "YOYSales"), (0.5, 0.5)),
+    )
+
+    #: (target, regressors): the per-date OLS residualization
+    ortho_rules: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+        ("volatility", ("BETA", "SIZE")),
+        ("liquidity", ("SIZE",)),
+    )
+
+    #: the barra output names, in output order
+    rename_map: Tuple[Tuple[str, str], ...] = (
+        ("SIZE", "size"),
+        ("BETA", "beta"),
+        ("RSTR", "momentum"),
+        ("volatility", "residual_volatility"),
+        ("NLSIZE", "non_linear_size"),
+        ("BP", "book_to_price_ratio"),
+        ("liquidity", "liquidity"),
+        ("earnings", "earnings_yield"),
+        ("growth", "growth"),
+        ("leverage", "leverage"),
+    )
+    output_styles: Tuple[str, ...] = (
+        "size", "beta", "momentum", "residual_volatility", "non_linear_size",
+        "book_to_price_ratio", "liquidity", "earnings_yield", "growth",
+        "leverage",
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,15 +228,32 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The risk pipeline's settings: the covariance stack, the mesh and the
-    compute dtype of the panels (``"float32"`` on the card, ``"float64"``
-    in the parity tests)."""
+    """The pipeline's settings: factor production, the covariance stack,
+    the mesh, the compute dtype of the panels (``"float32"`` on the card,
+    ``"float64"`` in the parity tests), the rolling kernels' date block
+    and their implementation."""
 
+    factors: FactorConfig = dataclasses.field(default_factory=FactorConfig)
     risk: RiskModelConfig = dataclasses.field(default_factory=RiskModelConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     dtype: str = "float32"
+    #: rolling date-block size of the "block" impl (memory = block x
+    #: window x N elements per input); None derives it from the panel
+    #: width and dtype (``ops/rolling.py::auto_block``)
+    block: int | None = None
+    #: "scan" (O(T*N) two-level chunked scans, the default) or "block"
+    #: (the windowed-gather reference formulation; uses ``block``)
+    rolling_impl: str = "scan"
 
     def __post_init__(self):
+        from mfm_tpu_torch.ops.rolling import ROLLING_IMPLS
+
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be 'float32' or 'float64', "
                              f"got {self.dtype!r}")
+        if self.rolling_impl not in ROLLING_IMPLS:
+            raise ValueError(f"rolling_impl must be one of {ROLLING_IMPLS}, "
+                             f"got {self.rolling_impl!r}")
+        if self.block is not None and not _is_count(self.block):
+            raise ValueError(f"block must be a positive int or None, "
+                             f"got {self.block!r}")

@@ -8,7 +8,8 @@ for the serving step, the resumable state.
 
 - :func:`config_from_reference` builds the port's ``RiskModelConfig`` from
   the reference config's fields as a plain dict (``dataclasses.asdict``),
-  and :func:`pipeline_config_from_reference` its ``PipelineConfig``;
+  :func:`factor_config_from_reference` its ``FactorConfig`` and
+  :func:`pipeline_config_from_reference` its ``PipelineConfig``;
 - :func:`to_port` turns the numpy panel and ``sim_covs`` into tensors;
 - :func:`state_from_reference` loads a checkpoint the reference wrote;
 - :func:`outputs_to_numpy`, :func:`state_to_numpy` and
@@ -27,10 +28,12 @@ import numpy as np
 import torch
 
 from mfm_tpu_torch.config import (
+    FactorConfig,
     MeshConfig,
     PipelineConfig,
     QuarantinePolicy,
     RiskModelConfig,
+    RollingSpec,
 )
 from mfm_tpu_torch.data.artifacts import load_risk_state, state_arrays
 
@@ -60,22 +63,43 @@ def config_from_reference(fields: Mapping) -> RiskModelConfig:
     return RiskModelConfig(**fields)
 
 
-#: reference PipelineConfig fields that configure factor production
-#: (ROADMAP.md §A 9); no number of the risk pipeline depends on them
-_FACTOR_FIELDS = ("factors", "block", "rolling_impl")
+def _tuples(x):
+    """Lists (as a JSON round trip leaves them) back to the config's
+    nested tuples."""
+    return tuple(_tuples(v) for v in x) if isinstance(x, (list, tuple)) else x
+
+
+def factor_config_from_reference(fields: Mapping) -> FactorConfig:
+    """The port's ``FactorConfig`` from the reference ``FactorConfig``'s
+    fields as a plain dict: each rolling spec's dict becomes a
+    :class:`RollingSpec`, sequences become the config's tuples; unknown
+    fields raise."""
+    known = {f.name: f for f in dataclasses.fields(FactorConfig)}
+    unknown = sorted(set(fields) - set(known))
+    if unknown:
+        raise ValueError(f"fields unknown to the port's FactorConfig: {unknown}")
+    out = {}
+    for name, v in fields.items():
+        if isinstance(v, Mapping):
+            v = RollingSpec(**v)
+        out[name] = _tuples(v)
+    return FactorConfig(**out)
 
 
 def pipeline_config_from_reference(fields: Mapping) -> PipelineConfig:
     """The port's ``PipelineConfig`` from the reference ``PipelineConfig``'s
-    fields as a plain dict: ``risk`` through :func:`config_from_reference`,
-    ``mesh`` (one shard per axis only) and ``dtype``.  The factor-production
-    fields are dropped; unknown fields raise."""
+    fields as a plain dict: ``factors`` through
+    :func:`factor_config_from_reference`, ``risk`` through
+    :func:`config_from_reference`, ``mesh`` (one shard per axis only),
+    ``dtype``, ``block`` and ``rolling_impl``; unknown fields raise."""
     fields = dict(fields)
-    for name in _FACTOR_FIELDS:
-        fields.pop(name, None)
-    unknown = sorted(set(fields) - {"risk", "mesh", "dtype"})
+    unknown = sorted(set(fields) - {f.name for f in
+                                    dataclasses.fields(PipelineConfig)})
     if unknown:
         raise ValueError(f"fields unknown to the port's PipelineConfig: {unknown}")
+    factors = fields.pop("factors", None)
+    if factors is not None and not isinstance(factors, FactorConfig):
+        fields["factors"] = factor_config_from_reference(factors)
     risk = fields.pop("risk", None)
     if risk is not None and not isinstance(risk, RiskModelConfig):
         fields["risk"] = config_from_reference(risk)

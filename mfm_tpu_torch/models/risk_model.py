@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mfm_tpu_torch._device import host_flags, resolve_device
+from mfm_tpu_torch._device import host_flags, on_device, resolve_device
 from mfm_tpu_torch.config import RiskModelConfig
 from mfm_tpu_torch.models.eigen import (
     auto_eigen_chunk,
@@ -137,12 +137,6 @@ _INJECTED = ("eigen_incremental=True derives its draws from config.seed "
              "generator/sim_covs would break the bitwise-suffix contract")
 
 
-def _on(x, device, dtype=None) -> torch.Tensor:
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device=device, dtype=dtype)
-
-
 @dataclasses.dataclass
 class RiskModel:
     """Batched Barra-style risk model over a dense masked panel.
@@ -172,7 +166,7 @@ class RiskModel:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         for f in ("ret", "cap", "styles", "industry", "valid"):
-            setattr(self, f, _on(getattr(self, f), self.device))
+            setattr(self, f, on_device(getattr(self, f), self.device))
         self.valid = self.valid.to(torch.bool)
         self.T, self.N = self.ret.shape
         self.Q = self.styles.shape[-1]
@@ -212,7 +206,7 @@ class RiskModel:
         # (None) means the full sweep count
         if sim_covs is None:
             sim_covs, sim_length = self._sim_covs(generator, nw_cov.dtype)
-        sim_covs = _on(sim_covs, self.device, nw_cov.dtype)
+        sim_covs = on_device(sim_covs, self.device, nw_cov.dtype)
         sweeps = self.config.eigen_sim_sweeps
         if sweeps == "auto":
             sweeps = None
@@ -305,7 +299,7 @@ class RiskModel:
                 eigen_sweeps=self._eigen_sweeps(self.T))
         if sim_covs is None:
             sim_covs, sim_length = self._sim_covs(generator, self.ret.dtype)
-        return dict(sim_covs=_on(sim_covs, self.device, self.ret.dtype),
+        return dict(sim_covs=on_device(sim_covs, self.device, self.ret.dtype),
                     sim_length=sim_length)
 
     def run(self, generator=None, sim_covs=None,

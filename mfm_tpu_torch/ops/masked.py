@@ -86,27 +86,32 @@ def zscore_cap_weighted(x, cap, mask=None, dim=-1):
 
 @highest_matmul_precision
 def masked_ols_residuals(y, X, mask=None, *, min_valid: int | None = None):
-    """Residuals of OLS y ~ [1, X] over the valid rows of one cross-section.
+    """Residuals of OLS y ~ [1, X] over the valid rows of each
+    cross-section, batched over leading dimensions (one call for all
+    dates).
 
-    y: (N,), X: (N, R).  Rows invalid in y or any column of X get NaN
-    residuals; with fewer than ``min_valid`` valid rows (default R+2) the
-    whole section is NaN.  Solves the (R+1)x(R+1) normal equations with a
-    pseudo-inverse for rank-deficient safety.
+    y: (..., N); X: (..., N, R), or (..., N) for one regressor; mask:
+    (..., N) or None.  Rows invalid in y or any column of X get NaN
+    residuals; a section with fewer than ``min_valid`` valid rows (default
+    R+2) is all NaN.  Solves the (R+1)x(R+1) normal equations with a
+    pseudo-inverse for rank-deficient safety, cutting singular values at
+    ``10 * (R+1) * eps * sigma_max`` as ``jnp.linalg.pinv`` does
+    (``torch.linalg.pinv``'s default cut is ten times lower).
     """
-    if X.dim() == 1:
-        X = X[:, None]
-    N, R = X.shape
+    if X.dim() == y.dim():
+        X = X[..., None]
+    N, R = X.shape[-2:]
     m = torch.isfinite(y) & torch.isfinite(X).all(dim=-1)
     if mask is not None:
         m = m & mask
-    n = m.sum()
     zero = _zero(y)
-    mf = m.to(y.dtype)
-    ones = torch.ones((N, 1), dtype=y.dtype, device=y.device)
-    A = torch.cat([ones, torch.where(m[:, None], X, zero)], dim=1) * mf[:, None]
+    ones = torch.ones(m.shape + (1,), dtype=y.dtype, device=y.device)
+    A = torch.cat([ones, torch.where(m[..., None], X, zero)], dim=-1) \
+        * m.to(y.dtype)[..., None]
     yz = torch.where(m, y, zero)
-    coef = torch.linalg.pinv(A.T @ A) @ (A.T @ yz)
-    resid = yz - A @ coef
+    rtol = 10 * (R + 1) * torch.finfo(y.dtype).eps
+    coef = torch.linalg.pinv(A.mT @ A, rtol=rtol) @ (A.mT @ yz[..., None])
+    resid = yz - (A @ coef)[..., 0]
     thresh = (R + 2) if min_valid is None else min_valid
-    ok = n >= thresh
-    return torch.where(m & ok, resid, torch.full_like(resid, float("nan")))
+    ok = m.sum(-1, keepdim=True) >= thresh
+    return torch.where(m & ok, resid, float("nan"))

@@ -1,6 +1,12 @@
-"""The risk pipeline: barra table -> risk model -> results (counterpart of
-the risk half of ``mfm_tpu/pipeline.py``).
+"""End-to-end pipelines (counterpart of ``mfm_tpu/pipeline.py``): raw
+panel -> factor table -> barra table -> risk model -> results.
 
+- :func:`run_factor_pipeline` ≈ ``Barra_factor_cal/main.py``: the raw
+  dense panel through :class:`~mfm_tpu_torch.factors.engine.FactorEngine`
+  (the 16 sub-factors, winsorized, composed and orthogonalized), the
+  returns shifted to the next traded day (:func:`shift_ret_next_period`)
+  and the barra table assembled (:func:`assemble_barra_table`) as a dict
+  of numpy columns in the reference's column order;
 - :func:`run_risk_pipeline` ≈ ``Barra-master/demo.py``: a barra-format
   long table (a pandas DataFrame or a dict of numpy columns) densified and
   run through :class:`~mfm_tpu_torch.models.risk_model.RiskModel`;
@@ -16,11 +22,9 @@ import pandas, when called; ``_specific_panels`` and ``_portfolio_risk``
 are their numpy cores.
 
 Not ported here, each raising ``NotImplementedError`` with its ROADMAP.md
-item: the factor-production half (``run_factor_pipeline``,
-``assemble_barra_table``, ``shift_ret_next_period``; §A 9), the query
-engine (§A 10), the sharded ``mesh=`` ingest (§A 16).  The reference's
-telemetry around the append (update latency, guard tallies) waits for the
-observability slice (§A 15).
+item: the query engine (§A 10) and the sharded ``mesh=`` ingest (§A 16).
+The reference's telemetry around the append (update latency, guard
+tallies) waits for the observability slice (§A 15).
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import re
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -36,6 +42,12 @@ from mfm_tpu_torch._device import resolve_device
 from mfm_tpu_torch.config import PipelineConfig
 from mfm_tpu_torch.data.artifacts import _numpy
 from mfm_tpu_torch.data.barra import BarraArrays, barra_frame_to_arrays
+from mfm_tpu_torch.factors.engine import (
+    FactorEngine,
+    gather_rows,
+    rowspace_index,
+    scatter_rows,
+)
 from mfm_tpu_torch.models.risk_model import (
     RiskModel,
     RiskModelOutputs,
@@ -47,21 +59,87 @@ def _not_ported(what: str, item: int):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md §A {item})")
 
 
-def shift_ret_next_period(ret, observed):
-    """Factor production's t+1 return label; not ported (§A 9)."""
-    _not_ported("shift_ret_next_period", 9)
+#: composite -> barra output name (``Barra_factor_cal/config.py:53-72``)
+BARRA_OUTPUT_STYLES = (
+    ("SIZE", "size"),
+    ("BETA", "beta"),
+    ("RSTR", "momentum"),
+    ("volatility", "residual_volatility"),
+    ("NLSIZE", "non_linear_size"),
+    ("BP", "book_to_price_ratio"),
+    ("liquidity", "liquidity"),
+    ("earnings", "earnings_yield"),
+    ("growth", "growth"),
+    ("leverage", "leverage"),
+)
 
 
-def assemble_barra_table(factors, dates, stocks, industry_l1, circ_mv,
-                         observed):
-    """Factor production's barra-table assembly; not ported (§A 9)."""
-    _not_ported("assemble_barra_table", 9)
+def shift_ret_next_period(ret, observed) -> np.ndarray:
+    """The t+1 return label: each (stock, day) gets the stock's return on
+    its *next traded day* (``main.py:99``: groupby shift(-1) on the long
+    frame).  Numpy in, numpy out: the host-side table assembly runs it on
+    the CPU."""
+    ret = torch.tensor(np.asarray(ret))
+    idx = rowspace_index(torch.tensor(np.asarray(observed, bool)))
+    rs = gather_rows(ret, idx)
+    shifted = torch.cat([rs[1:], rs.new_full((1, rs.shape[1]), np.nan)])
+    return scatter_rows(shifted, idx).numpy()
 
 
-def run_factor_pipeline(fields, index_close, industry_l1, dates, stocks,
-                        config=None):
-    """Raw panel -> barra table (factor production); not ported (§A 9)."""
-    _not_ported("run_factor_pipeline", 9)
+def assemble_barra_table(factors: Mapping[str, np.ndarray], dates, stocks,
+                         industry_l1, circ_mv, observed) -> Dict[str, np.ndarray]:
+    """The long barra table in the reference's output schema, as a dict of
+    1-D numpy columns (``pd.DataFrame`` of it is the reference's frame).
+
+    ``factors``: (T, N) arrays holding at least ``ret`` and the composite
+    names of :data:`BARRA_OUTPUT_STYLES`; ``industry_l1``: (N,) per-stock
+    industry codes.  One row per observed (stock, day) cell, in date-major
+    order; ``ret`` is shifted to the next traded day.  Columns: date,
+    stocknames, capital, ret, industry, then the ten styles.
+    """
+    observed = np.asarray(observed, bool)
+    ti, si = np.nonzero(observed)
+    next_ret = shift_ret_next_period(np.asarray(factors["ret"]), observed)
+    data = {
+        "date": np.asarray(dates)[ti],
+        "stocknames": np.asarray(stocks)[si],
+        "capital": np.asarray(circ_mv)[ti, si],
+        "ret": next_ret[ti, si],
+        "industry": np.asarray(industry_l1)[si],
+    }
+    for src, dst in BARRA_OUTPUT_STYLES:
+        data[dst] = np.asarray(factors[src])[ti, si]
+    return data
+
+
+def run_factor_pipeline(fields: Dict, index_close, industry_l1, dates,
+                        stocks, config: PipelineConfig | None = None,
+                        device=None):
+    """Raw dense panel -> (barra table, factor dict): the whole
+    ``Barra_factor_cal/main.py`` path.
+
+    ``fields``: numpy (T, N) arrays of everything
+    :class:`~mfm_tpu_torch.factors.engine.FactorEngine` takes, plus
+    ``circ_mv``.  The factors run on ``device`` (None: the CUDA card) in
+    ``config.dtype``, with ``config.factors``, ``config.block`` and
+    ``config.rolling_impl``; they come back as numpy arrays, and the
+    table (:func:`assemble_barra_table`) is assembled on the host.
+    """
+    config = config or PipelineConfig()
+    dev = resolve_device(device)
+    dtype = _dtype(config)
+    tensors = {k: (torch.as_tensor(v, device=dev) if k == "end_date_code"
+                   else torch.as_tensor(v, dtype=dtype, device=dev))
+               for k, v in fields.items()}
+    eng = FactorEngine(tensors, torch.as_tensor(index_close, dtype=dtype,
+                                                device=dev),
+                       config=config.factors, block=config.block,
+                       rolling_impl=config.rolling_impl, device=dev)
+    factors = {k: _numpy(v) for k, v in eng.run().items()}
+    observed = np.isfinite(np.asarray(fields["close"], np.float64))
+    barra = assemble_barra_table(factors, dates, stocks, industry_l1,
+                                 fields["circ_mv"], observed)
+    return barra, factors
 
 
 def _dtype(config: PipelineConfig) -> torch.dtype:
@@ -433,26 +511,88 @@ def _append_update_step(slab, state, config, last, device):
                               state=new_state)
 
 
+_MONTHS = {name: i + 1 for i, names in enumerate((
+    ("jan", "january"), ("feb", "february"), ("mar", "march"),
+    ("apr", "april"), ("may",), ("jun", "june"), ("jul", "july"),
+    ("aug", "august"), ("sep", "sept", "september"), ("oct", "october"),
+    ("nov", "november"), ("dec", "december"))) for name in names}
+_WEEKDAYS = {"mon", "monday", "tue", "tuesday", "wed", "wednesday", "thu",
+             "thursday", "fri", "friday", "sat", "saturday", "sun", "sunday"}
+_NUMERIC_DATE = re.compile(r"(\d{1,4})([-/.])(\d{1,4})(?:\2(\d{1,4}))?")
+_CLOCK = re.compile(r"(.*?)[ T]([01]?\d|2[0-3]):[0-5]\d(?::[0-5]\d(?:\.\d+)?)?")
+
+
+def _calendar_day(s: str):
+    """``(year, month, day)`` of a date string in one of the forms
+    ``pd.Timestamp`` reads beyond ISO, or None.  Numbers separated by one
+    of ``-/.``: a four-digit year first (``2023/11/30``, ``2023-1-5``), or
+    last after month and day (``11/30/2023``; day first where the first
+    number cannot be a month: ``30/11/2023``); a month name, a day and a
+    four-digit year in any order (``Nov 30 2023``, ``30-Nov-2023``,
+    ``Thursday, November 30, 2023``).  Without a day (``2023/11``,
+    ``Nov 2023``) it is the month's first.  A trailing clock time is
+    dropped."""
+    clock = _CLOCK.fullmatch(s)
+    if clock:
+        s = clock.group(1)
+    m = _NUMERIC_DATE.fullmatch(s)
+    if m:
+        a, _, b, c = m.groups()
+        if c is None:  # month and year: the month's first day
+            if len(a) == 4 or len(b) == 4:
+                return (int(a), int(b), 1) if len(a) == 4 \
+                    else (int(b), int(a), 1)
+            return None
+        if len(a) == 4:
+            return int(a), int(b), int(c)
+        if len(c) == 4:
+            first, second = int(a), int(b)
+            return (int(c), second, first) if first > 12 \
+                else (int(c), first, second)
+        return None
+    tokens = [t for t in re.split(r"[\s,/.-]+", s.lower()) if t]
+    if tokens and tokens[0] in _WEEKDAYS:
+        tokens = tokens[1:]
+    months = [_MONTHS[t] for t in tokens if t in _MONTHS]
+    years = [int(t) for t in tokens if t.isdigit() and len(t) == 4]
+    days = [int(t) for t in tokens if t.isdigit() and len(t) <= 2]
+    if len(months) == len(years) == 1 and len(tokens) == 2 + len(days) \
+            and len(days) <= 1:
+        return years[0], months[0], days[0] if days else 1
+    return None
+
+
 def date_stamp(d) -> str:
     """Calendar-day form of a date value, for the checkpoints' identity
     stamps: the reference's ``str(pd.Timestamp(d).date())``, without
-    pandas, for ISO strings, ``YYYYMMDD`` strings (tushare's form, which
-    ``np.datetime64`` reads as a year), ``datetime64``, ``datetime`` and
-    ``pd.Timestamp``; anything else, or what does not parse, is ``str(d)``.
-    Appends compare these strings, so a different stamp forks the history.
+    pandas, for ``datetime64``, ``datetime``, ``pd.Timestamp`` and the
+    date strings ``pd.Timestamp`` reads: ISO (with or without a time),
+    ``YYYYMMDD`` (tushare's form, which ``np.datetime64`` would read as a
+    year), and the forms of :func:`_calendar_day`.  An 8-digit integer is
+    read as ``YYYYMMDD`` too: ``pd.read_csv`` gives a tushare date column
+    as integers, which ``pd.Timestamp`` counts as nanoseconds since 1970
+    (the reference stamps every such date ``"1970-01-01"``).  Anything
+    else, or what does not parse, is ``str(d)``.  Appends compare these
+    strings, so a different stamp forks the history.
     """
     try:
         if isinstance(d, datetime.datetime):  # pd.Timestamp included
             return str(d.date())
         if isinstance(d, datetime.date):
             return str(d)
+        if isinstance(d, np.datetime64):
+            return str(d.astype("datetime64[D]"))
+        if isinstance(d, (int, np.integer)) and not isinstance(d, bool) \
+                and 10_000_000 <= d <= 99_999_999:
+            d = str(int(d))
         if isinstance(d, (str, np.str_)):
             s = str(d).strip()
             if len(s) == 8 and s.isdigit():
                 s = f"{s[:4]}-{s[4:6]}-{s[6:]}"
+            ymd = _calendar_day(s)
+            if ymd is not None:
+                return str(datetime.date(*ymd))
             return str(np.datetime64(s).astype("datetime64[D]"))
-        if isinstance(d, np.datetime64):
-            return str(d.astype("datetime64[D]"))
     except (ValueError, TypeError):
         pass
     return str(d)

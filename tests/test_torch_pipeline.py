@@ -19,6 +19,7 @@ import datetime
 import subprocess
 import sys
 import textwrap
+import warnings
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -43,12 +44,9 @@ from mfm_tpu_torch.data import barra
 from mfm_tpu_torch.data.synthetic import synthetic_barra_table
 from mfm_tpu_torch.pipeline import (
     append_risk_pipeline,
-    assemble_barra_table,
     date_stamp,
-    run_factor_pipeline,
     run_risk_pipeline,
     save_pipeline_state,
-    shift_ret_next_period,
 )
 
 torch.set_num_threads(2)
@@ -215,12 +213,36 @@ def test_synthetic_barra_table_is_the_reference_table(case):
     np.datetime64("NaT"), pd.Timestamp("2021-06-30 10:00"),
     datetime.date(2022, 2, 3), datetime.datetime(2022, 2, 3, 4, 5),
     "not a date",
+    # the forms pd.Timestamp reads beyond ISO
+    "2023/11/30", "30/11/2023", "11/30/2023", "Nov 30 2023", "2023-1-5",
+    "01/02/2023", "2023.11.30", "30-Nov-2023", "November 30, 2023",
+    "Thursday, November 30, 2023", "2023 Nov 30", "2023/11/30 15:30",
+    np.str_("2023/11/30"), "Nov 2023", "2023/11", "11/2023",
+    # and what it refuses
+    "2023/02/30", "13/13/2023", "2023-13-01", "20231301", "30/11/2023 25:00",
 ])
 def test_date_stamp_is_the_reference_stamp(d):
     # a dict table's dates are np.str_, a DataFrame's str: the port stamps
     # both as the reference stamps the DataFrame's
-    want = ref_pipeline.date_stamp(str(d) if isinstance(d, np.str_) else d)
+    with warnings.catch_warnings():  # pandas warns on day-first parses
+        warnings.simplefilter("ignore", UserWarning)
+        want = ref_pipeline.date_stamp(str(d) if isinstance(d, np.str_)
+                                       else d)
     assert date_stamp(d) == want
+
+
+@pytest.mark.parametrize("d", [20231130, np.int64(20231130),
+                               np.int32(20200102)])
+def test_date_stamp_reads_an_eight_digit_integer_as_yyyymmdd(d):
+    """``pd.read_csv`` of a tushare date column gives integers.  The
+    reference stamps every one ``"1970-01-01"`` (``pd.Timestamp`` counts
+    an integer as nanoseconds), so it can never append such a table; the
+    port stamps the integer as the ISO date its digits name, as it stamps
+    the same 8-digit string."""
+    assert ref_pipeline.date_stamp(d) == "1970-01-01"
+    assert date_stamp(d) == date_stamp(str(int(d))) \
+        == f"{int(d) // 10000}-{int(d) // 100 % 100:02d}-{int(d) % 100:02d}"
+    assert date_stamp(123) == "123" and date_stamp(True) == "True"
 
 
 # -- the whole pipeline ---------------------------------------------------
@@ -372,9 +394,20 @@ def test_guarded_append_quarantines_a_collapsed_date(case, tmp_path):
     assert int(app.state.quarantine_count) == 1
 
 
-@pytest.mark.parametrize("mode", ["default", "incremental"])
+def _dated(case, mode):
+    """(mode, DataFrame, dict table) of an append case: ``slash_dates`` is
+    the default mode over the tables with YYYY/MM/DD date strings."""
+    df, table, _ = case
+    if mode != "slash_dates":
+        return mode, df, table
+    table = dict(table, date=np.char.replace(table["date"], "-", "/"))
+    return "default", pd.DataFrame(table), table
+
+
+@pytest.mark.parametrize("mode", ["default", "incremental", "slash_dates"])
 def test_reference_checkpoint_appends_in_the_port(case, tmp_path, mode):
-    df, table, sim = case
+    mode, df, table = _dated(case, mode)
+    sim = case[2]
     head = ref_pipeline.run_risk_pipeline(
         _head(df, T0), config=_ref_cfg(mode), with_state=True,
         **_injected(mode, sim, False))
@@ -382,15 +415,17 @@ def test_reference_checkpoint_appends_in_the_port(case, tmp_path, mode):
     ref_pipeline.save_pipeline_state(path, head)
     want = ref_pipeline.append_risk_pipeline(path, df, config=_ref_cfg(mode))
     got = append_risk_pipeline(path, table, config=_cfg(mode), device="cpu")
+    assert len(got.arrays.dates) == T - T0
     assert list(got.arrays.dates) == list(want.arrays.dates)
     _close_outputs(got.outputs, want.outputs, f"{mode} append")
     assert got.state.stamp == want.state.stamp
     assert got.state.last_date == want.state.last_date
 
 
-@pytest.mark.parametrize("mode", ["default", "incremental"])
+@pytest.mark.parametrize("mode", ["default", "incremental", "slash_dates"])
 def test_port_checkpoint_appends_in_the_reference(case, tmp_path, mode):
-    df, table, sim = case
+    mode, df, table = _dated(case, mode)
+    sim = case[2]
     head = run_risk_pipeline(_head(table, T0), config=_cfg(mode),
                              with_state=True, device="cpu",
                              **_injected(mode, sim, True))
@@ -398,6 +433,7 @@ def test_port_checkpoint_appends_in_the_reference(case, tmp_path, mode):
     save_pipeline_state(path, head)
     want = append_risk_pipeline(path, table, config=_cfg(mode), device="cpu")
     got = ref_pipeline.append_risk_pipeline(path, df, config=_ref_cfg(mode))
+    assert len(got.arrays.dates) == len(want.arrays.dates) == T - T0
     _close_outputs(got.outputs, want.outputs, f"{mode} append")
     assert got.state.last_date == want.state.last_date
 
@@ -405,12 +441,28 @@ def test_port_checkpoint_appends_in_the_reference(case, tmp_path, mode):
 # -- configuration and what is left out -----------------------------------
 
 def test_pipeline_config_from_reference_keeps_the_risk_config():
+    from mfm_tpu.config import FactorConfig as RefFactorConfig
+    from mfm_tpu.config import RollingSpec as RefRollingSpec
+    from mfm_tpu_torch import FactorConfig, RollingSpec
+
+    factors = RefFactorConfig(
+        beta=RefRollingSpec(window=40, half_life=10, min_periods=8),
+        rstr_lag=5, factors_to_run=("SIZE", "BETA"),
+        ortho_rules=(("volatility", ("BETA",)),))
     ref = RefPipelineConfig(risk=RefConfig(eigen_n_sims=17, seed=3,
                                            eigen_mc_dtype="bfloat16"),
-                            dtype="float64", block=32)
+                            factors=factors, dtype="float64", block=32,
+                            rolling_impl="block")
     got = pipeline_config_from_reference(dataclasses.asdict(ref))
     assert got.risk.identity() == ref.risk.identity()
     assert got.dtype == "float64" and got.mesh == MeshConfig()
+    assert got.block == 32 and got.rolling_impl == "block"
+    assert isinstance(got.factors, FactorConfig)
+    assert got.factors.beta == RollingSpec(window=40, half_life=10,
+                                           min_periods=8)
+    assert dataclasses.asdict(got.factors) == dataclasses.asdict(factors)
+    assert pipeline_config_from_reference(
+        dataclasses.asdict(RefPipelineConfig())) == PipelineConfig()
     assert PipelineConfig().dtype == "float32"
     with pytest.raises(NotImplementedError, match="ROADMAP.md §A 16"):
         pipeline_config_from_reference(
@@ -425,9 +477,6 @@ def test_pipeline_config_from_reference_keeps_the_risk_config():
     (lambda: run_risk_pipeline({}, mesh=object(), device="cpu"), 16),
     (lambda: append_risk_pipeline("x.npz", {}, mesh=object(), device="cpu"),
      16),
-    (lambda: run_factor_pipeline({}, None, None, None, None), 9),
-    (lambda: assemble_barra_table({}, None, None, None, None, None), 9),
-    (lambda: shift_ret_next_period(None, None), 9),
 ])
 def test_parts_left_out_raise_naming_their_roadmap_item(call, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §A {item}"):
