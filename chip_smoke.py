@@ -29,7 +29,15 @@ same functions on the CPU), ``pipeline_append`` (a checkpoint at 1350
 dates appended to 1390, bitwise the full run; a guarded append
 quarantining a collapsed date) and ``eigen_mc_bf16`` (the bfloat16
 Monte-Carlo: its bias-stat gate, and its incremental mode bitwise and
-through a checkpoint).  The pipeline needs no pandas.  Last
+through a checkpoint).  The pipeline needs no pandas.  Then factor
+production from the raw panel (``factor_rolling``, ``factor_engine``,
+``factor_pipeline``) and query serving, in three phases:
+``query_engine`` (bench config 6's factor space at B = 1e3, 1e5, 1e6
+against the CPU at float64, the pipeline's stock-space engine against
+``portfolio_risk``, batch == singles bitwise at every bucket),
+``query_server`` (config 6's overload storm; the serving entry from the
+guarded checkpoint) and ``query_cache`` (config 10's Zipf stream through
+a cache-fronted coalescer).  The query path launches no kernel.  Last
 it times each kernel at the main path's shapes, the two designs in turns
 (block, warp, warp, block), beside its plain version, its bound, the warp
 design's ceiling and ``torch.linalg.eigh``, and, after holding it against
@@ -45,11 +53,13 @@ the last line is printed.  Without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -707,6 +717,7 @@ def serve_guarded(ctx) -> dict:
             "serve_guarded: the single-date loop must quarantine once and "
             "land on the slab's carries")
     ctx["guarded_init"], ctx["gcfg"], ctx["bad"] = gst, gcfg, bad
+    ctx["poisoned_offset"] = off
     return res
 
 
@@ -783,9 +794,9 @@ def serve_incremental(ctx) -> dict:
 def serve_checkpoint(ctx) -> dict:
     """Phase serve_checkpoint: the guarded state through save_risk_state /
     load_risk_state, the next update_guarded bitwise the in-memory one,
-    and the torn and stale refusals."""
-    import tempfile
-
+    and the torn and stale refusals.  The checkpoint stays in the run's
+    scratch directory for phase query_server, beside a second one: the
+    state stepped onto the poisoned date (one date stale)."""
     from mfm_tpu_torch.data.artifacts import (
         ArtifactCorruptError,
         ArtifactStaleError,
@@ -796,37 +807,39 @@ def serve_checkpoint(ctx) -> dict:
     model, gcfg, bad, gst = (ctx["model"], ctx["gcfg"], ctx["bad"],
                              ctx["guarded_init"])
     T0, T = SERVE_T0, ctx["T"]
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "state.npz")
-        _, save_s = timed(lambda: save_risk_state(path, gst))
-        (loaded, meta), load_s = timed(
-            lambda: load_risk_state(path, ctx["device"]))
-        size = os.path.getsize(path)
-        on_card = all(x.device.type == ctx["device"]
-                      for x in carry_leaves(loaded, True).values())
-        mem = model(slice(T0, T), gcfg, bad).update_guarded(gst)
-        dsk = model(slice(T0, T), gcfg, bad).update_guarded(loaded)
-        rows = compare_rows(dsk[0], mem[0])
-        report = all(same(a, b) for a, b in zip(dsk[1], mem[1]))
-        carries = compare_carries(dsk[2], mem[2], guard=True)
+    tmp = ctx["tmp"]
+    path = os.path.join(tmp, "state.npz")
+    _, save_s = timed(lambda: save_risk_state(path, gst))
+    (loaded, meta), load_s = timed(
+        lambda: load_risk_state(path, ctx["device"]))
+    size = os.path.getsize(path)
+    on_card = all(x.device.type == ctx["device"]
+                  for x in carry_leaves(loaded, True).values())
+    mem = model(slice(T0, T), gcfg, bad).update_guarded(gst)
+    dsk = model(slice(T0, T), gcfg, bad).update_guarded(loaded)
+    rows = compare_rows(dsk[0], mem[0])
+    report = all(same(a, b) for a, b in zip(dsk[1], mem[1]))
+    carries = compare_carries(dsk[2], mem[2], guard=True)
 
-        old = Path(path).read_bytes()
-        save_risk_state(path, gst)
-        Path(path).write_bytes(old)
-        try:
-            load_risk_state(path, ctx["device"])
-            stale = False
-        except ArtifactStaleError:
-            stale = True
-        torn = os.path.join(tmp, "torn.npz")
-        save_risk_state(torn, gst)
-        data = Path(torn).read_bytes()
-        Path(torn).write_bytes(data[: len(data) // 2])
-        try:
-            load_risk_state(torn, ctx["device"])
-            corrupt = False
-        except ArtifactCorruptError:
-            corrupt = True
+    stale_path = os.path.join(tmp, "stale", "state.npz")
+    save_risk_state(stale_path, gst)
+    old = Path(stale_path).read_bytes()
+    save_risk_state(stale_path, gst)
+    Path(stale_path).write_bytes(old)
+    try:
+        load_risk_state(stale_path, ctx["device"])
+        stale = False
+    except ArtifactStaleError:
+        stale = True
+    torn = os.path.join(tmp, "torn.npz")
+    save_risk_state(torn, gst)
+    data = Path(torn).read_bytes()
+    Path(torn).write_bytes(data[: len(data) // 2])
+    try:
+        load_risk_state(torn, ctx["device"])
+        corrupt = False
+    except ArtifactCorruptError:
+        corrupt = True
     res = {"save_s": save_s, "load_s": load_s, "bytes": size,
            "generation": meta["generation"], "loaded_on_card": on_card,
            "rows": rows, "report_bitwise": report, "carries": carries,
@@ -836,6 +849,12 @@ def serve_checkpoint(ctx) -> dict:
             "serve_checkpoint: the loaded state does not continue bitwise")
     require(stale and corrupt,
             "serve_checkpoint: a stale or torn checkpoint was not refused")
+    stepped = os.path.join(tmp, "stepped", "state.npz")
+    off = ctx["poisoned_offset"]
+    save_risk_state(stepped, model(slice(T0, T0 + off + 1), gcfg,
+                                   bad).update_guarded(gst)[2])
+    ctx["checkpoints"] = {"checkpoint": path,
+                          "stepped_onto_poisoned_date": stepped}
     return res
 
 
@@ -1518,7 +1537,409 @@ def factor_pipeline(ctx) -> dict:
     return res
 
 
+# -- query serving ---------------------------------------------------------------
+
+#: relative tolerance, per row, of the query engine on the card (float32)
+#: against the same engine on the CPU at float64, and of a single stock-space
+#: query against ``_portfolio_risk`` (float64 over the float32 outputs): each
+#: answer is a few sums of K = 42 or N = 300 float32 products, ~1e-7 of
+#: rounding unless terms cancel
+QUERY_TOL = 1e-5
+#: bench config 6's batch sizes (bench.py:936)
+QUERY_SIZES = (1_000, 100_000, 1_000_000)
+#: rows of a batch held against the CPU at float64: a seeded sample above
+#: this count (the CPU takes tens of seconds for 2,097,152 float64 rows)
+CPU_ROWS = 100_000
+
+
+def config6_engine(device, dtype=None):
+    """Bench config 6's factor space (bench.py:925-930): K = 42, its
+    covariance and its benchmark ``idx``, from ``default_rng(0)``.
+    Returns the engine, the float32 covariance and the generator."""
+    import numpy as np
+
+    from mfm_tpu_torch.serve import QueryEngine
+
+    K = 1 + 31 + 10
+    rng = np.random.default_rng(0)
+    A = (rng.standard_normal((K, K)) / np.sqrt(K)).astype(np.float32)
+    cov = (A @ A.T + 1e-3 * np.eye(K, dtype=np.float32)) * 1e-4
+    bench = {"idx": 0.1 * rng.standard_normal(K)}
+    return (QueryEngine(cov, benchmarks=bench, dtype=dtype, device=device),
+            cov, rng)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / |want| over the rows (inf where one is NaN and
+    the other not)."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        return float("inf")
+    m = ~np.isnan(want)
+    return float(np.max(np.abs(got[m] - want[m])
+                        / np.maximum(np.abs(want[m]), 1e-300), initial=0.0))
+
+
+def engine_walls(engine, W, bucket, bench=None) -> dict:
+    """Median of 3 walls of one padded query after a warm-up (each ending
+    in a synchronise), portfolios/s, the peak memory above what was
+    allocated before, and the device busy share of one more call."""
+    import numpy as np
+
+    def step():
+        return engine.query(W, bench=bench, bucket=bucket, trim=False)
+
+    step()
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls = [timed(step)[1] for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_run(step, top=3)
+    wall = statistics.median(walls)
+    return {"B": len(W), "bucket": bucket, "chunk": engine.chunk,
+            "wall_median_s": wall, "walls_s": walls,
+            "portfolios_per_s": len(W) / wall,
+            "peak_mem_above_base_gb": (peak - base) / 1e9,
+            "peak_mem_gb": peak / 1e9, "busy_share": prof["busy_share"],
+            "busy_s": prof["busy_s"], "profile_wall_s": prof["wall_s"],
+            "device_kernels": prof["device_kernels"], "top": prof["top"],
+            "input_mb": np.asarray(W).nbytes / 1e6}
+
+
+def batch_vs_singles(engine, top_bucket, rows_of, seed) -> dict:
+    """For each ladder bucket from 8 to ``top_bucket``: a full batch at that
+    bucket, and 13 of its rows (the first and last, those beside a chunk
+    boundary, the rest seeded; all 8 of bucket 8) each queried alone
+    (bucket 8), every field compared bitwise.  Returns the differing
+    fields by bucket."""
+    import numpy as np
+
+    from mfm_tpu_torch.serve.query import BUCKET_BASE, BUCKET_GROWTH
+
+    differ, b = {}, BUCKET_BASE
+    bidx = engine.benchmark_index[next(iter(engine.benchmark_index))]
+    while b <= top_bucket:
+        rng = np.random.default_rng((seed, b))
+        W = rows_of(b, rng)
+        bench = np.where(rng.random(b) < 0.5, bidx, 0)
+        out = engine.query(W, bench=bench, trim=False)
+        pick = {0, b - 1} | ({engine.chunk - 1, engine.chunk}
+                             if b > engine.chunk else set())
+        while len(pick) < min(13, b):
+            pick.add(int(rng.integers(b)))
+        bad = set()
+        for i in sorted(pick):
+            one = engine.query(W[i], bench=[bench[i]])
+            for f, got, want in zip(one._fields, out, one):
+                if not np.array_equal(got[i].cpu().numpy(), want[0],
+                                      equal_nan=True):
+                    bad.add(f)
+        differ[str(b)] = sorted(bad)
+        b *= BUCKET_GROWTH
+    return differ
+
+
+def query_engine_phase(ctx) -> dict:
+    """Phase query_engine: bench config 6's factor space at B = 1e3, 1e5,
+    1e6 on the card (walls, portfolios/s, peak memory, busy share), held
+    against the same engine on the CPU at float64; the stock-space engine
+    of the pipeline run's last date (N=300, K=42) at B = 2,048 and
+    100,000, each single query held against ``_portfolio_risk``; and batch
+    == singles bitwise at every bucket in both spaces."""
+    import numpy as np
+
+    from mfm_tpu_torch.serve import bucket_for
+
+    card, cov, rng = config6_engine(ctx["device"])
+    cpu, _, _ = config6_engine("cpu", dtype="float64")
+    fields = ("total_vol", "factor_var", "active_risk")
+    factor = {}
+    for b in QUERY_SIZES:
+        W = (0.2 * rng.standard_normal((b, card.K))).astype(np.float32)
+        bucket = bucket_for(b)
+        res = engine_walls(card, W, bucket)
+        bench = np.where(np.arange(b) % 3 == 0, 1, 0)
+        got = card.query(W, bench=bench)
+        rows = (np.arange(b) if b <= CPU_ROWS else np.sort(
+            np.random.default_rng(1).choice(b, CPU_ROWS, replace=False)))
+        want = cpu.query(W[rows], bench=bench[rows])
+        res["vs_cpu_float64_rel"] = {f: rel_err(getattr(got, f)[rows],
+                                                getattr(want, f))
+                                     for f in fields}
+        res["cpu_rows"] = len(rows)
+        factor[str(b)] = res
+        del W, got
+
+    result = ctx["pipeline"]
+    arrays = result.arrays
+    N = len(arrays.stocks)
+    cap = np.where(arrays.valid[-1], np.nan_to_num(arrays.cap[-1]), 0.0)
+    stock = result.query_engine(t=-1, benchmarks={"cap": cap / cap.sum()})
+    shrunk = result._specific_panels(42.0, 10, 1.0, 10)[1][-1]
+    held = result._design(slice(-1, None))[1][0].cpu().numpy() \
+        & np.isfinite(shrunk)
+
+    def books(n, r):
+        W = np.abs(r.standard_normal((n, N))) * held
+        return (W / W.sum(1, keepdims=True)).astype(np.float32)
+
+    stock_walls = {str(b): engine_walls(stock, books(b, np.random.default_rng(b)),
+                                        bucket_for(b))
+                   for b in (2_048, 100_000)}
+    singles = books(16, np.random.default_rng(3))
+    worst = 0.0
+    for w in singles:
+        one = stock.query(w)
+        pr = result._portfolio_risk(w, -1, None, 42.0, 10, 1.0, 10)
+        worst = max(worst, max_rel_diff(
+            [float(one.total_vol[0]), float(one.factor_var[0]),
+             float(one.specific_var[0])],
+            [pr["total_vol"], pr["factor_var"], pr["specific_var"]]),
+            max_rel_diff(one.contribution[0].tolist(),
+                         pr["factor_risk_contribution"].tolist(),
+                         floor=float(np.abs(
+                             pr["factor_risk_contribution"]).max())))
+
+    bits = {
+        "factor": batch_vs_singles(
+            card, bucket_for(max(QUERY_SIZES)),
+            lambda b, r: (0.2 * r.standard_normal((b, card.K))).astype(
+                np.float32), seed=4),
+        "stock": batch_vs_singles(stock, bucket_for(100_000),
+                                  books, seed=5),
+    }
+    res = {"tolerance": QUERY_TOL, "factor_space": factor,
+           "stock_space": {"N": N, "K": stock.K,
+                           "staleness": stock.staleness,
+                           "walls": stock_walls,
+                           "singles_vs_portfolio_risk_rel": worst,
+                           "singles": len(singles)},
+           "batch_vs_singles_differing": bits}
+    emit("query_engine", **res)
+    off = {b: r["vs_cpu_float64_rel"] for b, r in factor.items()
+           if not max(r["vs_cpu_float64_rel"].values()) <= QUERY_TOL}
+    require(not off, f"query_engine: the card disagrees with the CPU at "
+            f"float64: {off}")
+    require(worst <= QUERY_TOL, f"query_engine: a stock-space single query "
+            f"disagrees with _portfolio_risk: {worst}")
+    differing = {s: {b: f for b, f in d.items() if f}
+                 for s, d in bits.items()}
+    require(not any(differing.values()), f"query_engine: batch != singles "
+            f"(bitwise): {differing}")
+    return res
+
+
+def query_server_phase(ctx) -> dict:
+    """Phase query_server: bench config 6's overload storm (2,048 requests
+    against a 512-deep queue, gulp mode) through ``QueryServer`` on the
+    card; then ``QueryEngine.from_risk_state`` on the guarded checkpoints
+    of phase serve_checkpoint (its state, and that state stepped onto the
+    poisoned date), each answer stamped with its state's staleness."""
+    import io
+
+    import numpy as np
+
+    from mfm_tpu_torch.data.artifacts import load_risk_state
+    from mfm_tpu_torch.obs import instrument as obs
+    from mfm_tpu_torch.serve import QueryEngine, QueryServer, ServePolicy
+
+    engine, _, _ = config6_engine(ctx["device"])
+    rng = np.random.default_rng(6)
+    lines = [json.dumps({"id": f"q{i}", "weights": np.round(
+        0.2 * rng.standard_normal(engine.K), 6).tolist()})
+        for i in range(2048)]
+    policy = ServePolicy(queue_max=512, batch_max=256, default_deadline_s=30.0)
+    before = obs.serve_summary_from_registry()
+    buf = io.StringIO()
+    summary, wall = timed(lambda: QueryServer(engine, policy, health="ok").run(
+        lines, buf, gulp=True))
+    tally = {k: v - before["requests"].get(k, 0)
+             for k, v in summary["requests"].items()
+             if v != before["requests"].get(k, 0)}
+    resps = [json.loads(x) for x in buf.getvalue().splitlines()]
+    ok = [r for r in resps if r["outcome"] == "ok"]
+    shed = tally.get("shed", 0) / max(sum(tally.values()), 1)
+    # the survivors' answers are bitwise one batch of them on the engine
+    W = np.array([json.loads(lines[int(r["id"][1:])])["weights"] for r in ok])
+    direct = engine.query(W).total_vol
+    survivors_bitwise = [r["total_vol"] for r in ok] == [float(v)
+                                                         for v in direct]
+
+    entry = {}
+    for name, path in ctx["checkpoints"].items():
+        st, meta = load_risk_state(path, ctx["device"])
+        eng = QueryEngine.from_risk_state(st, meta, device=ctx["device"])
+        srv = QueryServer(eng, ServePolicy(default_deadline_s=60.0),
+                          health="ok")
+        for i in range(3):
+            srv.submit_line(json.dumps({"id": f"{name}{i}", "weights": (
+                0.2 * rng.standard_normal(eng.K)).tolist()}))
+        out = srv.drain()
+        entry[name] = {
+            "state_staleness": int(st.staleness),
+            "engine_staleness": eng.staleness,
+            "response_staleness": [r["staleness"] for r in out],
+            "degraded": [r["degraded"] for r in out],
+            "outcomes": [r["outcome"] for r in out],
+            "cov_is_last_good_cov": bool(torch.equal(eng._cov,
+                                                     st.last_good_cov)),
+            "device": str(eng.device)}
+    res = {"storm": {"requests": len(lines), "wall_s": wall,
+                     "outcomes": tally, "shed_rate": shed,
+                     "responses": len(resps),
+                     "query_p50_latency_s": summary["query_p50_latency_s"],
+                     "query_p99_latency_s": summary["query_p99_latency_s"],
+                     "breaker_state": summary["breaker_state"],
+                     "survivors_bitwise_one_batch": survivors_bitwise},
+           "serving_entry": entry}
+    emit("query_server", **res)
+    require(tally == {"shed": 1536, "ok": 512} and shed == 0.75
+            and len(resps) == 2048 and summary["breaker_state"] == "closed",
+            f"query_server: the storm must shed 3/4 and answer the rest: "
+            f"{tally}")
+    require(survivors_bitwise and all(math.isfinite(r["total_vol"])
+                                      for r in ok),
+            "query_server: the storm's answers are not one batch's bits")
+    for name, want in (("checkpoint", 0), ("stepped_onto_poisoned_date", 1)):
+        e = entry[name]
+        require(e["state_staleness"] == e["engine_staleness"] == want
+                and e["response_staleness"] == [want] * 3
+                and e["degraded"] == [want > 0] * 3
+                and e["outcomes"] == ["ok"] * 3 and e["cov_is_last_good_cov"],
+                f"query_server: answers off {name} do not carry its "
+                f"staleness: {e}")
+    return res
+
+
+def zipf_lines(seed, n, k, distinct=150, alpha=1.0, mix=(0.65, 0.20, 0.15)):
+    """Bench config 10's stream shape: ``n`` lines drawn Zipf(``alpha``)
+    from ``distinct`` seeded bodies (plain, ``benchmark: idx`` and
+    ``scenario: stress`` queries in ``mix``), each line with its own id."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kinds = rng.choice(3, size=distinct, p=np.asarray(mix))
+    pool = []
+    for kind in kinds:
+        body = {"weights": np.round(0.2 * rng.standard_normal(k), 6).tolist(),
+                "deadline_s": 600.0}
+        if kind == 1:
+            body["benchmark"] = "idx"
+        elif kind == 2:
+            body["scenario"] = "stress"
+        pool.append(body)
+    p = np.arange(1, distinct + 1, dtype=np.float64) ** -float(alpha)
+    draws = np.random.default_rng((seed, 0x21F)).choice(distinct, size=n,
+                                                        p=p / p.sum())
+    return [json.dumps({**pool[d], "id": f"t{i}"}, sort_keys=True)
+            for i, d in enumerate(draws)]
+
+
+def query_cache_phase(ctx) -> dict:
+    """Phase query_cache: bench config 10's Zipf(1.0) stream (20,000 lines
+    over 150 bodies, K = 42, scenario ``stress`` = F * 1.21) through a
+    cache-fronted ``Coalescer`` with its linger flusher on the card: every
+    answer byte-identical to a cache-off server's once the identity keys
+    are stripped, delivered == computed + hits, and the stream coalesced
+    without the cache bitwise the sequential loop."""
+    import io
+
+    import numpy as np
+
+    from mfm_tpu_torch.obs import instrument as obs
+    from mfm_tpu_torch.serve import (
+        Coalescer,
+        QueryServer,
+        ResponseCache,
+        ServePolicy,
+    )
+
+    engine, cov, _ = config6_engine(ctx["device"])
+    scen = {"stress": engine.with_cov((cov * 1.21).astype(np.float32),
+                                      scenario_id="stress")}
+
+    def server():
+        return QueryServer(engine, ServePolicy(batch_max=256, queue_max=65536,
+                                               default_deadline_s=600.0),
+                           health="ok", scenarios=scen)
+
+    def strip(o):
+        return json.dumps({k: v for k, v in o.items()
+                           if k not in ("id", "trace_id")}, sort_keys=True)
+
+    n = 20_000
+    lines = zipf_lines(7, n, engine.K)
+    keys = [strip(json.loads(x)) for x in lines]
+    first = {}
+    for ln, key in zip(lines, keys):
+        first.setdefault(key, ln)
+    buf = io.StringIO()
+    server().run(list(first.values()), buf, gulp=True)
+    key_of = {json.loads(ln)["id"]: key for key, ln in first.items()}
+    cold = {key_of[o["id"]]: strip(o)
+            for o in map(json.loads, buf.getvalue().splitlines())}
+
+    cache = ResponseCache(8192, 64 << 20)
+    delivered, lock, done = {}, threading.Lock(), threading.Event()
+
+    def deliver(pairs):
+        with lock:
+            delivered.update(pairs)
+            if len(delivered) >= n:
+                done.set()
+
+    before = obs.serve_summary_from_registry()
+    co = Coalescer(server(), linger_s=0.05, deliver=deliver, cache=cache)
+    co.start()
+    t0 = time.perf_counter()
+    for i, ln in enumerate(lines):
+        co.submit(ln, origin=i)
+    finished = done.wait(timeout=300)
+    wall = time.perf_counter() - t0
+    co.stop()
+    after = obs.serve_summary_from_registry()
+    stats = cache.stats()
+    computed = after["requests_total"] - before["requests_total"]
+    n_delivered = (after["cache"]["delivered_total"]
+                   - before["cache"]["delivered_total"])
+    mismatched = [i for i, r in delivered.items() if strip(r) != cold[keys[i]]]
+
+    seq = io.StringIO()
+    server().run(lines, seq, gulp=True)
+    sequential = {json.loads(x)["id"]: x for x in seq.getvalue().splitlines()}
+    co2 = Coalescer(server(), linger_s=10.0)
+    coalesced = dict(p for ln in lines for p in co2.submit(ln,
+                                                           origin=ln))
+    coalesced.update(co2.stop())
+    differing = [json.loads(ln)["id"] for ln in lines
+                 if json.dumps(coalesced[ln], sort_keys=True)
+                 != sequential[json.loads(ln)["id"]]]
+    res = {"lines": n, "distinct_bodies": len(first), "linger_s": 0.05,
+           "wall_s": wall, "responses_per_s": len(delivered) / wall,
+           "hit_rate": stats["hits"] / max(stats["hits"] + stats["misses"], 1),
+           "cache": stats, "delivered": n_delivered, "computed": computed,
+           "all_delivered": finished and len(delivered) == n,
+           "differ_from_cache_off": len(mismatched),
+           "coalesced_differ_from_sequential": len(differing)}
+    emit("query_cache", **res)
+    require(res["all_delivered"] and not mismatched,
+            f"query_cache: {len(mismatched)} answers differ from the "
+            f"cache-off server's (or not all {n} delivered)")
+    require(n_delivered == n == computed + stats["hits"],
+            f"query_cache: delivered {n_delivered} != computed {computed} + "
+            f"hits {stats['hits']}")
+    require(not differing, f"query_cache: coalesced != sequential for "
+            f"{differing[:5]}")
+    return res
+
+
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
               file=sys.stderr)
@@ -1644,9 +2065,10 @@ def main() -> int:
         return RiskModel(*(p[sl] for p in data), n_industries=P, config=cfg,
                          device="cuda")
 
+    scratch = tempfile.TemporaryDirectory()
     ctx = {"model": serve_model, "panel": panel, "sim_covs": sim_covs,
            "T": T, "K": K, "M": M, "fused_out": out, "device": "cuda",
-           "budget": budget["risk"]}
+           "budget": budget["risk"], "tmp": scratch.name}
     serving = serve_update(ctx)
     serve_bitwise_ops(ctx)
     serve_guarded(ctx)
@@ -1667,6 +2089,18 @@ def main() -> int:
     factor_rolling(ctx)
     factor_engine(ctx)
     factor_launches = factor_pipeline(ctx)["launches"]
+
+    # -- phase 8: query serving, bench configs 6 and 10 -----------------------
+    # the query path runs no kernel of the port: plain tensor ops
+    reset_launches()
+    query_engine_phase(ctx)
+    query_server_phase(ctx)
+    query_cache_phase(ctx)
+    query_launches = launch_counts()
+    emit("query_launches", **query_launches)
+    require(not any(query_launches.values()),
+            f"the query path launched an eigh kernel: {query_launches}")
+    scratch.cleanup()
     del ctx
 
     # -- phase 4: each kernel at the main path's shapes --------------------
@@ -1818,6 +2252,7 @@ def main() -> int:
         entry("jacobi_eigh", "full", "mfm_tpu/ops/eigh_pallas.py:258",
               full_err, [Bf, K, K], sf, f"warp_eigh_kernel<{K}>"),
     ]
+    emit("smoke", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -28,7 +28,11 @@ Layout
 - :mod:`mfm_tpu_torch.pipeline` — raw panel -> factors -> barra table;
                                   barra table -> risk model -> result
                                   tables, analytics and the daily append
-- :mod:`mfm_tpu_torch.serve`    — the daily serving step's input guards
+- :mod:`mfm_tpu_torch.serve`    — the daily serving step's input guards;
+                                  the batched query engine, its request
+                                  loop, response cache and coalescer
+- :mod:`mfm_tpu_torch.obs`      — the serving stack's metrics, spans and
+                                  flight recorder
 - :mod:`mfm_tpu_torch.convert`  — reference configs / numpy panels / states
                                   -> port, and results back
 - :mod:`mfm_tpu_torch.data`     — barra-table ingest, seeded synthetic
@@ -59,11 +63,19 @@ from mfm_tpu_torch.pipeline import (
     run_risk_pipeline,
     save_pipeline_state,
 )
+from mfm_tpu_torch.serve import (
+    Coalescer,
+    QueryEngine,
+    QueryServer,
+    ResponseCache,
+    ServePolicy,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["FactorConfig", "FactorEngine", "PipelineConfig",
-           "QuarantinePolicy", "RiskModel", "RiskModelConfig",
-           "RiskModelOutputs", "RiskModelState", "RiskPipelineResult",
-           "RollingSpec", "append_risk_pipeline", "run_factor_pipeline",
+__all__ = ["Coalescer", "FactorConfig", "FactorEngine", "PipelineConfig",
+           "QuarantinePolicy", "QueryEngine", "QueryServer", "ResponseCache",
+           "RiskModel", "RiskModelConfig", "RiskModelOutputs",
+           "RiskModelState", "RiskPipelineResult", "RollingSpec",
+           "ServePolicy", "append_risk_pipeline", "run_factor_pipeline",
            "run_risk_pipeline", "save_pipeline_state"]

@@ -11,7 +11,8 @@ panel -> factor table -> barra table -> risk model -> results.
   long table (a pandas DataFrame or a dict of numpy columns) densified and
   run through :class:`~mfm_tpu_torch.models.risk_model.RiskModel`;
 - :class:`RiskPipelineResult`: the ``demo.py`` result tables, the
-  specific-risk panel, portfolio risk and the random-portfolio bias test;
+  specific-risk panel, portfolio risk, the random-portfolio bias test and
+  the batched query engine of a date;
 - :func:`save_pipeline_state` / :func:`append_risk_pipeline`: the daily
   append from a fenced checkpoint, bitwise the suffix of a full run.
 
@@ -21,8 +22,8 @@ DataFrames and :meth:`RiskPipelineResult.portfolio_risk`'s ``pd.Series``
 import pandas, when called; ``_specific_panels`` and ``_portfolio_risk``
 are their numpy cores.
 
-Not ported here, each raising ``NotImplementedError`` with its ROADMAP.md
-item: the query engine (§A 10) and the sharded ``mesh=`` ingest (§A 16).
+Not ported here, raising ``NotImplementedError`` with its ROADMAP.md
+item: the sharded ``mesh=`` ingest (§A 16).
 The reference's telemetry around the append (update latency, guard
 tallies) waits for the observability slice (§A 15).
 """
@@ -373,9 +374,47 @@ class RiskPipelineResult:
             "factor_risk_contribution": x * Fx,
         }
 
-    def query_engine(self, t: int = -1, benchmarks=None, **kw):
-        """The batched portfolio query engine; not ported (§A 10)."""
-        _not_ported("RiskPipelineResult.query_engine", 10)
+    def query_engine(self, t: int = -1, benchmarks=None,
+                     half_life: float = 42.0, ngroup: int = 10,
+                     q: float = 1.0, min_periods: int = 10):
+        """The batched :class:`~mfm_tpu_torch.serve.query.QueryEngine` for
+        date ``t``, in stock space on the outputs' device — the serving
+        counterpart of :meth:`portfolio_risk`: the same X_t basis, the
+        same covariance and the same shrunk specific vols, for B
+        portfolios per call.
+
+        When the run was guarded (``report`` set), the engine serves the
+        guard report's ``served_cov[t]`` with its staleness stamp;
+        otherwise the adjusted covariance with staleness 0.  Stocks outside
+        date t's universe get zero exposure and specific-variance rows:
+        the request guards, not the engine, reject weight on them.
+
+        ``benchmarks``: optional ``{name: (N,) stock weights}`` served for
+        active-risk/beta queries.
+        """
+        from mfm_tpu_torch.serve.query import QueryEngine
+
+        a = self.arrays
+        T = a.ret.shape[0]
+        t = int(t)
+        if not -T <= t < T:
+            raise IndexError(f"date index {t} out of range for T={T}")
+        t %= T
+        X, valid, _ = self._design(slice(t, t + 1))
+        X, valid = _numpy(X[0]), _numpy(valid[0])
+        X = np.where(valid[:, None], X, 0.0)
+        if self.report is not None:
+            F = self.report.served_cov[t]
+            staleness = int(self.report.staleness[t])
+        else:
+            F = self.outputs.vr_cov[t]
+            staleness = 0
+        sv = self._specific_panels(half_life, ngroup, q, min_periods)[1][t]
+        svar = np.where(valid & np.isfinite(sv), sv, 0.0) ** 2
+        return QueryEngine(
+            F, factor_names=a.factor_names(), exposures=X,
+            specific_var=svar, stocks=list(map(str, a.stocks)),
+            benchmarks=benchmarks, staleness=staleness, device=F.device)
 
 
 def run_risk_pipeline(

@@ -1,9 +1,24 @@
-"""Serving layer of the port: the per-date input guards and the
-degraded-mode verdicts behind ``RiskModel.update_guarded``
-(counterpart of ``mfm_tpu/serve/guard.py`` and ``serve/_checks.py``).
+"""Serving layer of the port (counterpart of ``mfm_tpu/serve``).
 
-The reference's request-side stack (query engine, server, coalescer,
-cache, fleet) is ROADMAP.md §A 10.
+Two guard surfaces protect the two directions of the serving stack:
+
+- the MODEL side — :mod:`mfm_tpu_torch.serve.guard`'s per-date health
+  checks run on every appended slab before a date may enter the carries
+  (quarantine + staleness-stamped degraded covariance, behind
+  ``RiskModel.update_guarded``);
+- the REQUEST side — :mod:`mfm_tpu_torch.serve.server`'s host-side request
+  guards, admission control, deadlines, load shedding and circuit breaker
+  around :mod:`mfm_tpu_torch.serve.query`'s batched engine.
+
+:mod:`mfm_tpu_torch.serve._checks` holds the formula primitives both guard
+layers share (MAD outliers, reason-bitmask plumbing).
+
+On top of the single loop, :mod:`mfm_tpu_torch.serve.cache` answers
+repeated request bodies from a bounded content-addressed response cache
+fenced on checkpoint generation + scenario spec hash, and
+:mod:`mfm_tpu_torch.serve.coalesce` merges concurrent submissions into the
+bucket ladder under a linger budget.  The socket front end, the worker
+replicas and their transport are ROADMAP.md §A 10's next step.
 """
 
 from mfm_tpu_torch.serve.guard import (  # noqa: F401
@@ -19,3 +34,22 @@ from mfm_tpu_torch.serve.guard import (  # noqa: F401
     host_date_reasons,
     reason_names,
 )
+from mfm_tpu_torch.serve.query import (  # noqa: F401
+    QueryEngine,
+    QueryOutputs,
+    bucket_for,
+)
+from mfm_tpu_torch.serve.server import (  # noqa: F401
+    CircuitBreaker,
+    QueryServer,
+    ServePolicy,
+    parse_request,
+    req_reason_names,
+)
+from mfm_tpu_torch.serve.cache import (  # noqa: F401
+    CacheFill,
+    ResponseCache,
+    WarmStartIndex,
+    cacheable_response,
+)
+from mfm_tpu_torch.serve.coalesce import Coalescer  # noqa: F401

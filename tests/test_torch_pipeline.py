@@ -484,8 +484,18 @@ def test_parts_left_out_raise_naming_their_roadmap_item(call, item):
 
 
 def test_query_engine_is_left_out(runs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A 10"):
-        runs[1].query_engine()
+    """Formerly left out (ROADMAP.md §A 10), now ported: the default
+    engine of the last date serves the adjusted covariance, stale 0, and
+    answers as the reference's does."""
+    ref, port = runs
+    got, want = port.query_engine(), ref.query_engine()
+    assert got.staleness == want.staleness == 0
+    assert got.factor_names == want.factor_names
+    _close(got._cov, port.outputs.vr_cov[-1], "served cov", rtol=0)
+    W = np.abs(np.random.default_rng(4).standard_normal((3, N))) \
+        * np.asarray(want._X).any(1)
+    for f, g, w in zip(want.query(W)._fields, got.query(W), want.query(W)):
+        _close(g, w, f)
 
 
 def test_pipeline_runs_without_pandas():
