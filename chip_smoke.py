@@ -37,7 +37,17 @@ against the CPU at float64, the pipeline's stock-space engine against
 ``portfolio_risk``, batch == singles bitwise at every bucket),
 ``query_server`` (config 6's overload storm; the serving entry from the
 guarded checkpoint) and ``query_cache`` (config 10's Zipf stream through
-a cache-fronted coalescer).  The query path launches no kernel.  Last
+a cache-fronted coalescer).  The query path launches no kernel.  Then
+scenarios, in three phases: ``scenario_engine`` (bench config 7, S =
+16, 256, 4,096 through ``ScenarioEngine.run``: the PSD gate's eigh is the
+full kernel; a lane sample against the CPU at float64, the identity lane
+and batch == singles bitwise at every bucket, the kernel route bitwise
+its plain version, and the gate's eigh alone at (8,192, 42, 42) beside
+its bound and ``torch.linalg.eigh``), ``scenario_served`` (presets, a
+replay and two counterfactuals on the guarded checkpoint at CSI300
+width, the manifest, the scenario table through ``QueryServer``) and
+``scenario_sweep`` (bench config sweep: 1,007,616 scenarios streamed,
+the materializing arm, the top-1 round trip, a ``sweep`` request).  Last
 it times each kernel at the main path's shapes, the two designs in turns
 (block, warp, warp, block), beside its plain version, its bound, the warp
 design's ceiling and ``torch.linalg.eigh``, and, after holding it against
@@ -322,6 +332,27 @@ def profile_run(fn, top: int = 6) -> dict:
             "top": [{"kernel": e.key[:80], "count": e.count,
                      "device_s": e.self_device_time_total / 1e6}
                     for e in rows[:top]]}
+
+
+def bound(B, n, rounds, in_bytes, out_bytes, extra_ops=0):
+    """The least time the card could take for ``B`` Jacobi eighs of n x n
+    over ``rounds`` rounds (9 n^2 flop a matrix a round, plus
+    ``extra_ops``), at the FP32 peak, and for the bytes at the memory
+    rate; the larger of the two bounds it."""
+    ops = rounds * 9 * n * n * B + extra_ops
+    t_ops = ops / PEAK_FP32_PER_S
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S
+    # the warp design's ceiling: no FMA contraction (half the FP32
+    # peak) and n/2 of a warp's 32 lanes at work
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                design_ceiling_ms=1e3 * t_ops * 2 * 32 / (n // 2),
+                flops=ops, bytes=in_bytes + out_bytes)
+
+
+def full_kernel_bound(B, n, sweeps):
+    """:func:`bound` of the full kernel: A read, w and V written."""
+    return bound(B, n, sweeps * (n - 1), 4 * B * n * n, 4 * B * (n * n + n))
 
 
 def outputs_finite(out, valid):
@@ -1552,18 +1583,26 @@ QUERY_SIZES = (1_000, 100_000, 1_000_000)
 CPU_ROWS = 100_000
 
 
-def config6_engine(device, dtype=None):
-    """Bench config 6's factor space (bench.py:925-930): K = 42, its
-    covariance and its benchmark ``idx``, from ``default_rng(0)``.
-    Returns the engine, the float32 covariance and the generator."""
+def bench_factor_cov():
+    """The factor covariance of bench configs 6 and 7 (bench.py:925-927,
+    984-986): K = 42, float32, from ``default_rng(0)``.  Returns it and
+    the generator."""
     import numpy as np
-
-    from mfm_tpu_torch.serve import QueryEngine
 
     K = 1 + 31 + 10
     rng = np.random.default_rng(0)
     A = (rng.standard_normal((K, K)) / np.sqrt(K)).astype(np.float32)
-    cov = (A @ A.T + 1e-3 * np.eye(K, dtype=np.float32)) * 1e-4
+    return (A @ A.T + 1e-3 * np.eye(K, dtype=np.float32)) * 1e-4, rng
+
+
+def config6_engine(device, dtype=None):
+    """Bench config 6's factor space (bench.py:925-930): K = 42, its
+    covariance and its benchmark ``idx``, from ``default_rng(0)``.
+    Returns the engine, the float32 covariance and the generator."""
+    from mfm_tpu_torch.serve import QueryEngine
+
+    cov, rng = bench_factor_cov()
+    K = cov.shape[0]
     bench = {"idx": 0.1 * rng.standard_normal(K)}
     return (QueryEngine(cov, benchmarks=bench, dtype=dtype, device=device),
             cov, rng)
@@ -1938,6 +1977,543 @@ def query_cache_phase(ctx) -> dict:
 
 
 
+# -- scenarios: bench configs 7 and sweep ------------------------------------
+
+#: the card (float32) against the same engine on the CPU (float64), per
+#: matrix: max |diff| / max |cpu|.  A lane the PSD gate leaves alone
+#: carries only the stress's rounding (2.5e-7 in a CPU rehearsal at
+#: float32); a projected lane carries the float32 eigendecomposition's
+#: reconstruction error (1.7e-5 there at 7 sweeps; the main path's F0
+#: check allows 5e-5)
+SCENARIO_TOL = {"unprojected": 1e-5, "projected": 5e-5}
+#: bench config 7's batch sizes (bench.py:1007)
+SCENARIO_SIZES = (16, 256, 4096)
+#: lanes of each size held against the CPU at float64 (the plain float64
+#: Jacobi on the host takes about 40 ms a lane): the first 8, up to 8
+#: projected ones and a seeded sample
+SCENARIO_CPU_LANES = 16
+
+
+def specs_for(S, names):
+    """Bench config 7's spec mix (bench.py:991-1000): a vol shock on one
+    factor, a regime multiplier, and a correlation stress on every third
+    spec."""
+    from mfm_tpu_torch.scenario import ScenarioBuilder
+
+    K, out = len(names), []
+    for i in range(S):
+        b = ScenarioBuilder(f"s{i}")
+        b.shock(names[i % K], add=1e-4 * (1 + i % 7))
+        b.vol_regime(1.0 + 0.1 * (i % 5))
+        if i % 3 == 0:
+            b.correlation(0.2 + 0.1 * (i % 4))
+        out.append(b.build())
+    return out
+
+
+def scenario_operands(engine, specs, bucket):
+    """The padded operands ``ScenarioEngine.run`` hands ``scenario_batch``
+    for shock-only specs on the engine's own base."""
+    import numpy as np
+
+    K, dt = engine.K, engine.dtype
+    shift, scale = np.zeros((bucket, K), dt), np.ones((bucket, K), dt)
+    vol_mult, corr_beta = np.ones(bucket, dt), np.zeros(bucket, dt)
+    passthrough = np.ones(bucket, bool)
+    for i, spec in enumerate(specs):
+        shift[i], scale[i] = engine._shock_vectors(spec)
+        vol_mult[i], corr_beta[i] = spec.vol_mult, spec.corr_beta
+        passthrough[i] = spec.shocks_identity
+    put = engine._put
+    return (engine._cov.expand(bucket, K, K), put(shift), put(scale),
+            put(vol_mult), put(corr_beta), put(passthrough))
+
+
+def add_launches(ctx):
+    """Add the launch counts since the last reset to the scenario path's."""
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts
+
+    for k, v in launch_counts().items():
+        ctx["scenario_launches"][k] = ctx["scenario_launches"].get(k, 0) + v
+
+
+def scenario_engine_phase(ctx) -> dict:
+    """Phase scenario_engine: bench config 7 (K = 42, S = 16, 256, 4,096
+    at buckets 32, 512, 8,192) through ``ScenarioEngine.run`` on the card:
+    walls, scenarios/s, projected lanes, busy share, peak memory and
+    launches per run; a lane sample held against the same engine on the
+    CPU at float64; the identity lane bitwise the base; batch == singles
+    bitwise at every bucket 8..8,192; every projected output PSD at
+    float32; the kernel route bitwise ``kernels=False``; and the gate's
+    eigh alone on the S = 4,096 stressed stack at (8,192, 42, 42): the
+    full kernel, its plain version and ``torch.linalg.eigh`` timed beside
+    the bound, with the reconstruction and orthogonality residuals."""
+    import numpy as np
+
+    from mfm_tpu_torch.ops import eigh as E
+    from mfm_tpu_torch.ops.eigh_cuda import (
+        _launch_eigh,
+        launch_counts,
+        reset_launches,
+    )
+    from mfm_tpu_torch.scenario import PRESETS, ScenarioEngine, ScenarioSpec
+    from mfm_tpu_torch.scenario.kernel import scenario_batch, stress_cov
+    from mfm_tpu_torch.serve import bucket_for
+    from mfm_tpu_torch.serve.query import BUCKET_BASE, BUCKET_GROWTH
+
+    cov, _ = bench_factor_cov()
+    K = cov.shape[0]
+    names = [f"f{i}" for i in range(K)]
+    card = ScenarioEngine(cov, factor_names=names, device=ctx["device"])
+    cpu = ScenarioEngine(cov.astype(np.float64), factor_names=names,
+                         device="cpu")
+    eps = float(np.finfo(np.float32).eps)
+
+    sizes = {}
+    for S in SCENARIO_SIZES:
+        specs = specs_for(S, names)
+
+        def run():
+            return card.run(specs)
+
+        run()
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        walls = [timed(run)[1] for _ in range(3)]
+        launches = {k: v / 3 for k, v in launch_counts().items()}
+        add_launches(ctx)
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_run(run, top=4)
+        res = run()
+        projected = [i for i, r in enumerate(res) if r.psd_projected]
+        rng = np.random.default_rng(S)
+        pick = set(range(min(8, S))) | set(projected[:8])
+        rest = [i for i in range(S) if i not in pick]
+        pick |= set(rng.choice(rest, min(len(rest), SCENARIO_CPU_LANES),
+                               replace=False).tolist())
+        pick = sorted(pick)
+        want = cpu.run([specs[i] for i in pick])
+        worst = {"unprojected": 0.0, "projected": 0.0}
+        gate_differs, in_band = [], 0
+        for i, w in zip(pick, want):
+            g = res[i]
+            key = ("projected" if g.psd_projected or w.psd_projected
+                   else "unprojected")
+            worst[key] = max(worst[key], float(
+                np.abs(g.cov - w.cov).max() / np.abs(w.cov).max()))
+            lam_max = float(np.linalg.eigvalsh(w.cov)[-1])
+            if abs(w.min_eig_stressed) <= 1e3 * eps * lam_max:
+                in_band += 1
+            elif g.psd_projected != w.psd_projected:
+                gate_differs.append(specs[i].name)
+        proj_min_eig = (float(np.linalg.eigvalsh(np.stack(
+            [res[i].cov for i in projected])).min()) if projected else None)
+        wall = statistics.median(walls)
+        sizes[str(S)] = {
+            "bucket": bucket_for(S), "walls_s": walls,
+            "wall_min_s": min(walls), "wall_median_s": wall,
+            "scenarios_per_s": S / min(walls),
+            "projected": len(projected), "rejected": sum(not r.ok
+                                                          for r in res),
+            "launches_per_run": launches,
+            "peak_mem_above_base_gb": (peak - base) / 1e9,
+            "busy_share": prof["busy_share"], "busy_s": prof["busy_s"],
+            "device_kernels": prof["device_kernels"], "top": prof["top"],
+            "cpu_lanes": len(pick), "vs_cpu_float64_rel": worst,
+            "gate_differs_outside_band": gate_differs,
+            "lanes_in_gate_band": in_band,
+            "projected_min_eig_float32": proj_min_eig}
+
+    # the identity lane is the base, alone and beside shocked lanes
+    ident, = card.run([ScenarioSpec.identity()])
+    beside = card.run(specs_for(15, names) + [ScenarioSpec.identity()])[-1]
+    identity_bitwise = (ident.cov.tobytes() == card.cov.tobytes()
+                        == beside.cov.tobytes())
+
+    # batch == singles at every bucket; from 32 on the batch ends in the
+    # three presets, so projected lanes are among the singles
+    presets = [PRESETS[n] for n in sorted(PRESETS)]
+    differ, b = {}, BUCKET_BASE
+    while b <= bucket_for(max(SCENARIO_SIZES)):
+        tail = presets if b > BUCKET_BASE else []
+        specs = specs_for(b - len(tail), names) + tail
+        batch = card.run(specs)
+        rng = np.random.default_rng((7, b))
+        pick = {0, b - 1} | set(range(b - len(tail), b))
+        while len(pick) < min(13, b):
+            pick.add(int(rng.integers(b)))
+        bad = []
+        for i in sorted(pick):
+            one, = card.run([specs[i]])
+            if not (one.cov.tobytes() == batch[i].cov.tobytes()
+                    and one.psd_projected == batch[i].psd_projected
+                    and one.min_eig_stressed == batch[i].min_eig_stressed):
+                bad.append(specs[i].name)
+        differ[str(b)] = {"lanes": len(pick), "projected": sum(
+            batch[i].psd_projected for i in pick), "differing": bad}
+        b *= BUCKET_GROWTH
+
+    # the gate's eigh on config 7's own S = 4,096 stressed stack
+    S = max(SCENARIO_SIZES)
+    B = bucket_for(S)
+    ops = scenario_operands(card, specs_for(S, names), B)
+    got = scenario_batch(*ops)
+    plain = scenario_batch(*ops, kernels=False)
+    route_bitwise = all(same(g, p) for g, p in zip(got, plain))
+    cov_s = stress_cov(*ops[:5]).contiguous()
+    sf = E._sweeps_for(K, torch.float32)
+    w, V = _launch_eigh(cov_s, sf, "warp")
+    wp, Vp = E.jacobi_eigh_slots(cov_s, sf)
+    eigh_bitwise = bool(torch.equal(w, wp) and torch.equal(V, Vp))
+    eigh_err = float(max((w - wp).abs().max(), (V - Vp).abs().max()))
+    rec, orth = recon_orth(w, V, cov_s)
+    ms = time_ms(lambda: _launch_eigh(cov_s, sf, "warp"), 20)
+    plain_ms = time_ms(lambda: E.jacobi_eigh_slots(cov_s, sf), 1)
+    torch.linalg.eigh(cov_s[:16])   # the solver's set-up, at a small batch
+    library_ms = time_ms(lambda: torch.linalg.eigh(cov_s), 1, warmup=False)
+    gate = {"shape": [B, K, K], "sweeps": sf, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **full_kernel_bound(B, K, sf),
+            "kernel_vs_plain_bitwise": eigh_bitwise,
+            "max_abs_err": eigh_err, "recon": rec, "orth": orth,
+            "stressed_lanes_indefinite": int((w.amin(-1) < 0).sum())}
+    ctx["scenario_gate"] = gate
+
+    res = {"K": K, "tolerance": SCENARIO_TOL, "sizes": sizes,
+           "identity_bitwise": identity_bitwise,
+           "batch_vs_singles": differ,
+           "kernel_route_bitwise_plain": route_bitwise, "gate_eigh": gate}
+    emit("scenario_engine", **res)
+    off = {S: r["vs_cpu_float64_rel"] for S, r in sizes.items()
+           if any(r["vs_cpu_float64_rel"][k] > SCENARIO_TOL[k]
+                  for k in SCENARIO_TOL)}
+    require(not off, f"scenario_engine: the card disagrees with the CPU at "
+            f"float64: {off}")
+    gate_off = {S: r["gate_differs_outside_band"] for S, r in sizes.items()
+                if r["gate_differs_outside_band"]}
+    require(not gate_off, f"scenario_engine: the PSD gate decides otherwise "
+            f"than the CPU outside the band: {gate_off}")
+    require(all(r["rejected"] == 0 for r in sizes.values()),
+            "scenario_engine: config 7 rejected a spec")
+    require(all(r["projected_min_eig_float32"] is None
+                or r["projected_min_eig_float32"] >= 0
+                for r in sizes.values()),
+            "scenario_engine: a projected covariance is not PSD at float32")
+    require(identity_bitwise, "scenario_engine: the identity lane is not "
+            "the base, bitwise")
+    bad = {b: d["differing"] for b, d in differ.items() if d["differing"]}
+    require(not bad, f"scenario_engine: batch != singles (bitwise): {bad}")
+    require(route_bitwise and eigh_bitwise,
+            "scenario_engine: the kernel route is not bitwise the plain one")
+    require(rec <= 5e-5 and orth <= ORTH_TOL_F32,
+            f"scenario_engine: the gate's eigh at {sf} sweeps: recon {rec} "
+            f"orth {orth}")
+    return res
+
+
+def scenario_served_phase(ctx) -> dict:
+    """Phase scenario_served: ``ScenarioEngine.from_risk_state`` on phase
+    serve_checkpoint's guarded checkpoint at CSI300 width, running the
+    three presets, a replay of a window of the pipeline run's history
+    (``replay_lookup_from_result``) and two counterfactuals over the
+    40-date serving slab (force-heal the poisoned date, force-quarantine a
+    clean one), each held to a manual ``update_guarded``; the scenario
+    manifest written, read back and audited; and the scenario table
+    through ``QueryServer``, bitwise ``with_cov``."""
+    import io
+
+    import numpy as np
+
+    from mfm_tpu_torch.data.artifacts import load_risk_state
+    from mfm_tpu_torch.obs import instrument as obs
+    from mfm_tpu_torch.ops.eigh_cuda import reset_launches
+    from mfm_tpu_torch.pipeline import date_stamp
+    from mfm_tpu_torch.scenario import (
+        PRESETS,
+        ScenarioBuilder,
+        ScenarioEngine,
+        audit_scenario_manifest,
+        build_scenario_manifest,
+        make_counterfactual_fn,
+        read_scenario_manifest,
+        replay_lookup_from_result,
+        write_scenario_manifest,
+    )
+    from mfm_tpu_torch.serve import QueryEngine, QueryServer, ServePolicy
+    from mfm_tpu_torch.serve.guard import REASON_FORCED
+
+    dev = ctx["device"]
+    st, meta = load_risk_state(ctx["checkpoints"]["checkpoint"], dev)
+    pipe = ctx["pipeline"]
+    lookup = replay_lookup_from_result(pipe)
+    dates = [date_stamp(d) for d in pipe.arrays.dates]
+    window = (dates[-30], dates[-11])
+    model, gcfg, bad, gst = (ctx["model"], ctx["gcfg"], ctx["bad"],
+                             ctx["guarded_init"])
+    T0, T, off = SERVE_T0, ctx["T"], ctx["poisoned_offset"]
+    clean = off + 7
+    slab_dates = [str(d) for d in np.arange(
+        "2024-01-01", "2024-03-31", dtype="datetime64[D]")[:T - T0]]
+    cf = make_counterfactual_fn(model(slice(T0, T), gcfg, bad), gst,
+                                slab_dates)
+    engine = ScenarioEngine.from_risk_state(
+        st, meta, replay_lookup=lookup, counterfactual_fn=cf, device=dev)
+    specs = [PRESETS[n] for n in sorted(PRESETS)] + [
+        ScenarioBuilder("replay").replay(*window).build(),
+        ScenarioBuilder("cf-heal").flip(slab_dates[off], heal=True).build(),
+        ScenarioBuilder("cf-quarantine").flip(slab_dates[clean]).build()]
+
+    reset_launches()
+    results, wall = timed(lambda: engine.run(specs))
+    add_launches(ctx)
+    by = {r.spec.name: r for r in results}
+
+    want_replay = lookup(*window)
+    hits = [i for i, d in enumerate(dates) if window[0] <= d <= window[1]
+            and bool(pipe.outputs.eigen_valid[i])]
+    replay_is_vr_cov = bool(torch.equal(torch.from_numpy(want_replay),
+                                        pipe.outputs.vr_cov[hits[-1]].cpu()))
+    replay_bitwise = by["replay"].cov.tobytes() == want_replay.tobytes()
+
+    manual = {}
+    for name, i, heal in (("cf-heal", off, True),
+                          ("cf-quarantine", clean, False)):
+        pre = np.zeros(T - T0, np.uint32)
+        mask = np.zeros(T - T0, bool)
+        if heal:
+            mask[i] = True
+        else:
+            pre[i] = REASON_FORCED
+        _, rep, _ = model(slice(T0, T), gcfg, bad).update_guarded(
+            gst, pre_reasons=pre, heal_mask=mask)
+        manual[name] = {
+            "bitwise": by[name].cov.tobytes()
+            == rep.served_cov[-1].cpu().numpy().tobytes(),
+            "quarantined": np.nonzero(rep.quarantined.cpu().numpy())[0]
+            .tolist()}
+
+    mdir = os.path.join(ctx["tmp"], "scenarios")
+    man = build_scenario_manifest(
+        results, engine.factor_names, backend=torch.cuda.get_device_name(0),
+        staleness=engine.staleness,
+        summary=obs.scenario_summary_from_registry())
+    path = write_scenario_manifest(mdir, man)
+    back = read_scenario_manifest(mdir)
+    problems, warnings = audit_scenario_manifest(path)
+
+    template = QueryEngine.from_risk_state(st, meta, device=dev)
+    table = engine.query_engines(results, template)
+    rng = np.random.default_rng(8)
+    W = (0.2 * rng.standard_normal((3, template.K))).round(6)
+    lines = [json.dumps({"id": f"{n}/{j}", "weights": W[j].tolist(),
+                         "scenario": n})
+             for n in table for j in range(3)]
+    buf = io.StringIO()
+    QueryServer(template, ServePolicy(default_deadline_s=60.0), health="ok",
+                scenarios=table).run(lines, buf)
+    out = [json.loads(x) for x in buf.getvalue().splitlines()]
+    served_bitwise = []
+    for r in out:
+        name, j = r["id"].rsplit("/", 1)
+        want = template.with_cov(by[name].cov).query(W[int(j)])
+        served_bitwise.append(
+            r["outcome"] == "ok" and r["scenario_id"] == name
+            and r["total_vol"] == float(want.total_vol[0])
+            and r["contribution"] == want.contribution[0].tolist())
+
+    res = {"wall_s": wall, "K": engine.K, "staleness": engine.staleness,
+           "statuses": {n: r.status for n, r in by.items()},
+           "projected": [n for n, r in by.items() if r.psd_projected],
+           "min_eig_stressed": {n: r.min_eig_stressed for n, r in by.items()
+                                if r.ok},
+           "replay_window": list(window),
+           "replay_bitwise_lookup": replay_bitwise,
+           "lookup_is_pipeline_vr_cov": replay_is_vr_cov,
+           "counterfactuals": manual,
+           "manifest": {"n_ok": back["n_ok"], "n_psd_projected":
+                        back["n_psd_projected"], "problems": problems,
+                        "warnings": warnings},
+           "served_lines": len(out),
+           "served_bitwise_with_cov": all(served_bitwise)}
+    emit("scenario_served", **res)
+    require(all(r.ok for r in results), f"scenario_served: a scenario was "
+            f"rejected: {[(r.spec.name, r.problems) for r in results]}")
+    require(by["corr-meltup"].psd_projected,
+            "scenario_served: corr-meltup did not project")
+    require(replay_bitwise and replay_is_vr_cov,
+            "scenario_served: the replay lane is not the window's covariance")
+    require(all(m["bitwise"] for m in manual.values())
+            and off not in manual["cf-heal"]["quarantined"]
+            and clean in manual["cf-quarantine"]["quarantined"],
+            f"scenario_served: a counterfactual is not its manual re-run: "
+            f"{manual}")
+    require(not problems and back["n_ok"] == len(specs),
+            f"scenario_served: the manifest does not audit clean: {problems}")
+    require(len(out) == len(lines) and all(served_bitwise),
+            "scenario_served: a scenario-tagged answer is not with_cov's")
+    return res
+
+
+def sweep_case():
+    """Bench config sweep's factor space (bench.py:1065-1079): the in-cone
+    K = 42 covariance, the two books and the coarse ball."""
+    import numpy as np
+
+    from mfm_tpu_torch.grad import ShockBall
+
+    K = 42
+    rng = np.random.default_rng(0)
+    F = rng.standard_normal((K, 6)) * 0.3
+    corr_raw = F @ F.T + np.diag(rng.uniform(0.5, 1.5, K))
+    d = np.sqrt(np.diagonal(corr_raw))
+    corr = corr_raw / np.outer(d, d)
+    sig = rng.uniform(0.01, 0.03, K)
+    cov = (corr * np.outer(sig, sig)).astype(np.float32)
+    xs = (rng.standard_normal((2, K)) / np.sqrt(K)).astype(np.float32)
+    ball = ShockBall(shift_max=0.001, scale_range=0.3, vol_mult_lo=1.0,
+                     vol_mult_hi=3.5, corr_beta_lo=0.0, corr_beta_hi=0.45)
+    return cov, [f"f{i}" for i in range(K)], xs, ball
+
+
+#: bench config sweep's chunk and chunk count (bench.py:1081-1082)
+SWEEP_CHUNK = 8192
+SWEEP_CHUNKS = 123
+
+
+def scenario_sweep_phase(ctx) -> dict:
+    """Phase scenario_sweep: bench config sweep on the card — 123 chunks
+    of 8,192 (1,007,616 scenarios) streamed after a one-chunk warm-up:
+    rate, offender fraction, busy share, launches; the materializing arm
+    (``ScenarioEngine.run`` on one chunk's thetas) timed, and its top-k
+    and histogram held bitwise to a one-chunk sweep; the top-1 spec of
+    each book re-run to the identical vol; ``preset_dominance``; and one
+    ``sweep`` request through ``QueryServer`` equal to a direct sweep."""
+    import io
+
+    import numpy as np
+
+    from mfm_tpu_torch.grad import ShockBall
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+    from mfm_tpu_torch.scenario import (
+        ScenarioSpec,
+        SweepEngine,
+        UniformSampler,
+        theta_to_spec,
+    )
+    from mfm_tpu_torch.scenario.kernel import book_vols
+    from mfm_tpu_torch.serve import QueryEngine, QueryServer, ServePolicy
+
+    dev = ctx["device"]
+    cov, names, xs, ball = sweep_case()
+    K, chunk = len(names), SWEEP_CHUNK
+    S = SWEEP_CHUNKS * chunk
+    engine = SweepEngine(cov, factor_names=names, device=dev)
+    scen = engine._scen
+    xs_t = torch.from_numpy(xs).to(dev)
+
+    def sampler(seed, n=S):
+        return UniformSampler(ball, K, n, seed=seed)
+
+    engine.sweep(xs, sampler(1, chunk), chunk=chunk)          # warm-up
+    reset_launches()
+    res, wall = timed(lambda: engine.sweep(xs, sampler(2), chunk=chunk))
+    stream_launches = launch_counts()
+    add_launches(ctx)
+    prof = profile_run(lambda: engine.sweep(xs, sampler(3, 8 * chunk),
+                                            chunk=chunk), top=5)
+
+    # the materializing arm at one chunk's shape, and streaming ==
+    # materializing on the same thetas
+    th0 = next(iter(sampler(2, chunk).blocks(chunk)))[0]
+    specs = [theta_to_spec(t, names, f"m{i}") for i, t in enumerate(th0)]
+    scen.run(specs)                                            # warm-up
+    reset_launches()
+    mat_walls = [timed(lambda: scen.run(specs))[1] for _ in range(3)]
+    add_launches(ctx)
+    mat = scen.run(specs)
+    one = engine.sweep(xs, sampler(2, chunk), chunk=chunk, top_k=16,
+                       bins=64)
+    covs = torch.from_numpy(np.stack([r.cov for r in mat])).to(dev)
+    vols = book_vols(covs, xs_t).cpu().numpy()
+    stream_vs_mat = {}
+    for b, book in enumerate(one.books):
+        order = sorted(range(chunk), key=lambda j: (-vols[b, j], j))[:16]
+        want_top = [(float(vols[b, j]), j) for j in order]
+        lo, w = np.float32(book["hist"]["lo"]), np.float32(
+            book["hist"]["bin_width"])
+        bi = np.clip(((vols[b] - lo) / w).astype(np.int32), 0, 63)
+        stream_vs_mat[book["label"]] = {
+            "top": [(e["vol"], e["src"]) for e in book["top"]] == want_top,
+            "hist": book["hist"]["counts"] == np.bincount(
+                bi, minlength=64).tolist()}
+
+    round_trip = {}
+    for b, book in enumerate(res.books):
+        top = book["top"][0]
+        r, = scen.run([ScenarioSpec.from_dict(top["spec"])])
+        alone = float(book_vols(torch.from_numpy(r.cov[None]).to(dev),
+                                xs_t[b:b + 1])[0, 0])
+        beside = float(book_vols(torch.from_numpy(r.cov[None]).to(dev),
+                                 xs_t)[b, 0])
+        round_trip[book["label"]] = {"vol": top["vol"], "alone": alone,
+                                     "beside": beside,
+                                     "bitwise": alone == beside == top["vol"]}
+    dominance = engine.preset_dominance(res, xs)
+
+    # one sweep request through the serving loop
+    qe = QueryEngine(cov, factor_names=names, device=dev)
+    line = json.dumps({"id": "sweep0", "weights": xs[0].tolist(),
+                       "deadline_s": 600.0,
+                       "sweep": {"n": 8 * chunk, "chunk": chunk}})
+    buf = io.StringIO()
+    reset_launches()
+    _, req_wall = timed(lambda: QueryServer(qe, ServePolicy(),
+                                            health="ok").run([line], buf))
+    add_launches(ctx)
+    resp = json.loads(buf.getvalue())
+    direct = engine.sweep(xs[:1], UniformSampler(ShockBall(), K, 8 * chunk,
+                                                 seed=0),
+                          chunk=chunk, top_k=8, bins=64)
+
+    rate = S / res.seconds
+    mat_rate = chunk / min(mat_walls)
+    out = {"S": S, "chunk": chunk, "chunk_bucket": res.chunk_bucket,
+           "counts": res.counts, "sweep_s": res.seconds, "wall_s": wall,
+           "scenarios_per_s": rate,
+           "offender_frac": res.counts["n_offenders"] / S,
+           "launches": stream_launches,
+           "busy_share_8_chunks": prof["busy_share"],
+           "busy_s_8_chunks": prof["busy_s"],
+           "profile_wall_s_8_chunks": prof["wall_s"],
+           "device_kernels_8_chunks": prof["device_kernels"],
+           "top": prof["top"],
+           "materializing": {"walls_s": mat_walls,
+                             "scenarios_per_s": mat_rate,
+                             "projected": sum(r.psd_projected for r in mat)},
+           "streaming_over_materializing": rate / mat_rate,
+           "streaming_vs_materializing_bitwise": stream_vs_mat,
+           "top1_round_trip": round_trip,
+           "preset_dominance": dominance,
+           "top1_vol": {b["label"]: b["top"][0]["vol"] for b in res.books},
+           "request": {"wall_s": req_wall, "outcome": resp["outcome"],
+                       "counts": resp.get("counts"),
+                       "book_equals_direct_sweep":
+                           resp.get("book") == direct.books[0]
+                           and resp.get("counts") == direct.counts}}
+    emit("scenario_sweep", **out)
+    require(res.counts["n_ok"] == S and res.counts["n_rejected"] == 0,
+            f"scenario_sweep: admission drift: {res.counts}")
+    require(all(v["top"] and v["hist"] for v in stream_vs_mat.values()),
+            f"scenario_sweep: streaming != materializing: {stream_vs_mat}")
+    require(all(v["bitwise"] for v in round_trip.values()),
+            f"scenario_sweep: the top-1 spec does not round-trip: "
+            f"{round_trip}")
+    require(out["request"]["book_equals_direct_sweep"],
+            "scenario_sweep: the sweep request is not a direct sweep")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2100,6 +2676,24 @@ def main() -> int:
     emit("query_launches", **query_launches)
     require(not any(query_launches.values()),
             f"the query path launched an eigh kernel: {query_launches}")
+
+    # -- phase 9: scenarios, bench configs 7 and sweep -----------------------
+    # each phase counts the launches of the runs that drive its path, not
+    # those of its comparisons with plain versions or the CPU
+    ctx["scenario_launches"] = {}
+    scenario_engine_phase(ctx)
+    scenario_served_phase(ctx)
+    scenario_sweep_phase(ctx)
+    scenario_launches = {k: ctx["scenario_launches"].get(k, 0)
+                         for k in launch_counts()}
+    emit("scenario_launches", **scenario_launches)
+    require(scenario_launches["jacobi_eigh/warp"] >= 1,
+            "the scenario path never launched the full kernel's warp design")
+    require(scenario_launches["jacobi_eigh/block"] == 0
+            and scenario_launches["jacobi_eigh_weighted/block"] == 0,
+            f"the scenario path launched a block-design kernel: "
+            f"{scenario_launches}")
+    gate = ctx["scenario_gate"]
     scratch.cleanup()
     del ctx
 
@@ -2165,21 +2759,10 @@ def main() -> int:
     # minute; it was warmed up on the (1390, 42, 42) batch just above
     timings["weighted"]["library_ms"] = time_ms(lib_weighted, 1, warmup=False)
 
-    def bound(B, n, rounds, in_bytes, out_bytes, extra_ops=0):
-        ops = rounds * 9 * n * n * B + extra_ops
-        t_ops, t_bytes = ops / PEAK_FP32_PER_S, (in_bytes + out_bytes) / PEAK_BYTES_PER_S
-        # the warp design's ceiling: no FMA contraction (half the FP32
-        # peak) and n/2 of a warp's 32 lanes at work
-        return dict(bound_ms=1e3 * max(t_ops, t_bytes),
-                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                    design_ceiling_ms=1e3 * t_ops * 2 * 32 / (n // 2),
-                    flops=ops, bytes=in_bytes + out_bytes)
-
     bound_of = {
         "weighted": lambda b: bound(b, K, sw * (K - 1), 4 * b * (K * K + K),
                                     4 * b * 2 * K, extra_ops=3 * K * K * b),
-        "full": lambda b: bound(b, K, sf * (K - 1), 4 * b * K * K,
-                                4 * b * (K * K + K)),
+        "full": lambda b: full_kernel_bound(b, K, sf),
     }
     B, Bf = G.shape[0], F0.shape[0]
     bounds = {"weighted": bound_of["weighted"](B), "full": bound_of["full"](Bf)}
@@ -2243,14 +2826,19 @@ def main() -> int:
                 "pipeline_launches": pipeline["launches"][f"{name}/warp"],
                 "bias_stat_launches": bias_launches[f"{name}/warp"],
                 "factor_pipeline_launches": factor_launches[f"{name}/warp"],
+                "scenario_launches": scenario_launches[f"{name}/warp"],
                 **serve[key]}
 
     kernels = [
         entry("jacobi_eigh_weighted", "weighted",
               "mfm_tpu/ops/eigh_pallas.py:339", weighted_err, [B, K, K], sw,
               f"warp_weighted_kernel<{K}>"),
-        entry("jacobi_eigh", "full", "mfm_tpu/ops/eigh_pallas.py:258",
-              full_err, [Bf, K, K], sf, f"warp_eigh_kernel<{K}>"),
+        {**entry("jacobi_eigh", "full", "mfm_tpu/ops/eigh_pallas.py:258",
+                 full_err, [Bf, K, K], sf, f"warp_eigh_kernel<{K}>"),
+         "scenario_shape": gate["shape"], "scenario_ms": gate["ms"],
+         "scenario_plain_ms": gate["plain_ms"],
+         "scenario_bound_ms": gate["bound_ms"],
+         "scenario_library_ms": gate["library_ms"]},
     ]
     emit("smoke", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,6 +31,10 @@ Layout
 - :mod:`mfm_tpu_torch.serve`    — the daily serving step's input guards;
                                   the batched query engine, its request
                                   loop, response cache and coalescer
+- :mod:`mfm_tpu_torch.scenario` — batched stress scenarios, their
+                                  replay and counterfactual resolvers,
+                                  manifests, and the streaming sweep
+- :mod:`mfm_tpu_torch.grad`     — the shock space's admissibility box
 - :mod:`mfm_tpu_torch.obs`      — the serving stack's metrics, spans and
                                   flight recorder
 - :mod:`mfm_tpu_torch.convert`  — reference configs / numpy panels / states
@@ -63,6 +67,7 @@ from mfm_tpu_torch.pipeline import (
     run_risk_pipeline,
     save_pipeline_state,
 )
+from mfm_tpu_torch.scenario import ScenarioEngine, ScenarioSpec, SweepEngine
 from mfm_tpu_torch.serve import (
     Coalescer,
     QueryEngine,
@@ -77,5 +82,6 @@ __all__ = ["Coalescer", "FactorConfig", "FactorEngine", "PipelineConfig",
            "QuarantinePolicy", "QueryEngine", "QueryServer", "ResponseCache",
            "RiskModel", "RiskModelConfig", "RiskModelOutputs",
            "RiskModelState", "RiskPipelineResult", "RollingSpec",
-           "ServePolicy", "append_risk_pipeline", "run_factor_pipeline",
+           "ScenarioEngine", "ScenarioSpec", "ServePolicy", "SweepEngine",
+           "append_risk_pipeline", "run_factor_pipeline",
            "run_risk_pipeline", "save_pipeline_state"]

@@ -52,7 +52,7 @@ from mfm_tpu_torch.models.vol_regime import (
     vol_regime_adjust_by_time,
     vol_regime_adjust_resume,
 )
-from mfm_tpu_torch.ops.xreg import regress_panel
+from mfm_tpu_torch.ops.xreg import _rowdot, regress_panel
 from mfm_tpu_torch.serve.guard import GuardReport, guard_slab
 
 
@@ -572,3 +572,23 @@ def _serve_degraded(vr_cov, eigen_valid, quarantined, last_good, staleness):
     stale = (torch.stack(stale) if stale else
              torch.zeros((0,), dtype=torch.int32, device=vr_cov.device))
     return last_good, age, served, stale
+
+
+def portfolio_vol(cov, x, w=None, specific_var=None):
+    """Predicted portfolio volatility ``sqrt(x'Fx [+ sum(w^2 s^2)])``
+    (``mfm_tpu/models/risk_model.py:766``): ``x`` the (..., K) factor
+    exposures, ``cov`` the (..., K, K) factor covariance, and the optional
+    specific leg from (..., N) holdings ``w`` against (..., N) specific
+    variances.  Leading dimensions broadcast, so one call prices every
+    book against every covariance.
+
+    Both products are elementwise products and contiguous innermost sums
+    of K terms (``ops/xreg.py::_rowdot``), not ``x @ (cov @ x)``: a
+    batched matrix product on the card changes a row's bits with the
+    number of rows, and the scenario engine and the sweep hold a book's
+    vol bitwise whether it is priced alone or beside others.
+    """
+    var = _rowdot(x, _rowdot(cov, x[..., None, :]))
+    if w is not None and specific_var is not None:
+        var = var + _rowdot(w * w, specific_var)
+    return torch.sqrt(var)

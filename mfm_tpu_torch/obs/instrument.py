@@ -5,10 +5,11 @@ reference's).
 
 Everything records host values — clocks around a device batch, counts,
 outcomes — never device tensors.  The catalog here covers what the query
-loop, the response cache, the coalescer, the span ring and the flight
-recorder record; the reference's model-side metrics (guard tallies,
-update latency, checkpoint and compile counters), the fleet and the SLO
-engine wait for ROADMAP.md §A 15.
+loop, the response cache, the coalescer, the span ring, the flight
+recorder, the scenario engine and the streaming sweep record; the
+reference's model-side metrics (guard tallies, update latency, checkpoint
+and compile counters), the fleet and the SLO engine wait for ROADMAP.md
+§A 15.
 """
 
 from __future__ import annotations
@@ -119,6 +120,44 @@ CONSTRUCT_WARM_STARTS_TOTAL = REGISTRY.counter(
 CONSTRUCT_WARM_STEPS_SAVED_TOTAL = REGISTRY.counter(
     "mfm_construct_warm_steps_saved_total",
     "solver iterations saved by warm-started construction solves")
+
+
+# -- scenario engine (scenario/engine.py batched stress tests) ----------------
+
+SCENARIOS_RUN_TOTAL = REGISTRY.counter(
+    "mfm_scenarios_run_total", "scenarios answered by admission outcome",
+    labelnames=("status",))   # ok | rejected
+SCENARIO_BATCH_SECONDS = REGISTRY.histogram(
+    "mfm_scenario_batch_seconds",
+    "device wall time per batched scenario run (all S lanes, one call)")
+SCENARIO_BATCH_SIZE = REGISTRY.histogram(
+    "mfm_scenario_batch_size", "true (unpadded) scenarios per batch",
+    buckets=(1, 2, 8, 32, 128, 512, 2048, 8192, 32768))
+SCENARIO_PSD_PROJECTIONS_TOTAL = REGISTRY.counter(
+    "mfm_scenario_psd_projections_total",
+    "lanes whose stressed covariance went indefinite and was projected "
+    "back to PSD (corr stress past the feasible cone)")
+
+# -- streaming sweeps (scenario/sweep.py) -------------------------------------
+
+SWEEP_SCENARIOS_TOTAL = REGISTRY.counter(
+    "mfm_sweep_scenarios_total",
+    "sweep lanes streamed by admission outcome",
+    labelnames=("status",))   # ok | rejected
+SWEEP_CHUNKS_TOTAL = REGISTRY.counter(
+    "mfm_sweep_chunks_total",
+    "chunk folds dispatched by sweeps (hot path + offender flushes)")
+SWEEP_SECONDS = REGISTRY.histogram(
+    "mfm_sweep_seconds",
+    "host wall time per full sweep (carry pull included)")
+SWEEP_OFFENDER_LANES_TOTAL = REGISTRY.counter(
+    "mfm_sweep_offender_lanes_total",
+    "lanes the host inertia certificate could not vouch for, routed "
+    "through the exact per-lane eigh path")
+SWEEP_PSD_PROJECTIONS_TOTAL = REGISTRY.counter(
+    "mfm_sweep_psd_projections_total",
+    "offender lanes whose stressed covariance was projected back to PSD "
+    "before merging")
 
 
 # -- recording helpers ----------------------------------------------------------
@@ -254,4 +293,69 @@ def cache_summary_from_registry() -> dict:
         "warm_starts_total": int(CONSTRUCT_WARM_STARTS_TOTAL.value()),
         "warm_steps_saved_total": int(
             CONSTRUCT_WARM_STEPS_SAVED_TOTAL.value()),
+    }
+
+
+def record_scenario_batch(n_true: int, seconds: float) -> None:
+    """Tally one batched scenario run: true (unpadded) S + device wall."""
+    SCENARIO_BATCH_SIZE.observe(int(n_true))
+    SCENARIO_BATCH_SECONDS.observe(float(seconds))
+
+
+def record_scenario_outcome(status: str, n: int = 1) -> None:
+    SCENARIOS_RUN_TOTAL.inc(int(n), status=status)
+
+
+def record_psd_projections(n: int = 1) -> None:
+    SCENARIO_PSD_PROJECTIONS_TOTAL.inc(int(n))
+
+
+def record_sweep(n_ok: int, n_rejected: int, n_chunks: int,
+                 seconds: float) -> None:
+    """Tally one full sweep: admitted/rejected lanes, chunk folds and host
+    wall."""
+    if n_ok:
+        SWEEP_SCENARIOS_TOTAL.inc(int(n_ok), status="ok")
+    if n_rejected:
+        SWEEP_SCENARIOS_TOTAL.inc(int(n_rejected), status="rejected")
+    SWEEP_CHUNKS_TOTAL.inc(int(n_chunks))
+    SWEEP_SECONDS.observe(float(seconds))
+
+
+def record_sweep_offenders(n: int = 1) -> None:
+    SWEEP_OFFENDER_LANES_TOTAL.inc(int(n))
+
+
+def record_sweep_projections(n: int = 1) -> None:
+    SWEEP_PSD_PROJECTIONS_TOTAL.inc(int(n))
+
+
+def sweep_summary_from_registry() -> dict:
+    """The sweep manifest's ``summary`` block, off the live counters (the
+    one VOLATILE manifest field — wall quantiles don't replay)."""
+    statuses = {k[0]: int(v) for k, v in SWEEP_SCENARIOS_TOTAL.series().items()}
+    p50 = SWEEP_SECONDS.quantile_est(0.5)
+    return {
+        "sweep_lanes": statuses,
+        "sweep_lanes_total": sum(statuses.values()),
+        "chunks_total": int(SWEEP_CHUNKS_TOTAL.value()),
+        "offender_lanes_total": int(SWEEP_OFFENDER_LANES_TOTAL.value()),
+        "psd_projections_total": int(SWEEP_PSD_PROJECTIONS_TOTAL.value()),
+        "sweep_p50_wall_s": (None if p50 != p50 else round(p50, 6)),
+    }
+
+
+def scenario_summary_from_registry() -> dict:
+    """The scenario manifest's ``summary`` block, off the live counters
+    (the one VOLATILE manifest field — latency quantiles don't replay)."""
+    statuses = {k[0]: int(v) for k, v in SCENARIOS_RUN_TOTAL.series().items()}
+    p50 = SCENARIO_BATCH_SECONDS.quantile_est(0.5)
+    p99 = SCENARIO_BATCH_SECONDS.quantile_est(0.99)
+    return {
+        "scenarios": statuses,
+        "scenarios_total": sum(statuses.values()),
+        "psd_projections_total": int(
+            SCENARIO_PSD_PROJECTIONS_TOTAL.value()),
+        "batch_p50_latency_s": (None if p50 != p50 else round(p50, 6)),
+        "batch_p99_latency_s": (None if p99 != p99 else round(p99, 6)),
     }

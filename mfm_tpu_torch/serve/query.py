@@ -75,6 +75,16 @@ def bucket_for(n: int, base: int = BUCKET_BASE,
     return b
 
 
+def chunk_rows(row_bytes: int) -> int:
+    """The largest ladder bucket whose rows of ``row_bytes`` each fit
+    :data:`CHUNK_BYTES` (at least the base): the fixed row count a padded
+    batch runs in when its intermediate would not fit whole."""
+    c = BUCKET_BASE
+    while c * BUCKET_GROWTH * row_bytes <= CHUNK_BYTES:
+        c *= BUCKET_GROWTH
+    return c
+
+
 class QueryOutputs(NamedTuple):
     """Per-portfolio answers of one batched query (rows past the true B
     are padding).  ``beta``/``active_risk`` vs benchmark row 0 (the zero
@@ -184,10 +194,7 @@ class QueryEngine:
             self._bw = None
             self._bx = self._const(bvecs)
         widest = self.K if self.space == "factor" else max(self.K, self.N)
-        row_bytes = self.K * widest * self.dtype.itemsize
-        self.chunk = BUCKET_BASE
-        while self.chunk * BUCKET_GROWTH * row_bytes <= CHUNK_BYTES:
-            self.chunk *= BUCKET_GROWTH
+        self.chunk = chunk_rows(self.K * widest * self.dtype.itemsize)
         self._set_cov(cov)
 
     def _const(self, a) -> torch.Tensor:

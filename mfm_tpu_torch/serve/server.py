@@ -28,9 +28,11 @@ Four layers:
 4. **Chaos hooks** — ``chaos_point("serve.after_batch", ...)`` fires after
    every drained batch.
 
-``construct`` (portfolio construction) and ``sweep`` requests need
-``grad/`` and ``scenario/sweep.py``; :func:`parse_request` raises
-``NotImplementedError`` for them (ROADMAP.md §A 12, §A 11).
+A ``sweep`` request streams a bounded shock sweep of its book through
+:class:`~mfm_tpu_torch.scenario.sweep.SweepEngine` against the engine's
+covariance.  ``construct`` (portfolio construction) requests need the
+grad subsystem; :func:`parse_request` raises ``NotImplementedError`` for
+them (ROADMAP.md §A 12).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import collections
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import threading
 import time
@@ -82,6 +85,15 @@ _REQ_REASON_NAMES = (
     (REQ_REASON_BAD_CONSTRUCT, "bad_construct"),
     (REQ_REASON_BAD_SWEEP, "bad_sweep"),
 )
+
+#: sweep request bounds — a sweep is a whole streaming batch job riding
+#: one request, so admission caps every size knob (serving answers bounded
+#: exploratory sweeps; million-scenario runs call SweepEngine directly)
+SWEEP_SAMPLERS = ("uniform", "sobol", "grid")
+SWEEP_MAX_N = 262144
+SWEEP_MAX_CHUNK = 16384
+SWEEP_MAX_TOP_K = 64
+SWEEP_MAX_BINS = 256
 
 #: JSONL key reserved for the fleet wire protocol (serve/replica.py).
 #: Admission REJECTS any request carrying it, so admitted lines can be
@@ -254,10 +266,10 @@ class CircuitBreaker:
 
 class _Request:
     __slots__ = ("rid", "weights", "bidx", "enq_t", "deadline_t", "scenario",
-                 "trace_id", "span", "origin")
+                 "trace_id", "span", "sweep", "origin")
 
     def __init__(self, rid, weights, bidx, enq_t, deadline_t, scenario=None,
-                 trace_id=None, span=None, origin=None):
+                 trace_id=None, span=None, sweep=None, origin=None):
         self.rid = rid
         self.weights = weights
         self.bidx = bidx
@@ -266,6 +278,7 @@ class _Request:
         self.scenario = scenario
         self.trace_id = trace_id
         self.span = span
+        self.sweep = sweep
         # origin: an opaque routing token (a connection handle, a cache
         # fill) stamped by the layer above; None on the plain single-stream
         # loop
@@ -278,6 +291,45 @@ def _line_trace_id(line: str) -> str:
     reuses the same ids and the chaos plans' bitwise-prefix contract on
     the response stream survives tracing."""
     return hashlib.sha256(line.encode("utf-8", "replace")).hexdigest()[:32]
+
+
+def _parse_sweep(raw, engine):
+    """Decode + guard a request's ``sweep`` block.  Accepts ``true`` (all
+    defaults) or an object with ``sampler`` / ``n`` / ``seed`` / ``chunk``
+    / ``top_k`` / ``bins``.  Every size knob is bounded at admission — a
+    sweep is a streaming batch job riding one request line, and the
+    drain must stay O(bounded) per request.  Returns ``(spec_dict_or_None,
+    reason_bits, detail)``."""
+    if raw is True:
+        raw = {}
+    if not isinstance(raw, dict):
+        return None, REQ_REASON_BAD_SWEEP, \
+            "sweep must be true or an object"
+    if engine.space != "factor":
+        return None, REQ_REASON_BAD_SWEEP, \
+            f"sweeps run in factor space (engine serves {engine.space!r})"
+    sampler = str(raw.get("sampler", "uniform"))
+    if sampler not in SWEEP_SAMPLERS:
+        return None, REQ_REASON_BAD_SWEEP, \
+            f"unknown sweep sampler {sampler!r}; have {list(SWEEP_SAMPLERS)}"
+    spec = {"sampler": sampler}
+    for key, default, lo, hi in (("n", 4096, 1, SWEEP_MAX_N),
+                                 ("chunk", 1024, 1, SWEEP_MAX_CHUNK),
+                                 ("top_k", 8, 1, SWEEP_MAX_TOP_K),
+                                 ("bins", 64, 8, SWEEP_MAX_BINS),
+                                 ("seed", 0, 0, 2 ** 31 - 1)):
+        v = raw.get(key, default)
+        try:
+            iv = int(v)
+            if isinstance(v, float) and v != iv:
+                raise ValueError(v)
+            if not (lo <= iv <= hi):
+                raise ValueError(iv)
+        except (TypeError, ValueError):
+            return None, REQ_REASON_BAD_SWEEP, \
+                f"bad sweep {key} {v!r} (need int in [{lo}, {hi}])"
+        spec[key] = iv
+    return spec, 0, ""
 
 
 def parse_request(line: str, engine, policy: ServePolicy, scenarios=None):
@@ -294,9 +346,10 @@ def parse_request(line: str, engine, policy: ServePolicy, scenarios=None):
     server derives a deterministic one at admission).  ``scenarios``: the
     served scenario table (names only are consulted); a ``scenario`` tag
     outside it — including ANY tag when no table is served — is
-    ``unknown_scenario``.  ``construct`` and ``sweep`` fields are always
-    None: a request carrying either raises ``NotImplementedError``
-    (ROADMAP.md §A 12, §A 11).
+    ``unknown_scenario``.  ``sweep`` asks for a streaming shock sweep of
+    the request's book instead of a risk query; :func:`_parse_sweep`
+    guards its knobs.  The ``construct`` field is always None: a request
+    carrying one raises ``NotImplementedError`` (ROADMAP.md §A 12).
     """
     mask = 0
     rid = None
@@ -328,14 +381,17 @@ def parse_request(line: str, engine, policy: ServePolicy, scenarios=None):
         have = sorted(scenarios) if scenarios else []
         detail = f"unknown scenario {scenario!r} (serving " \
             f"{have[:5] if have else 'no scenario table'})"
-    construct = sweep = None
+    construct = None
     if obj.get("construct") is not None:
         raise NotImplementedError("construct requests are not ported yet "
                                   "(ROADMAP.md §A 12)")
+    sweep = None
     raw_s = obj.get("sweep")
     if raw_s is not None and raw_s is not False:
-        raise NotImplementedError("sweep requests are not ported yet "
-                                  "(ROADMAP.md §A 11)")
+        sweep, s_bits, s_detail = _parse_sweep(raw_s, engine)
+        if s_bits:
+            mask |= s_bits
+            detail = detail or s_detail
     if isinstance(raw_w, dict):
         # name-keyed weights: map onto the engine's own axis order.  In
         # factor space the keys are factor names; in stock space stock ids.
@@ -556,7 +612,7 @@ class QueryServer:
                                           "reasons": req_reason_names(mask),
                                           "detail": detail}, scenario_id=scen,
                                          trace_id=tid))]
-        rid, w, bidx, deadline_s, scen, tid, _, _ = fields
+        rid, w, bidx, deadline_s, scen, tid, _, sweep = fields
         if tid is None:
             tid = _line_trace_id(line)
         now = self._clock()
@@ -566,7 +622,7 @@ class QueryServer:
                                request_id=rid, scenario=scen)
         self._queue.append(_Request(rid, w, bidx, now, now + deadline_s,
                                     scenario=scen, trace_id=tid, span=sp,
-                                    origin=origin))
+                                    sweep=sweep, origin=origin))
         # bounded queue: shedding drops the OLDEST queued work first —
         # under overload the head of the queue is the request whose
         # deadline is nearest death; the freshest work is the most useful
@@ -634,7 +690,8 @@ class QueryServer:
             return out
         # group by scenario tag, first-appearance order: the None group is
         # the plain path (one stack, one engine.query); each tagged group
-        # runs the same batched path against its stressed engine
+        # runs the same batched path against its stressed engine, and its
+        # sweep requests stream against that engine's covariance
         groups: dict = {}
         for r in live:
             groups.setdefault(r.scenario, []).append(r)
@@ -651,7 +708,12 @@ class QueryServer:
                          "detail": f"scenario {scen!r} no longer served"},
                         scenario_id=scen, trace_id=r.trace_id)))
                 continue
-            out.extend(self._drain_query(engine, scen, grp))
+            qgrp = [r for r in grp if r.sweep is None]
+            sgrp = [r for r in grp if r.sweep is not None]
+            if qgrp:
+                out.extend(self._drain_query(engine, scen, qgrp))
+            if sgrp:
+                out.extend(self._drain_sweep(engine, scen, sgrp))
         chaos_point("serve.after_batch", f"batch{self._batch_i}")
         self._batch_i += 1
         return out
@@ -717,6 +779,90 @@ class QueryServer:
             out.append((r.origin, self._stamp(resp, scenario_id=scen,
                                               engine=engine,
                                               trace_id=r.trace_id)))
+        return out
+
+    def _drain_sweep(self, engine, scen, grp) -> list[tuple]:
+        """Answer one scenario group's sweep requests.  Requests sharing
+        an identical (admission-bounded) sweep spec batch their books
+        into ONE streaming sweep — the fold already carries B books per
+        lane, so co-sweeping is free; distinct specs run sequentially.
+        Scenario-tagged sweeps stream against the stressed engine's
+        covariance (the same world their queries answer from), on the
+        engine's device.  No refinement in the serving path.  Returns
+        routed ``(origin, resp)`` pairs."""
+        from mfm_tpu_torch.grad.engine import ShockBall
+        from mfm_tpu_torch.scenario.sweep import (
+            GridSampler, SobolSampler, SweepEngine, UniformSampler,
+        )
+        out = []
+        head = grp[0]
+        bsp = _trace.start_span(
+            "serve.sweep", trace_id=head.trace_id,
+            parent_id=(head.span.span_id if head.span else None),
+            batch=self._batch_i, scenario=scen, n=len(grp),
+            trace_ids=[r.trace_id for r in grp[:32]])
+        by_spec: dict = {}
+        for r in grp:
+            by_spec.setdefault(tuple(sorted(r.sweep.items())), []).append(r)
+        t0 = time.perf_counter()
+        try:
+            se = SweepEngine(engine._cov, factor_names=engine.factor_names,
+                             staleness=engine.staleness, dtype=engine.dtype,
+                             device=engine.device)
+            results: dict = {}
+            for key, rs in by_spec.items():
+                spec = dict(key)
+                ball = ShockBall()
+                if spec["sampler"] == "grid":
+                    side = max(2, int(math.isqrt(spec["n"])))
+                    sampler = GridSampler(ball, se.K, n_vol=side,
+                                          n_corr=side)
+                elif spec["sampler"] == "sobol":
+                    sampler = SobolSampler(ball, se.K, spec["n"],
+                                           seed=spec["seed"])
+                else:
+                    sampler = UniformSampler(ball, se.K, spec["n"],
+                                             seed=spec["seed"])
+                W = np.stack([r.weights for r in rs])
+                res = se.sweep(W, sampler, chunk=spec["chunk"],
+                               top_k=spec["top_k"], bins=spec["bins"])
+                for i, r in enumerate(rs):
+                    results[id(r)] = (res.books[i], res.counts, res.sampler)
+        except Exception as e:   # noqa: BLE001 — any batch failure trips
+            _trace.end_span(bsp, outcome="error")
+            _frec.record_event("batch_error", trace_id=head.trace_id,
+                               kind_of="sweep", scenario=scen,
+                               n=len(grp), detail=str(e)[:200])
+            self.breaker.record_failure()
+            for r in grp:
+                _obs.record_query_outcome("error")
+                if r.span is not None:
+                    _trace.end_span(r.span, outcome="error")
+                out.append((r.origin,
+                            self._stamp({"id": r.rid, "ok": False,
+                                         "outcome": "error",
+                                         "kind": "sweep",
+                                         "detail": str(e)[:500]},
+                                        scenario_id=scen, engine=engine,
+                                        trace_id=r.trace_id)))
+            return out
+        dt = time.perf_counter() - t0
+        _trace.end_span(bsp, outcome="ok")
+        self.breaker.record_success()
+        _obs.record_query_batch(len(grp), dt)
+        done = self._clock()
+        for r in grp:
+            book, counts, sampler_d = results[id(r)]
+            _obs.record_query_outcome("ok")
+            _obs.record_query_latency(max(0.0, done - r.enq_t))
+            if r.span is not None:
+                _trace.end_span(r.span, outcome="ok", batch=self._batch_i)
+            resp = {"id": r.rid, "ok": True, "outcome": "ok",
+                    "kind": "sweep", "book": book, "counts": counts,
+                    "sampler": sampler_d}
+            out.append((r.origin,
+                        self._stamp(resp, scenario_id=scen, engine=engine,
+                                    trace_id=r.trace_id)))
         return out
 
     # -- the loop ------------------------------------------------------------

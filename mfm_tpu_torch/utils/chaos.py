@@ -7,7 +7,8 @@ process at exactly that step — a deterministic "kill -9 mid write", no
 racy timers; ``MFM_CHAOS_KILL_MATCH`` narrows the kill to paths containing
 a substring.  With the variable unset a point costs one dict lookup.
 
-The points here are the ones the ported serving modules reach; the
+The points here are the ones the ported serving and scenario modules
+reach; the
 reference's byte-level and data faults, flaky stores and fault plans wait
 for ROADMAP.md §A 15.
 """
@@ -27,6 +28,10 @@ CRASH_POINTS = (
     "serve.after_batch",     # query loop: batch i's responses emitted, batch
                              # i+1 not yet drained; the path is "batch{i}"
                              # (serve/server.py)
+    "scenario_manifest.after_tmp",  # scenario batch computed, manifest tmp
+                                    # not yet renamed (scenario/manifest.py)
+    "sweep_manifest.after_tmp",  # streaming sweep done, sweep_manifest tmp
+                                 # not yet renamed (scenario/sweep.py)
     "flightrec.after_tmp",   # flight-recorder dump: tmp durable, final file
                              # not yet renamed (obs/flightrec.py)
 )

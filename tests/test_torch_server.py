@@ -198,6 +198,13 @@ def test_stream_matches_the_reference_line_by_line(tmp_path, gulp):
     _req("x", w={"country": "NaNope"}),
     json.dumps({"id": "x", "weights": [0.1] * K, "__fleet__": {}}),
     _req("x", w=[0.1, 0.12, 0.09, 99.0, 0.11, 0.1]),
+    _req("x", sweep=True), _req("x", sweep={"n": 128, "chunk": 64,
+                                            "top_k": 4}),
+    _req("x", sweep={"sampler": "sobol", "seed": 7, "bins": 8}),
+    _req("x", sweep={"sampler": "bogus"}), _req("x", sweep={"n": 10 ** 9}),
+    _req("x", sweep={"n": 0}), _req("x", sweep={"chunk": -1}),
+    _req("x", sweep={"top_k": 1.5}), _req("x", sweep={"bins": 4}),
+    _req("x", sweep="not-a-spec"), _req("x", sweep=1),
 ])
 @pytest.mark.parametrize("mad_k", [0.0, 5.0])
 def test_parse_request_is_the_reference(line, mad_k):
@@ -224,8 +231,6 @@ def test_parse_request_is_the_reference(line, mad_k):
 @pytest.mark.parametrize("field,item", [
     ({"construct": "min_vol"}, "§A 12"),
     ({"construct": {"solver": "hedge"}}, "§A 12"),
-    ({"sweep": True}, "§A 11"),
-    ({"sweep": {"n": 64}}, "§A 11"),
 ])
 def test_construct_and_sweep_requests_are_not_ported(field, item):
     eng = QueryEngine(_cov(), device="cpu")
@@ -233,6 +238,135 @@ def test_construct_and_sweep_requests_are_not_ported(field, item):
         parse_request(_req("x", **field), eng, ServePolicy())
     # a false sweep flag is no sweep
     assert parse_request(_req("x", sweep=False), eng, ServePolicy())[1] == 0
+
+
+SWEEP_LINES = [
+    _req("s0", sweep={"n": 96, "chunk": 32, "top_k": 4, "seed": 3}),
+    _req("q0"),
+    _req("s1", w=[0.3, 0.1, 0.0, -0.2, 0.2, 0.1],
+         sweep={"n": 96, "chunk": 32, "top_k": 4, "seed": 3}),
+    _req("s2", w=[0.3, 0.1, 0.0, -0.2, 0.2, 0.1],
+         sweep={"sampler": "grid", "n": 50, "chunk": 16, "top_k": 3}),
+    _req("s3", sweep={"sampler": "sobol", "n": 40, "chunk": 16, "bins": 16}),
+    _req("s4", sweep={"n": 64, "chunk": 64, "seed": 1}, scenario="stress"),
+    _req("bad0", sweep={"sampler": "nope"}),
+    _req("bad1", sweep={"n": 0}),
+    _req("bad2", sweep={"top_k": 99}, scenario="meltdown"),
+]
+
+
+def _hold_tree(got, want, what):
+    """A JSON tree: the same keys in the same order, numbers within RTOL,
+    everything else equal."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and list(got) == list(want), what
+        for k in want:
+            _hold_tree(got[k], want[k], f"{what}.{k}")
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), what
+        for i, (g, w) in enumerate(zip(got, want)):
+            _hold_tree(g, w, f"{what}[{i}]")
+    else:
+        _hold_value(got, want, what)
+
+
+def _sweep_lanes(rid):
+    """Request ``rid``'s sweep lanes through the port's materializing
+    engine: their vols, and the count of lanes whose stressed minimum
+    eigenvalue lies within 1e3·eps·lambda_max of zero, where the PSD
+    gate's decision may differ between the port's Jacobi and LAPACK."""
+    from mfm_tpu_torch.grad import ShockBall
+    from mfm_tpu_torch.scenario import (GridSampler, ScenarioEngine,
+                                        SobolSampler, UniformSampler,
+                                        theta_to_spec)
+    from mfm_tpu_torch.scenario.kernel import book_vols
+
+    obj = json.loads(next(x for x in SWEEP_LINES if f'"{rid}"' in x))
+    eng = QueryEngine(_cov(), factor_names=NAMES, device="cpu")
+    spec, _, _ = port_server._parse_sweep(obj["sweep"], eng)
+    cov = _cov() * (1.21 if obj.get("scenario") == "stress" else 1.0)
+    if spec["sampler"] == "grid":
+        side = max(2, math.isqrt(spec["n"]))
+        sampler = GridSampler(ShockBall(), K, n_vol=side, n_corr=side)
+    else:
+        cls = SobolSampler if spec["sampler"] == "sobol" else UniformSampler
+        sampler = cls(ShockBall(), K, spec["n"], seed=spec["seed"])
+    ths = np.concatenate([t for t, _, _ in sampler.blocks(spec["chunk"])])
+    res = ScenarioEngine(cov, factor_names=NAMES, device="cpu").run(
+        [theta_to_spec(t, NAMES, f"l{i}") for i, t in enumerate(ths)])
+    covs = np.stack([r.cov for r in res])
+    vols = book_vols(torch.from_numpy(covs), torch.tensor(
+        [obj["weights"]], dtype=torch.float64)).numpy()[0]
+    lam_max = np.linalg.eigvalsh(covs)[:, -1]
+    in_band = sum(abs(r.min_eig_stressed) <= 1e3 * np.finfo(float).eps * lm
+                  for r, lm in zip(res, lam_max))
+    return vols, int(in_band)
+
+
+@pytest.mark.parametrize("gulp", [False, True])
+def test_sweep_requests_are_the_reference(tmp_path, gulp):
+    """``sweep`` lines through both packages' loops: the response fields,
+    each book's top table (vols within rtol 1e-10, the rest equal), its
+    histogram, the counts and the sampler block, and the dead letters of
+    the malformed ones."""
+    dead = (str(tmp_path / "port.jsonl"), str(tmp_path / "ref.jsonl"))
+    port, ref = _servers(dead=dead)
+    got, got_n, _ = _run(port, SWEEP_LINES, port_obs, gulp=gulp)
+    want, want_n, _ = _run(ref, SWEEP_LINES, ref_obs, gulp=gulp)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = json.loads(g), json.loads(w)
+        if "book" in w:
+            # a lane whose bin position lies within RTOL of a bin edge may
+            # land on either side in the two packages (the grid sampler
+            # puts its corr_beta = 0 row exactly on edges), and a lane
+            # inside the gate's band may be projected in one package only;
+            # every other lane lands in the same bin and the same count
+            vols, in_band = _sweep_lanes(w["id"])
+            gh, wh = g["book"].pop("hist"), w["book"].pop("hist")
+            _hold_tree(gh["bin_width"], wh["bin_width"], f"{w['id']}.hist")
+            pos = vols / gh["bin_width"]
+            on_edge = int((np.abs(pos - np.round(pos)) <= RTOL * pos).sum())
+            moved = np.abs(np.subtract(gh["counts"], wh["counts"])).sum()
+            assert sum(gh["counts"]) == sum(wh["counts"])
+            assert moved <= 2 * on_edge, (w["id"], moved, on_edge)
+            gp = g["counts"].pop("n_psd_projected")
+            wp = w["counts"].pop("n_psd_projected")
+            assert abs(gp - wp) <= in_band, (w["id"], gp, wp, in_band)
+        _hold_tree(g, w, "$")
+    assert got_n == want_n
+    resps = {r["id"]: r for r in map(json.loads, got)}
+    for rid in ("s0", "s1", "s2", "s3", "s4"):
+        r = resps[rid]
+        assert r["outcome"] == "ok" and r["kind"] == "sweep", r
+        assert r["counts"]["n_ok"] == r["counts"]["n_scenarios"] > 0
+        assert sum(r["book"]["hist"]["counts"]) == r["counts"]["n_ok"]
+        assert r["book"]["top"] and r["book"]["vol_base"] > 0
+    assert resps["s4"]["scenario_id"] == "stress"
+    assert resps["s0"]["counts"] == resps["s1"]["counts"]   # co-swept
+    assert resps["q0"]["outcome"] == "ok" and "book" not in resps["q0"]
+    assert [resps[f"bad{i}"]["outcome"] for i in range(3)] == \
+        ["dead_letter"] * 3
+    assert "bad_sweep" in resps["bad2"]["reasons"]
+    assert Path(dead[0]).read_bytes() == Path(dead[1]).read_bytes()
+
+
+def test_sweep_request_is_a_direct_sweep_of_its_book():
+    from mfm_tpu_torch.grad import ShockBall
+    from mfm_tpu_torch.scenario import SweepEngine, UniformSampler
+
+    port, _ = _servers()
+    w = [0.3, 0.1, 0.0, -0.2, 0.2, 0.1]
+    out = port.submit_line(_req("s", w=w, sweep={"n": 200, "chunk": 64,
+                                                 "top_k": 5, "seed": 9}))
+    assert out == []
+    r, = port.drain()
+    se = SweepEngine(_cov(), factor_names=NAMES, device="cpu")
+    want = se.sweep(np.asarray([w]), UniformSampler(ShockBall(), K, 200,
+                                                    seed=9),
+                    chunk=64, top_k=5, bins=64)
+    assert r["book"] == want.books[0] and r["counts"] == want.counts
+    assert r["sampler"] == want.sampler
 
 
 def test_shed_and_deadline_outcomes_under_overload():
