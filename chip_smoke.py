@@ -47,8 +47,20 @@ its bound and ``torch.linalg.eigh``), ``scenario_served`` (presets, a
 replay and two counterfactuals on the guarded checkpoint at CSI300
 width, the manifest, the scenario table through ``QueryServer``) and
 ``scenario_sweep`` (bench config sweep: 1,007,616 scenarios streamed,
-the materializing arm, the top-1 round trip, a ``sweep`` request).  Last
-it times each kernel at the main path's shapes, the two designs in turns
+the materializing arm, the top-1 round trip, a ``sweep`` request).  Then
+differentiable risk, in five phases: ``grad_construct`` (bench config 8's
+min-vol at B = 100 and 10,000, risk parity and the hedge at 100, a lane
+sample against the CPU at float64, batch == singles bitwise at every
+bucket 8..32,768), ``grad_reverse`` (64 books, 200 steps of ascent whose
+two eighs a step are the full kernel: every answer admissible and above
+every preset drill, batch == singles bitwise, the kernel at the ascent's
+(128, 42, 42) beside its bound and ``torch.linalg.eigh``),
+``grad_sensitivity`` (a book against the presets and 4,096 specs; card
+vs the CPU at float64 outside the eigen-gap band, the CPU vs central
+differences), ``grad_served`` (bench config 9: 10,000 lines with
+construct solves through the coalescer, bitwise the sequential loop;
+a warm-started solve on the guarded checkpoint) and ``sweep_refine``
+(the sweep config's refined leg).  Last it times each kernel at the main path's shapes, the two designs in turns
 (block, warp, warp, block), beside its plain version, its bound, the warp
 design's ceiling and ``torch.linalg.eigh``, and, after holding it against
 its plain version there, at the shapes a one-date update launches, and
@@ -588,7 +600,7 @@ def serve_bitwise_ops(ctx) -> dict:
     R = xreg._constraint_matrix(ind_cap, m.Q)
     Xr = X @ R
     XtW = Xr.transpose(-1, -2) * (w / w.sum(-1, keepdim=True))[..., None, :]
-    G = XtW @ Xr
+    G = xreg._gram(XtW, Xr)
     Ginv = pinv_psd(G)
     zero = torch.zeros((), device=X.device)
     retz = torch.where(valid, m.ret, zero)
@@ -616,8 +628,7 @@ def serve_bitwise_ops(ctx) -> dict:
             lambda a, b: xreg._rowdot(a, b[..., None, :]), (ind_oh, capz),
             reg),
         "matmul X @ R": (lambda a, b: a @ b, (X, R), reg),
-        "matmul XtW @ Xr (normal matrix)": (lambda a, b: a @ b, (XtW, Xr),
-                                            reg),
+        "_gram XtW @ Xr (normal matrix)": (xreg._gram, (XtW, Xr), reg),
         "pinv_psd (jacobi_eigh kernel + matmul)": (pinv_psd, (G,), reg),
         "matmul R @ (Ginv @ XtW)": (lambda r, g, x: r @ (g @ x),
                                     (R, Ginv, XtW), reg),
@@ -2514,6 +2525,772 @@ def scenario_sweep_phase(ctx) -> dict:
     return out
 
 
+# -- the differentiable-risk subsystem (grad/) -------------------------------
+
+#: bench config 8's sizes (bench.py:1167-1260): min-vol at B = 100 and
+#: 10,000 (buckets 128 and 32,768), reverse stress of 64 books
+GRAD_MINVOL_SIZES = (100, 10_000)
+GRAD_REVERSE_BOOKS = 64
+#: lanes of a construct solve held against the CPU at float64
+GRAD_CPU_LANES = 8
+#: card (float32) against the CPU (float64), each about 20x what an H100
+#: (700 W) measured.  Construction: 2,000 float32 multiplicative-weight
+#: steps land within float32 rounding of the float64 optimum (weights
+#: 4.9e-7 absolute, vols 2.6e-7 relative).  Reverse stress: the vol at the
+#: card's own worst shock, through the projection, whose float32
+#: eigendecomposition reconstructs to ~1.2e-5 (6.5e-6; the scenario gate's
+#: projected lanes are held to the same 5e-5).  Sensitivities: each row
+#: relative to the lane's largest, outside the eigen-gap band, where the
+#: eigh gradient divides the float32 eigenvectors' ~1e-5 orthogonality
+#: error by the gaps (7.4e-6), and the vol as the reverse's (1.5e-5).
+#: The hand backwards against autograd of the plain product on the same
+#: float32 inputs: ~20x the 1.2e-6 an H100 (700 W) measured.
+GRAD_TOL = {"construct_weights_abs": 1e-5, "construct_vol_rel": 1e-5,
+            "reverse_vol_rel": 5e-5, "sensitivity_rows_rel": 1e-4,
+            "sensitivity_vol_rel": 5e-5, "backward_rel": 2e-5}
+#: a lane is inside the eigen-gap band when its stressed covariance has
+#: two eigenvalues closer than this fraction of lambda_max (float64, on
+#: the host), or a minimum eigenvalue within 1e3 * eps32 * lambda_max of 0
+GRAD_GAP_BAND = 1e-4
+#: config 9 as the bench runs it (bench.py:1283-1480)
+FLEET_MIX = (0.45, 0.20, 0.15, 0.20, 0.0)
+FLEET_LINES, FLEET_RATE, FLEET_LINGER = 10_000, 2400.0, 0.1
+#: the one-at-a-time baseline's lines and the closed loop's
+FLEET_BASELINE_LINES, FLEET_CLOSED_LINES = 400, 2000
+#: the sweep config's refined leg (bench.py:1116-1130): 50 coarse chunks
+SWEEP_REFINE_CHUNKS = 50
+
+
+def add_grad_launches(ctx):
+    """Add the launch counts since the last reset to the grad path's."""
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts
+
+    for k, v in launch_counts().items():
+        ctx["grad_launches"][k] = ctx["grad_launches"].get(k, 0) + v
+
+
+def in_gap_band(cov_s, eps) -> bool:
+    """Is a stressed covariance inside the eigen-gap band, on the host in
+    float64?"""
+    import numpy as np
+
+    w = np.linalg.eigvalsh(np.asarray(cov_s, np.float64))
+    scale = max(abs(w[0]), abs(w[-1]))
+    return bool(np.diff(w).min() < GRAD_GAP_BAND * scale
+                or abs(w[0]) <= 1e3 * eps * scale)
+
+
+def grad_wrappers_check(stack) -> dict:
+    """The grad path's wrappers at a stressed stack (S, K, K) of the
+    ascent: ``eigh_diff`` with autograd (values and the gradient of random
+    cotangents) bitwise the same call with ``kernels=False``; and each
+    hand backward of the path (``_DiffEigh``'s, ``_Reconstruct``'s,
+    ``_Outer``'s, ``_MatVec``'s) against torch autograd of the plain
+    matrix product on the same inputs and cotangents, relative to the
+    lane's largest entry.  The eigh runs as the PSD gate runs it, with a
+    ``flat_below`` (here K * eps * the largest variance), so the exact
+    ties of zeroed vols below it take their limit; lanes whose eigh
+    gradient is still not finite are left out of the comparison and
+    counted."""
+    from mfm_tpu_torch.models.risk_model import _MatVec
+    from mfm_tpu_torch.ops.eigh import eigh_diff
+    from mfm_tpu_torch.scenario.kernel import _outer, _reconstruct
+
+    S, K, _ = stack.shape
+    gen = torch.Generator(device=stack.device).manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, dtype=stack.dtype,
+                           device=stack.device)
+
+    def vjp(fn, inputs, cot):
+        leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+        with torch.enable_grad():
+            out = fn(*leaves)
+            outs = out if isinstance(out, tuple) else (out,)
+            grads = torch.autograd.grad(outs, leaves, cot)
+        return [o.detach() for o in outs] + list(grads)
+
+    def rel(got, want):
+        ok = torch.stack([torch.isfinite(t).flatten(1).all(1)
+                          for t in (*got, *want)]).all(0)
+        errs = [rel_per_matrix(g[ok].reshape(int(ok.sum()), -1),
+                               w[ok].reshape(int(ok.sum()), -1))
+                for g, w in zip(got, want)]
+        return max(errs), S - int(ok.sum())
+
+    w_bar, V_bar = randn(S, K), randn(S, K, K)
+    eye = torch.eye(K, dtype=stack.dtype, device=stack.device)
+    flat_below = stack.diagonal(dim1=-2, dim2=-1).amax(-1) * (
+        K * torch.finfo(stack.dtype).eps)
+    kern = vjp(lambda A: eigh_diff(A, flat_below=flat_below), [stack],
+               (w_bar, V_bar))
+    plain = vjp(lambda A: eigh_diff(A, kernels=False, flat_below=flat_below),
+                [stack], (w_bar, V_bar))
+    bitwise = all(same(a, b) for a, b in zip(kern, plain))
+    w, V, A_bar = kern
+    max_abs_err = float(max((a - b).abs().max() for a, b in zip(kern, plain)))
+
+    Fmat = 1.0 / (eye + w[..., None, :] - w[..., :, None]) - eye
+    flat = w < flat_below[:, None]
+    tie = ((w[..., None, :] == w[..., :, None]) & (eye == 0)
+           & flat[..., None, :] & flat[..., :, None])
+    Fmat = torch.where(tie, torch.zeros_like(Fmat), Fmat)
+    P = V @ (Fmat * (V.mT @ V_bar) + torch.diag_embed(w_bar)) @ V.mT
+    eigh_rel, eigh_left_out = rel([A_bar], [0.5 * (P + P.mT)])
+
+    w_cl = w.clamp_min(0)
+    P_bar, sig, x = randn(S, K, K), stack.diagonal(dim1=-2, dim2=-1).sqrt(), \
+        randn(S, K)
+    checks = {
+        "reconstruct": ((_reconstruct, lambda V, w: (V * w[..., None, :])
+                         @ V.mT), [V, w_cl], P_bar),
+        "outer": ((_outer, lambda v: v[..., :, None] * v[..., None, :]),
+                  [sig], randn(S, K, K)),
+        "matvec": ((_MatVec.apply, lambda A, v: (A @ v[..., None])[..., 0]),
+                   [stack, x], randn(S, K)),
+    }
+    backward_rel = {"eigh": eigh_rel}
+    for name, ((hand, ref), inputs, cot) in checks.items():
+        backward_rel[name], _ = rel(vjp(hand, inputs, cot),
+                                    vjp(ref, inputs, cot))
+    return {"eigh_diff_bitwise_plain": bitwise, "max_abs_err": max_abs_err,
+            "w": w, "V": V, "backward_rel": backward_rel,
+            "eigh_grad_lanes_not_finite": eigh_left_out}
+
+
+def grad_construct_phase(ctx) -> dict:
+    """Phase grad_construct: bench config 8's construction (K = 42, its
+    seeded covariance) on the card — min-vol at B = 100 and 10,000
+    (buckets 128 and 32,768), 2,000 steps: walls, portfolios/s, the worst
+    KKT residual, busy share; risk parity and the hedge overlay at
+    B = 100; a lane sample of each solver against the CPU at float64;
+    batch == singles bitwise on sampled lanes at every bucket 8..32,768
+    (min-vol) and at 128 (risk parity, hedge)."""
+    import numpy as np
+
+    from mfm_tpu_torch.grad import GradEngine, minvol_batch
+    from mfm_tpu_torch.grad.engine import MINVOL_ETA, MINVOL_STEPS, SOLVERS
+    from mfm_tpu_torch.ops.eigh_cuda import reset_launches
+    from mfm_tpu_torch.serve import bucket_for
+    from mfm_tpu_torch.serve.query import BUCKET_BASE, BUCKET_GROWTH
+
+    dev = ctx["device"]
+    cov, _ = bench_factor_cov()
+    K = cov.shape[0]
+    names = [f"f{i}" for i in range(K)]
+    card = GradEngine(cov, factor_names=names, device=dev)
+    cpu = GradEngine(cov.astype(np.float64), factor_names=names,
+                     device="cpu")
+    cov_t = card._scen._cov
+    f32 = dict(dtype=torch.float32, device=dev)
+    lo, hi = torch.zeros(K, **f32), torch.ones(K, **f32)
+    eta = torch.tensor(MINVOL_ETA, **f32)
+
+    reset_launches()
+    minvol, kkt_worst = {}, 0.0
+    for b in GRAD_MINVOL_SIZES:
+        bucket = bucket_for(b)
+        # the bench's operands: every lane of the bucket starts uniform
+        xs0 = torch.full((bucket, K), 1.0 / K, **f32)
+
+        def solve():
+            return minvol_batch(xs0, cov_t, lo, hi, eta, MINVOL_STEPS)
+
+        solve()
+        walls = [timed(solve)[1] for _ in range(3)]
+        _, _, kkt = solve()
+        kkt = float(kkt.max())
+        kkt_worst = max(kkt_worst, kkt)
+        prof = profile_run(solve, top=3)
+        minvol[str(b)] = {
+            "bucket": bucket, "walls_s": walls, "wall_min_s": min(walls),
+            "portfolios_per_s": b / min(walls), "kkt_max": kkt,
+            "busy_share": prof["busy_share"], "busy_s": prof["busy_s"],
+            "device_kernels": prof["device_kernels"], "top": prof["top"]}
+
+    rng = np.random.default_rng(8)
+    W = np.abs(rng.standard_normal((100, K))).astype(np.float32)
+    solvers, worst = {}, {"weights_abs": 0.0, "vol_rel": 0.0}
+    for solver in SOLVERS:
+        res, wall = timed(lambda: card.construct_solve(solver, W))
+        want = cpu.construct_solve(solver, W[:GRAD_CPU_LANES])
+        dw = float(np.abs(res["weights"][:GRAD_CPU_LANES]
+                          - want["weights"]).max())
+        dv = float((np.abs(res["vols"][:GRAD_CPU_LANES] - want["vols"])
+                    / want["vols"]).max())
+        worst["weights_abs"] = max(worst["weights_abs"], dw)
+        worst["vol_rel"] = max(worst["vol_rel"], dv)
+        solvers[solver] = {"B": 100, "bucket": bucket_for(100),
+                           "wall_s": wall, "portfolios_per_s": 100 / wall,
+                           "vs_cpu_float64": {"weights_abs": dw,
+                                              "vol_rel": dv},
+                           "finite": bool(np.isfinite(res["weights"]).all())}
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts
+
+    construct_launches = launch_counts()
+    require(not any(construct_launches.values()),
+            f"grad_construct: construction launched an eigh kernel: "
+            f"{construct_launches}")
+
+    def singles(solver, b, lanes):
+        Wb = np.abs(np.random.default_rng((9, b)).standard_normal(
+            (b, K))).astype(np.float32)
+        batch = card.construct_solve(solver, Wb, bucket=b)
+        bad = []
+        for i in lanes:
+            one = card.construct_solve(solver, Wb[i:i + 1], bucket=BUCKET_BASE)
+            if not all(np.asarray(one[k][0]).tobytes()
+                       == np.asarray(batch[k][i]).tobytes()
+                       for k in ("weights", "vols", "diag")):
+                bad.append(i)
+        return {"lanes": len(lanes), "differing": bad}
+
+    differ, b = {}, BUCKET_BASE
+    while b <= bucket_for(max(GRAD_MINVOL_SIZES)):
+        pick = sorted({0, b - 1, b // 2, b // 3})
+        differ[f"min_vol@{b}"] = singles("min_vol", b, pick)
+        b *= BUCKET_GROWTH
+    for solver in ("risk_parity", "hedge"):
+        differ[f"{solver}@128"] = singles(solver, 128, [0, 45, 127])
+
+    res = {"K": K, "steps": MINVOL_STEPS, "tolerance": {
+        k: GRAD_TOL[k] for k in ("construct_weights_abs",
+                                 "construct_vol_rel")},
+        "minvol": minvol, "kkt_worst": kkt_worst, "solvers": solvers,
+        "vs_cpu_float64": worst, "batch_vs_singles": differ}
+    emit("grad_construct", **res)
+    require(all(s["finite"] for s in solvers.values()),
+            "grad_construct: a solve returned non-finite weights")
+    require(worst["weights_abs"] <= GRAD_TOL["construct_weights_abs"]
+            and worst["vol_rel"] <= GRAD_TOL["construct_vol_rel"],
+            f"grad_construct: the card disagrees with the CPU at float64: "
+            f"{worst}")
+    require(kkt_worst < 1e-3, f"grad_construct: min-vol KKT residual "
+            f"{kkt_worst}")
+    bad = {k: d["differing"] for k, d in differ.items() if d["differing"]}
+    require(not bad, f"grad_construct: batch != singles (bitwise): {bad}")
+    return res
+
+
+def grad_reverse_phase(ctx) -> dict:
+    """Phase grad_reverse: bench config 8's reverse stress on the card —
+    64 books (bucket 128), 200 steps of projected ascent through the
+    stress, the grad-safe PSD gate (two full-kernel eighs a step) and the
+    portfolio vol, in the default ``ShockBall``: wall, busy share and the
+    full kernel's launches; every answer admissible and at least every
+    preset drill's vol (within 1e-5 relative); batch == singles bitwise
+    across a bucket boundary; the vol at each answer against the CPU at
+    float64; at the ascent's (128, 42, 42) stressed stack, ``eigh_diff``
+    with autograd bitwise ``kernels=False`` and the hand backwards against
+    autograd of the plain products (:func:`grad_wrappers_check`), and the
+    full kernel alone beside its bound, its plain version and
+    ``torch.linalg.eigh``."""
+    import numpy as np
+
+    from mfm_tpu_torch.grad import GradEngine, ShockBall
+    from mfm_tpu_torch.grad.engine import REVERSE_STEPS
+    from mfm_tpu_torch.grad.reverse import stressed_vol
+    from mfm_tpu_torch.models.risk_model import portfolio_vol
+    from mfm_tpu_torch.ops import eigh as E
+    from mfm_tpu_torch.ops.eigh_cuda import (
+        _launch_eigh,
+        launch_counts,
+        reset_launches,
+    )
+    from mfm_tpu_torch.scenario import PRESETS, ScenarioEngine
+    from mfm_tpu_torch.scenario.kernel import stress_cov
+    from mfm_tpu_torch.serve import bucket_for
+
+    dev = ctx["device"]
+    cov, _ = bench_factor_cov()
+    K = cov.shape[0]
+    names = [f"f{i}" for i in range(K)]
+    P = GRAD_REVERSE_BOOKS
+    W = (0.2 * np.random.default_rng(1).standard_normal((P, K))).astype(
+        np.float32)
+    ball = ShockBall()
+    card = GradEngine(cov, factor_names=names, device=dev)
+
+    card.reverse_stress(W[:1], steps=2)                       # warm-up
+    reset_launches()
+    entries, wall = timed(lambda: card.reverse_stress(W, ball=ball))
+    run_launches = launch_counts()
+    add_grad_launches(ctx)
+    prof = profile_run(lambda: card.reverse_stress(W, ball=ball), top=5)
+
+    scen = ScenarioEngine(cov, factor_names=names, device=dev)
+    drills = scen.run([PRESETS[n] for n in sorted(PRESETS)])
+    W_t = torch.from_numpy(W).to(dev)
+    drill_vols = {r.spec.name: portfolio_vol(
+        torch.from_numpy(r.cov).to(dev), W_t).cpu().numpy()
+        for r in drills}
+    worst = np.array([e["vol_worst"] for e in entries])
+    losses = {n: int((worst < v * (1 - 1e-5)).sum())
+              for n, v in drill_vols.items()}
+    inadmissible = [e["label"] for e in entries if not e["admissible"]]
+
+    # batch == singles across the bucket boundary: 64 books at bucket 128
+    # against a sample of them alone at bucket 8
+    differ = []
+    for i in (0, 1, P // 3, P - 2, P - 1):
+        one, = card.reverse_stress(W[i:i + 1], ball=ball, labels=[f"p{i}"])
+        if one != entries[i]:
+            differ.append(i)
+
+    # the card's answers through the CPU at float64
+    thetas = np.stack([[*(dict(e["spec"]["shift"]).get(f, 0.0)
+                          for f in names),
+                        *(dict(e["spec"]["scale"]).get(f, 1.0)
+                          for f in names),
+                        e["spec"]["vol_mult"], e["spec"]["corr_beta"]]
+                       for e in entries])
+    vol64 = stressed_vol(torch.from_numpy(thetas),
+                         torch.from_numpy(cov.astype(np.float64)),
+                         torch.from_numpy(W.astype(np.float64))).numpy()
+    vol_rel = float(np.abs(worst - vol64).max() / vol64.max())
+    eps = float(np.finfo(np.float32).eps)
+    cov_s = stress_cov(torch.from_numpy(cov.astype(np.float64)),
+                       *(torch.from_numpy(thetas[:, a:b]) for a, b in (
+                           (0, K), (K, 2 * K))),
+                       torch.from_numpy(thetas[:, 2 * K]),
+                       torch.from_numpy(thetas[:, 2 * K + 1])).numpy()
+    band = sum(in_gap_band(c, eps) for c in cov_s)
+
+    # the full kernel on the ascent's own stressed stack at its bucket
+    B = bucket_for(P)
+    th_t = torch.from_numpy(np.concatenate(
+        [thetas, np.tile(thetas[:1], (B - P, 1))]).astype(np.float32)).to(dev)
+    stack = stress_cov(card._scen._cov, th_t[:, :K], th_t[:, K:2 * K],
+                       th_t[:, 2 * K], th_t[:, 2 * K + 1]).contiguous()
+    sf = E._sweeps_for(K, torch.float32)
+    wrappers = grad_wrappers_check(stack)
+    rec, orth = recon_orth(wrappers.pop("w"), wrappers.pop("V"), stack)
+    kernel = {"shape": [B, K, K], "sweeps": sf,
+              "ms": time_ms(lambda: _launch_eigh(stack, sf, "warp"), 50),
+              "plain_ms": time_ms(lambda: E.jacobi_eigh_slots(stack, sf), 3),
+              "library_ms": time_ms(lambda: torch.linalg.eigh(stack), 5),
+              **full_kernel_bound(B, K, sf),
+              "kernel_vs_plain_bitwise": wrappers["eigh_diff_bitwise_plain"],
+              "max_abs_err": wrappers["max_abs_err"], "recon": rec,
+              "orth": orth}
+    ctx["grad_kernel"] = kernel
+
+    res = {"K": K, "books": P, "bucket": B, "steps": REVERSE_STEPS,
+           "ball": ball.to_dict(), "wall_s": wall,
+           "books_per_s": P / wall, "launches": run_launches,
+           "full_kernel_launches_per_step":
+               run_launches["jacobi_eigh/warp"] / REVERSE_STEPS,
+           "busy_share": prof["busy_share"], "busy_s": prof["busy_s"],
+           "device_kernels": prof["device_kernels"], "top": prof["top"],
+           "inadmissible": inadmissible, "preset_losses": losses,
+           "vol_worst_over_base": {
+               "min": float(min(e["vol_worst"] / e["vol_base"]
+                                for e in entries)),
+               "max": float(max(e["vol_worst"] / e["vol_base"]
+                                for e in entries))},
+           "batch_vs_singles_differing": differ,
+           "vs_cpu_float64_vol_rel": vol_rel,
+           "answers_in_gap_band": band, "kernel_at_grad_shape": kernel,
+           "backward_vs_plain_rel": wrappers["backward_rel"],
+           "backward_tolerance": GRAD_TOL["backward_rel"],
+           "eigh_grad_lanes_not_finite":
+               wrappers["eigh_grad_lanes_not_finite"]}
+    emit("grad_reverse", **res)
+    require(not inadmissible, f"grad_reverse: inadmissible answers: "
+            f"{inadmissible}")
+    require(not any(losses.values()), f"grad_reverse: answers below a "
+            f"preset drill's vol: {losses}")
+    require(not differ, f"grad_reverse: batch != singles (bitwise): "
+            f"lanes {differ}")
+    require(vol_rel <= GRAD_TOL["reverse_vol_rel"],
+            f"grad_reverse: the card's worst vols disagree with the CPU at "
+            f"float64: {vol_rel}")
+    require(run_launches["jacobi_eigh/warp"] >= 2 * REVERSE_STEPS,
+            f"grad_reverse: {run_launches} full-kernel launches for "
+            f"{REVERSE_STEPS} steps")
+    require(kernel["kernel_vs_plain_bitwise"] and rec <= 5e-5
+            and orth <= ORTH_TOL_F32,
+            f"grad_reverse: eigh_diff at {B}: bitwise kernels=False "
+            f"{kernel['kernel_vs_plain_bitwise']} recon {rec} orth {orth}")
+    require(max(wrappers["backward_rel"].values()) <= GRAD_TOL["backward_rel"],
+            f"grad_reverse: a hand backward disagrees with autograd of the "
+            f"plain product: {wrappers['backward_rel']}")
+    return res
+
+
+def grad_sensitivity_phase(ctx) -> dict:
+    """Phase grad_sensitivity: one book's exact sensitivities on the card
+    against the preset catalog and against S = 4,096 specs of config 7's
+    mix (``specs_for``; bucket 8,192) — wall, launches; on a lane sample
+    the card against the CPU at float64 outside the eigen-gap band (the
+    ``nondifferentiable`` flags equal there; the lanes inside counted);
+    the CPU at float64 against central differences on two lanes; and
+    batch == singles bitwise on sampled lanes."""
+    import numpy as np
+
+    from mfm_tpu_torch.grad import GradEngine
+    from mfm_tpu_torch.grad.reverse import stressed_vol
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+    from mfm_tpu_torch.scenario import PRESETS
+    from mfm_tpu_torch.scenario.kernel import stress_cov
+
+    dev = ctx["device"]
+    cov, _ = bench_factor_cov()
+    K = cov.shape[0]
+    names = [f"f{i}" for i in range(K)]
+    card = GradEngine(cov, factor_names=names, device=dev)
+    cpu = GradEngine(cov.astype(np.float64), factor_names=names,
+                     device="cpu")
+    x = (0.2 * np.random.default_rng(3).standard_normal(K)).astype(
+        np.float32)
+    presets = [PRESETS[n] for n in sorted(PRESETS)]
+    S = max(SCENARIO_SIZES)
+    specs = specs_for(S, names)
+
+    card.sensitivities(presets, x)                            # warm-up
+    reset_launches()
+    pre, pre_wall = timed(lambda: card.sensitivities(presets, x))
+    big, big_wall = timed(lambda: card.sensitivities(specs, x))
+    run_launches = launch_counts()
+    add_grad_launches(ctx)
+    prof = profile_run(lambda: card.sensitivities(specs, x), top=5)
+
+    eps = float(np.finfo(np.float32).eps)
+    rng = np.random.default_rng(4)
+    pick = sorted(set(range(8)) | set(rng.choice(S, 24, replace=False)
+                                       .tolist()))
+    lanes = [(presets[i], pre[i]) for i in range(len(presets))] + \
+        [(specs[i], big[i]) for i in pick]
+    want = cpu.sensitivities([s for s, _ in lanes], x.astype(np.float64))
+    worst = {"rows_rel": 0.0, "vol_rel": 0.0}
+    in_band, flags_differ = 0, []
+    for (spec, g), w in zip(lanes, want):
+        shift, scale = cpu._scen._shock_vectors(spec)
+        cov_s = stress_cov(torch.from_numpy(cpu.cov),
+                           torch.from_numpy(shift)[None],
+                           torch.from_numpy(scale)[None],
+                           torch.tensor([spec.vol_mult], dtype=torch.float64),
+                           torch.tensor([spec.corr_beta],
+                                        dtype=torch.float64))[0].numpy()
+        if in_gap_band(cov_s, eps):
+            in_band += 1
+            continue
+        if g["nondifferentiable"] != w["nondifferentiable"]:
+            flags_differ.append(spec.name)
+            continue
+        if w["nondifferentiable"]:
+            continue
+        rows = [(g[k], w[k]) for k in ("d_shift", "d_scale", "d_exposure")]
+        gv = np.array([v for a, _ in rows for v in a.values()]
+                      + [g["d_vol_mult"], g["d_corr_beta"]])
+        wv = np.array([v for _, b in rows for v in b.values()]
+                      + [w["d_vol_mult"], w["d_corr_beta"]])
+        worst["rows_rel"] = max(worst["rows_rel"], float(
+            np.abs(gv - wv).max() / np.abs(wv).max()))
+        worst["vol_rel"] = max(worst["vol_rel"],
+                               abs(g["vol"] - w["vol"]) / w["vol"])
+
+    # the CPU at float64 against central differences of its own forward,
+    # on a sample of the coordinates (each difference is two float64 Jacobi
+    # eighs on the host)
+    def vol_of(th):
+        return float(stressed_vol(torch.from_numpy(th)[None],
+                                  torch.from_numpy(cpu.cov),
+                                  torch.from_numpy(x.astype(
+                                      np.float64))[None])[0])
+
+    fd_worst, h = 0.0, 1e-6
+    for spec, w in zip([lanes[1][0], lanes[len(presets) + 3][0]],
+                       [want[1], want[len(presets) + 3]]):
+        shift, scale = cpu._scen._shock_vectors(spec)
+        th = np.r_[shift, scale, spec.vol_mult, spec.corr_beta]
+        exact = np.r_[list(w["d_shift"].values()),
+                      list(w["d_scale"].values()),
+                      w["d_vol_mult"], w["d_corr_beta"]]
+        for j in (0, 1, K - 1, K, K + 1, 2 * K - 1, 2 * K, 2 * K + 1):
+            e = np.zeros(len(th))
+            e[j] = h
+            fd = (vol_of(th + e) - vol_of(th - e)) / (2 * h)
+            fd_worst = max(fd_worst, abs(fd - exact[j])
+                           / max(abs(fd), 1e-3))
+
+    # batch == singles on sampled lanes
+    differ = []
+    for i in (0, 1, S // 2, S - 1):
+        one, = card.sensitivities([specs[i]], x)
+        if one != big[i]:
+            differ.append(specs[i].name)
+
+    res = {"K": K, "S": S, "presets": len(presets),
+           "presets_wall_s": pre_wall, "wall_s": big_wall,
+           "lanes_per_s": S / big_wall, "launches": run_launches,
+           "busy_share": prof["busy_share"], "busy_s": prof["busy_s"],
+           "device_kernels": prof["device_kernels"], "top": prof["top"],
+           "nondifferentiable": sum(e["nondifferentiable"] for e in big),
+           "cpu_lanes": len(lanes), "lanes_in_gap_band": in_band,
+           "gap_band": GRAD_GAP_BAND, "flags_differ": flags_differ,
+           "vs_cpu_float64": worst, "tolerance": {
+               k: GRAD_TOL[k] for k in ("sensitivity_rows_rel",
+                                        "sensitivity_vol_rel")},
+           "cpu_vs_central_differences_rel": fd_worst,
+           "batch_vs_singles_differing": differ}
+    emit("grad_sensitivity", **res)
+    require(not flags_differ, f"grad_sensitivity: nondifferentiable flags "
+            f"differ outside the band: {flags_differ}")
+    require(worst["rows_rel"] <= GRAD_TOL["sensitivity_rows_rel"]
+            and worst["vol_rel"] <= GRAD_TOL["sensitivity_vol_rel"],
+            f"grad_sensitivity: the card disagrees with the CPU at float64: "
+            f"{worst}")
+    require(fd_worst <= 1e-6, f"grad_sensitivity: the CPU at float64 is "
+            f"{fd_worst} from central differences")
+    require(not differ, f"grad_sensitivity: batch != singles (bitwise): "
+            f"{differ}")
+    require(run_launches["jacobi_eigh/warp"] >= 2,
+            "grad_sensitivity: the full kernel was not launched")
+    return res
+
+
+def grad_served_phase(ctx) -> dict:
+    """Phase grad_served: bench config 9 as the bench runs it — K = 42, a
+    stressed table (x1.21), ``batch_max`` 256, mix (0.45, 0.20, 0.15,
+    0.20, 0.0): 10,000 lines open loop at 2,400 req/s through the
+    ``Coalescer`` (linger 0.1 s), every response bitwise the sequential
+    loop's per request id; the 400-line one-at-a-time baseline; the
+    32-client closed loop.  p50 / p99 and ``p99_within_linger_plus_batch``
+    are reported, not gated.  Then one warm-started construct request on
+    the serving split's guarded CSI300 checkpoint."""
+    import io
+    import threading
+
+    import numpy as np
+
+    from mfm_tpu_torch.data.artifacts import load_risk_state
+    from mfm_tpu_torch.ops.eigh_cuda import reset_launches
+    from mfm_tpu_torch.serve import (
+        Coalescer,
+        QueryEngine,
+        QueryServer,
+        ServePolicy,
+    )
+    from mfm_tpu_torch.serve.cache import WarmStartIndex
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import trafficgen
+
+    dev = ctx["device"]
+    cov, rng = bench_factor_cov()
+    K = cov.shape[0]
+    bench_map = {"idx": 0.1 * rng.standard_normal(K)}
+    stressed = (cov * 1.21).astype(np.float32)
+
+    def mk_server(batch_max=256):
+        eng = QueryEngine(cov, benchmarks=bench_map, device=dev)
+        scen = {"stress": QueryEngine(stressed, benchmarks=bench_map,
+                                      device=dev)}
+        return QueryServer(eng, ServePolicy(batch_max=batch_max,
+                                            queue_max=65536,
+                                            default_deadline_s=600.0),
+                           health="ok", scenarios=scen)
+
+    n = FLEET_LINES
+    lines = trafficgen.gen_requests(7, n, K, scenario="stress",
+                                    mix=FLEET_MIX)
+    wrng = np.random.default_rng(99)
+
+    def wline(kind, i):
+        req = {"id": f"w{kind}{i}", "deadline_s": 600.0,
+               "weights": np.round(0.2 * wrng.standard_normal(K),
+                                   6).tolist()}
+        if kind == "s":
+            req["scenario"] = "stress"
+        elif kind in ("mv", "rp"):
+            req["construct"] = {"solver": "min_vol" if kind == "mv"
+                                else "risk_parity"}
+        return json.dumps(req, sort_keys=True)
+
+    def warm(server, buckets):
+        for kind in ("q", "s", "mv", "rp"):
+            for b in buckets:
+                for i in range(b):
+                    server.submit_line_routed(wline(kind, b * 1000 + i))
+                while server._queue:
+                    server.drain_routed()
+
+    reset_launches()
+    # the one-line-at-a-time baseline
+    bserver = mk_server(batch_max=1)
+    warm(bserver, (1,))
+    sink = io.StringIO()
+    t0 = time.perf_counter()
+    for ln in lines[:FLEET_BASELINE_LINES]:
+        for r in bserver.submit_line(ln) + bserver.drain():
+            sink.write(json.dumps(r, sort_keys=True))
+    sync()
+    base_wall = time.perf_counter() - t0
+
+    # the sequential loop: the per-id reference
+    ref_buf = io.StringIO()
+    _, seq_wall = timed(lambda: mk_server().run(list(lines), ref_buf,
+                                                gulp=True))
+    ref = {json.loads(ln)["id"]: ln for ln in ref_buf.getvalue().splitlines()}
+
+    # the coalesced open loop
+    server = mk_server()
+    warm(server, (8, 32, 128, 512))
+    batch_walls = []
+    drain = server.drain_routed
+
+    def timed_drain():
+        t = time.perf_counter()
+        out = drain()
+        batch_walls.append(time.perf_counter() - t)
+        return out
+
+    server.drain_routed = timed_drain
+    completions, delivered = {}, {}
+    done = threading.Event()
+
+    def deliver(pairs):
+        now = time.monotonic()
+        for origin, resp in pairs:
+            completions[origin] = now
+            delivered[origin] = resp
+        if len(delivered) >= n:
+            done.set()
+
+    co = Coalescer(server, linger_s=FLEET_LINGER, deliver=deliver)
+    co.start()
+    sched = trafficgen.open_loop(lambda line, i: co.submit(line, origin=i),
+                                 lines, FLEET_RATE)
+    done.wait(timeout=600.0)
+    co.stop()
+    open_wall = max(completions.values()) - sched["t0"] if completions \
+        else None
+    lat = trafficgen.latency_stats(sched["arrivals"], completions)
+    mismatched = [resp.get("id") for resp in delivered.values()
+                  if json.dumps(resp, sort_keys=True) != ref.get(
+                      resp.get("id"))]
+    max_batch = max(batch_walls) if batch_walls else 0.0
+
+    # the closed loop: 32 clients, one request in flight each
+    cserver = mk_server()
+    warm(cserver, (8, 32))
+    events, cresp = {}, {}
+
+    def cdeliver(pairs):
+        for origin, resp in pairs:
+            cresp[origin] = resp
+            ev = events.get(origin)
+            if ev is not None:
+                ev.set()
+
+    cco = Coalescer(cserver, linger_s=0.002, deliver=cdeliver)
+    cco.start()
+
+    def submit_and_wait(line, i):
+        events[i] = threading.Event()
+        cco.submit(line, origin=i)
+        events[i].wait(timeout=120.0)
+
+    closed = trafficgen.closed_loop(submit_and_wait,
+                                    lines[:FLEET_CLOSED_LINES], 32)
+    cco.stop()
+    closed_mismatched = sum(
+        json.dumps(r, sort_keys=True) != ref.get(r.get("id"))
+        for r in cresp.values())
+    add_grad_launches(ctx)
+
+    # one warm-started construct request on the guarded CSI300 checkpoint
+    st, meta = load_risk_state(ctx["checkpoints"]["checkpoint"], dev)
+    eng = QueryEngine.from_risk_state(st, meta, device=dev)
+    warm_index = WarmStartIndex()
+    srv = QueryServer(eng, ServePolicy(default_deadline_s=60.0),
+                      health="ok", warm_index=warm_index)
+    book = np.abs(0.2 * np.random.default_rng(5).standard_normal(eng.K))
+    answers = []
+    for rid, w in (("cold", book), ("near", book * 1.001)):
+        srv.submit_line(json.dumps({"id": rid, "weights": w.tolist(),
+                                    "construct": "min_vol"}))
+        answers += srv.drain()
+    cold, near = answers
+    warm_entry = {"K": eng.K, "outcomes": [r["outcome"] for r in answers],
+                  "cold_has_warm_start": "warm_start" in cold,
+                  "warm_start": near.get("warm_start"),
+                  "vol_cold": cold.get("total_vol"),
+                  "vol_warm": near.get("total_vol"),
+                  "index": warm_index.stats()}
+
+    construct_share = sum('"construct"' in x for x in lines) / n
+    res = {"K": K, "lines": n, "mix": FLEET_MIX, "construct_share":
+           construct_share, "offered_rate_rps": FLEET_RATE,
+           "linger_s": FLEET_LINGER, "batch_max": 256,
+           "baseline_qps": FLEET_BASELINE_LINES / base_wall,
+           "baseline_wall_s": base_wall,
+           "sequential_wall_s": seq_wall,
+           "open_loop_qps": len(delivered) / open_wall if open_wall else 0.0,
+           "open_loop_wall_s": open_wall, "latency": lat,
+           "max_batch_wall_s": max_batch, "drains": len(batch_walls),
+           "p99_within_linger_plus_batch": bool(
+               lat.get("p99_s", float("inf")) <= FLEET_LINGER + max_batch),
+           "bitwise_mismatches": len(mismatched),
+           "unanswered": lat.get("unanswered"),
+           "closed_loop_qps": closed["qps"], "closed_loop_wall_s":
+           closed["wall_s"], "closed_loop_mismatches": closed_mismatched,
+           "warm_start_on_checkpoint": warm_entry}
+    emit("grad_served", **res)
+    require(len(delivered) == n and not mismatched,
+            f"grad_served: {n - len(delivered)} unanswered, "
+            f"{len(mismatched)} responses differ from the sequential loop "
+            f"(first: {mismatched[:3]})")
+    require(len(cresp) == FLEET_CLOSED_LINES and closed_mismatched == 0,
+            f"grad_served: the closed loop answered {len(cresp)} of "
+            f"{FLEET_CLOSED_LINES}, "
+            f"{closed_mismatched} differ from the sequential loop")
+    require(warm_entry["outcomes"] == ["ok", "ok"]
+            and not warm_entry["cold_has_warm_start"]
+            and (warm_entry["warm_start"] or {}).get("used"),
+            f"grad_served: the warm-started construct request: {warm_entry}")
+    return res
+
+
+def sweep_refine_phase(ctx) -> dict:
+    """Phase sweep_refine: the sweep config's refined leg on the card — 50
+    chunks of 8,192 in the coarse ball, then ``refine={"ball":
+    ShockBall(), "seed": 4}`` (the ascent from each book's coarse top-16,
+    its endpoints through the exact path, a 512-lane local re-sweep per
+    book): for every book the refined worst case beats the coarse top-1
+    and is admissible, and dominates every preset drill."""
+    from mfm_tpu_torch.grad import ShockBall
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+    from mfm_tpu_torch.scenario import SweepEngine, UniformSampler
+
+    dev = ctx["device"]
+    cov, names, xs, ball = sweep_case()
+    K, chunk = len(names), SWEEP_CHUNK
+    S = SWEEP_REFINE_CHUNKS * chunk
+    engine = SweepEngine(cov, factor_names=names, device=dev)
+    reset_launches()
+    res, wall = timed(lambda: engine.sweep(
+        xs, UniformSampler(ball, K, S, seed=3), chunk=chunk,
+        refine={"ball": ShockBall(), "seed": 4}))
+    launches = launch_counts()
+    add_grad_launches(ctx)
+    dominance = engine.preset_dominance(res, xs)
+    out = {"S_coarse": S, "chunk": chunk, "wall_s": wall,
+           "counts": res.counts, "refined": res.refined,
+           "launches": launches,
+           "dominates_all_presets": [d["dominates_all"] for d in dominance]}
+    emit("sweep_refine", **out)
+    require(all(b["improved"] and b["admissible"] for b in res.refined),
+            f"sweep_refine: a refined worst case did not improve on the "
+            f"coarse top-1 or is inadmissible: {res.refined}")
+    require(all(out["dominates_all_presets"]),
+            f"sweep_refine: a book's worst case loses to a preset drill: "
+            f"{dominance}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2694,6 +3471,25 @@ def main() -> int:
             f"the scenario path launched a block-design kernel: "
             f"{scenario_launches}")
     gate = ctx["scenario_gate"]
+
+    # -- phase 10: differentiable risk, bench configs 8, 9 and sweep ----------
+    # the runs that drive the grad path count their launches; comparisons
+    # with plain versions or the CPU do not
+    ctx["grad_launches"] = {}
+    grad_construct_phase(ctx)
+    grad_reverse_phase(ctx)
+    grad_sensitivity_phase(ctx)
+    grad_served_phase(ctx)
+    sweep_refine_phase(ctx)
+    grad_launches = {k: ctx["grad_launches"].get(k, 0)
+                     for k in launch_counts()}
+    emit("grad_launches", **grad_launches)
+    require(grad_launches["jacobi_eigh/warp"] >= 1,
+            "the grad path never launched the full kernel's warp design")
+    require(grad_launches["jacobi_eigh/block"] == 0
+            and grad_launches["jacobi_eigh_weighted/block"] == 0,
+            f"the grad path launched a block-design kernel: {grad_launches}")
+    grad_kernel = ctx["grad_kernel"]
     scratch.cleanup()
     del ctx
 
@@ -2827,6 +3623,7 @@ def main() -> int:
                 "bias_stat_launches": bias_launches[f"{name}/warp"],
                 "factor_pipeline_launches": factor_launches[f"{name}/warp"],
                 "scenario_launches": scenario_launches[f"{name}/warp"],
+                "grad_launches": grad_launches[f"{name}/warp"],
                 **serve[key]}
 
     kernels = [
@@ -2838,7 +3635,11 @@ def main() -> int:
          "scenario_shape": gate["shape"], "scenario_ms": gate["ms"],
          "scenario_plain_ms": gate["plain_ms"],
          "scenario_bound_ms": gate["bound_ms"],
-         "scenario_library_ms": gate["library_ms"]},
+         "scenario_library_ms": gate["library_ms"],
+         "grad_shape": grad_kernel["shape"], "grad_ms": grad_kernel["ms"],
+         "grad_plain_ms": grad_kernel["plain_ms"],
+         "grad_bound_ms": grad_kernel["bound_ms"],
+         "grad_library_ms": grad_kernel["library_ms"]},
     ]
     emit("smoke", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,7 +34,9 @@ Layout
 - :mod:`mfm_tpu_torch.scenario` — batched stress scenarios, their
                                   replay and counterfactual resolvers,
                                   manifests, and the streaming sweep
-- :mod:`mfm_tpu_torch.grad`     — the shock space's admissibility box
+- :mod:`mfm_tpu_torch.grad`     — differentiable risk: reverse stress,
+                                  exact sensitivities, portfolio
+                                  construction
 - :mod:`mfm_tpu_torch.obs`      — the serving stack's metrics, spans and
                                   flight recorder
 - :mod:`mfm_tpu_torch.convert`  — reference configs / numpy panels / states

@@ -574,6 +574,29 @@ def _serve_degraded(vr_cov, eigen_valid, quarantined, last_good, staleness):
     return last_good, age, served, stale
 
 
+class _MatVec(torch.autograd.Function):
+    """``A x`` per row as ``_rowdot(A, x[..., None, :])``, with a backward
+    whose sums are contiguous innermost ones too: autograd's own would sum
+    ``x``'s gradient over the rows of ``A``, an outer dimension whose
+    summation order moves with the batch size on the card."""
+
+    @staticmethod
+    def forward(ctx, A, x):
+        ctx.save_for_backward(A, x)
+        return _rowdot(A, x[..., None, :])
+
+    @staticmethod
+    def backward(ctx, g):
+        A, x = ctx.saved_tensors
+        gA = gx = None
+        if ctx.needs_input_grad[0]:
+            gA = (g[..., :, None] * x[..., None, :]).sum_to_size(A.shape)
+        if ctx.needs_input_grad[1]:
+            gx = _rowdot(A.transpose(-1, -2).contiguous(),
+                         g[..., None, :]).sum_to_size(x.shape)
+        return gA, gx
+
+
 def portfolio_vol(cov, x, w=None, specific_var=None):
     """Predicted portfolio volatility ``sqrt(x'Fx [+ sum(w^2 s^2)])``
     (``mfm_tpu/models/risk_model.py:766``): ``x`` the (..., K) factor
@@ -586,9 +609,11 @@ def portfolio_vol(cov, x, w=None, specific_var=None):
     of K terms (``ops/xreg.py::_rowdot``), not ``x @ (cov @ x)``: a
     batched matrix product on the card changes a row's bits with the
     number of rows, and the scenario engine and the sweep hold a book's
-    vol bitwise whether it is priced alone or beside others.
+    vol bitwise whether it is priced alone or beside others.  Its
+    gradient keeps that property (:class:`_MatVec`): the grad subsystem
+    differentiates this function.
     """
-    var = _rowdot(x, _rowdot(cov, x[..., None, :]))
+    var = _rowdot(x, _MatVec.apply(cov, x))
     if w is not None and specific_var is not None:
         var = var + _rowdot(w * w, specific_var)
     return torch.sqrt(var)

@@ -332,3 +332,95 @@ def pinv_psd(G: torch.Tensor, *, rcond: float | None = None,
     if pad:
         out = out[..., :n, :n]
     return out
+
+
+# -- the differentiable eigh (the grad subsystem's) ---------------------------
+
+def _bt(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A @ B^T`` per lane for (S, m, k) and (S, n, k): elementwise
+    products and contiguous innermost sums over k, in lane chunks of one
+    fixed count under ``serve/query.py``'s ``CHUNK_BYTES``.  A lane's bits
+    do not depend on how many lanes share the call (a batched matrix
+    product's do, on the card and on the CPU)."""
+    # serve/query imports this package's modules, so its helper is taken
+    # here, at the call
+    from mfm_tpu_torch.serve.query import chunk_rows
+
+    S, m, k = A.shape
+    n = B.shape[1]
+    step = chunk_rows(m * n * k * A.element_size())
+    return torch.cat([(A[s:s + step, :, None, :] * B[s:s + step, None, :, :]
+                       ).sum(-1) for s in range(0, max(S, 1), step)])
+
+
+def _t(A: torch.Tensor) -> torch.Tensor:
+    return A.transpose(-1, -2).contiguous()
+
+
+class _DiffEigh(torch.autograd.Function):
+    """:func:`batched_eigh` (ascending, slot signs) with the reverse-mode
+    rule of ``jnp.linalg.eigh``: the transpose of JAX's eigh JVP,
+
+        Fmat = 1 / (I + w_j - w_i) - I
+        A_bar = V (diag(w_bar) + Fmat o (V' V_bar)) V'
+
+    symmetrized, since ``jnp.linalg.eigh`` symmetrizes its input.  Every
+    product is :func:`_bt`'s, so a lane's gradient keeps its bits at any
+    batch size.  Repeated eigenvalues give inf in ``Fmat`` and non-finite
+    gradients, as in the reference, but where ``flat_below`` (see
+    :func:`eigh_diff`) zeroes ``Fmat`` on exactly tied pairs below it."""
+
+    @staticmethod
+    def forward(ctx, A, kernels, flat_below):
+        w, V = batched_eigh(A, canonical_signs=False, kernels=kernels)
+        ctx.flat_below = flat_below
+        ctx.save_for_backward(w, V)
+        # an output no loss reaches keeps a None cotangent, as JAX's
+        # symbolic zero: a loss of w alone never meets Fmat
+        ctx.set_materialize_grads(False)
+        return w, V
+
+    @staticmethod
+    def backward(ctx, w_bar, V_bar):
+        w, V = ctx.saved_tensors
+        n = w.shape[-1]
+        eye = torch.eye(n, dtype=w.dtype, device=w.device)
+        Fmat = 1.0 / (eye + w[..., None, :] - w[..., :, None]) - eye
+        if ctx.flat_below is not None:
+            flat = w < ctx.flat_below[..., None]
+            tie = ((w[..., None, :] == w[..., :, None]) & (eye == 0)
+                   & flat[..., None, :] & flat[..., :, None])
+            Fmat = torch.where(tie, torch.zeros((), dtype=w.dtype,
+                                                device=w.device), Fmat)
+        C = torch.zeros_like(V)
+        if V_bar is None and w_bar is None:
+            return None, None, None
+        if V_bar is not None:
+            C = Fmat * _bt(_t(V), _t(V_bar))
+        if w_bar is not None:
+            C = C + torch.diag_embed(w_bar)
+        A_bar = _bt(_bt(V, _t(C)), V)
+        return 0.5 * (A_bar + A_bar.transpose(-1, -2)), None, None
+
+
+def eigh_diff(A: torch.Tensor, *, kernels: bool = True,
+              flat_below: torch.Tensor | None = None):
+    """Differentiable batched eigh of symmetric (S, n, n) ``A``: forward
+    :func:`batched_eigh` (the full Jacobi kernel on a CUDA tensor, its
+    plain version on the CPU; eigenvalues ascending, signs as the solver
+    leaves them), backward the rule of ``jnp.linalg.eigh``
+    (:class:`_DiffEigh`).  ``kernels=False`` runs the plain Jacobi even
+    on a CUDA tensor (``chip_smoke.py`` holds the kernel route to it).
+
+    ``flat_below`` ((S,), optional) is for a caller whose loss depends on
+    (w, V) only through a spectral function ``V diag(f(w)) V'`` with f
+    constant below ``flat_below`` (the PSD projection's clamp floor).  For
+    a pair of eigenvalues tied below it the gradient's limit is the
+    divided difference ``(f(w_i) - f(w_j)) / (w_i - w_j)`` -> 0, and
+    ``Fmat`` is zeroed there instead of dividing by the zero gap.  The
+    Jacobi solver, unlike LAPACK, leaves such ties exact (two zero rows
+    of a matrix give two eigenvalues of exactly 0), where ``1 / 0`` would
+    poison the whole gradient; LAPACK splits them by rounding (gaps
+    ~1e-19) and the reference's gradient reaches the same limit.  Ties
+    elsewhere keep the reference's rule."""
+    return _DiffEigh.apply(A, kernels, flat_below)

@@ -25,7 +25,10 @@ is bitwise the suffix of a full-history run.  On the card a batched
 matrix-vector product (cuBLAS) and a reduction over an outer dimension
 both change their summation order with the batch size; matrix-matrix
 products and contiguous innermost reductions over 16 or more rows do
-not (``chip_smoke.py``, phase ``serve_bitwise_ops``).
+not (``chip_smoke.py``, phase ``serve_bitwise_ops``).  The CPU's batched
+matrix-matrix product does: MKL gives a matrix at an odd position in the
+batch other bits than the same matrix at position 0, so on the CPU the
+normal matrices are sums of elementwise products too (:func:`_gram`).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from mfm_tpu_torch.ops.eigh import pinv_psd
+from mfm_tpu_torch.ops.eigh import _bt, pinv_psd
 from mfm_tpu_torch.ops.masked import masked_var, zscore_cap_weighted
 from mfm_tpu_torch.utils.prec import highest_matmul_precision
 
@@ -44,6 +47,18 @@ def _rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     product as an elementwise product and a contiguous innermost sum,
     whose per-row order does not depend on the number of rows."""
     return (a * b).sum(dim=-1)
+
+
+def _gram(XtW: torch.Tensor, Xr: torch.Tensor) -> torch.Tensor:
+    """The normal matrices ``XtW @ Xr`` for (T, k, N) and (T, N, k)
+    operands, each keeping its bits at any number of dates and any
+    position among them.  On the card the batched matrix product does
+    (``chip_smoke.py``, phase ``serve_bitwise_ops``); on the CPU it does
+    not, and the per-lane sums of :func:`~mfm_tpu_torch.ops.eigh._bt`
+    take its place."""
+    if XtW.is_cuda:
+        return XtW @ Xr
+    return _bt(XtW.contiguous(), Xr.transpose(-1, -2).contiguous())
 
 
 class CrossSectionResult(NamedTuple):
@@ -142,7 +157,7 @@ def _normal_equations(ret, cap, styles, industry, valid, *, n_industries,
         R = None
         Xr = X
     XtW = Xr.transpose(-1, -2) * w[..., None, :]
-    G = XtW @ Xr
+    G = _gram(XtW, Xr)
     zero = torch.zeros((), dtype=ret.dtype, device=ret.device)
     return _NormalEq(X, torch.where(valid, ret, zero), valid, R, XtW, G)
 

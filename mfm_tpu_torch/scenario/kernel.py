@@ -30,6 +30,9 @@ Lane math, in order (PAPER.md's USE4 vocabulary):
    indefinite.  The eigendecomposition is
    :func:`~mfm_tpu_torch.ops.eigh.batched_eigh`: the Jacobi eigh kernel
    on a CUDA tensor (it never falls back), its plain version on the CPU.
+   :func:`psd_project` is the gate's grad-safe twin, which the grad
+   subsystem differentiates; every product on that path has a backward
+   of innermost sums too, so a lane's gradient is also batch-invariant.
 
 The streaming sweep's fold (:func:`sweep_chunk`, :func:`sweep_merge`)
 keeps a fixed-size carry — per-book top-k worst table, fixed-bin vol
@@ -48,49 +51,139 @@ from __future__ import annotations
 import torch
 
 from mfm_tpu_torch.models.risk_model import portfolio_vol
-from mfm_tpu_torch.ops.eigh import batched_eigh
+from mfm_tpu_torch.ops.eigh import _bt, batched_eigh, eigh_diff
 from mfm_tpu_torch.ops.xreg import _rowdot
 from mfm_tpu_torch.serve.query import chunk_rows
 
 
-def _outer(v):
-    """(..., K) -> (..., K, K) outer product of each row with itself."""
-    return v[..., :, None] * v[..., None, :]
+class _Outer(torch.autograd.Function):
+    """(..., K) -> (..., K, K) outer product of each row with itself; the
+    backward sums ``g v + g' v`` innermost (autograd's own would reduce
+    over the second factor's broadcast rows, an outer dimension)."""
+
+    @staticmethod
+    def forward(ctx, v):
+        ctx.save_for_backward(v)
+        return v[..., :, None] * v[..., None, :]
+
+    @staticmethod
+    def backward(ctx, g):
+        v, = ctx.saved_tensors
+        vr = v[..., None, :]
+        return (_rowdot(g, vr)
+                + _rowdot(g.transpose(-1, -2).contiguous(), vr))
+
+
+_outer = _Outer.apply
 
 
 def stress_cov(cov, shift, scale, vol_mult, corr_beta):
     """Steps 1-4 of the lane math: the stressed covariance BEFORE the PSD
     gate, for ``cov`` (..., K, K), ``shift``/``scale`` (..., K) and
     ``vol_mult``/``corr_beta`` (...).  Shared by the serving kernel below,
-    the sweep's hot path and, later, the grad subsystem."""
+    the sweep's hot path and the grad subsystem, which differentiates it
+    with respect to the four shocks (``cov`` stays a constant).
+
+    The clips are ``torch.maximum`` / ``torch.minimum``, as ``jnp.clip``
+    and ``jnp.maximum`` are: the same values as ``torch.clamp``, and a
+    gradient split in halves at a tie, as the reference's.  ``corr_beta``
+    scales the rows through a (..., K) factor, so its gradient is two
+    innermost sums of K terms, never one long one."""
     dtype, dev = cov.dtype, cov.device
     K = cov.shape[-1]
     eye = torch.eye(K, dtype=dtype, device=dev)
     off = 1.0 - eye
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    one = torch.ones((), dtype=dtype, device=dev)
 
     var = torch.diagonal(cov, dim1=-2, dim2=-1)
-    sigma = torch.sqrt(torch.clamp_min(var, 0))
+    sigma = torch.sqrt(torch.maximum(var, zero))
     denom = _outer(sigma)
-    corr = torch.where(denom > 0, cov / denom,
-                       torch.zeros((), dtype=dtype, device=dev))
+    corr = torch.where(denom > 0, cov / denom, zero)
     corr = corr * off + eye
-    corr_s = torch.clamp(corr * (1.0 + corr_beta[..., None, None]), -1.0, 1.0)
+    beta = (1.0 + corr_beta)[..., None].expand(corr_beta.shape + (K,))
+    corr_s = torch.minimum(torch.maximum(corr * beta[..., :, None], -one),
+                           one)
     corr_s = corr_s * off + eye
-    sigma_s = torch.clamp_min(sigma * scale + shift, 0) * vol_mult[..., None]
+    sigma_s = torch.maximum(sigma * scale + shift, zero) * vol_mult[..., None]
     return corr_s * _outer(sigma_s)
 
 
-def _reconstruct(V, w):
-    """``(V * w) @ V.T`` per lane as a row-local product: (S, K, K, K)
-    elementwise products summed over the innermost K, in lane chunks of
-    one fixed count under ``serve/query.py``'s ``CHUNK_BYTES``
-    (bit-neutral: every sum stays inside its lane)."""
-    K = V.shape[-1]
-    A = V * w[..., None, :]
-    step = chunk_rows(K ** 3 * V.element_size())
-    return torch.cat([_rowdot(A[s:s + step, :, None, :],
-                              V[s:s + step, None, :, :])
-                      for s in range(0, V.shape[0], step)])
+class _Reconstruct(torch.autograd.Function):
+    """``(V * w) @ V.T`` per lane as a row-local product (``ops/eigh.py::
+    _bt``: (S, K, K, K) elementwise products summed over the innermost K,
+    in lane chunks; bit-neutral, every sum stays inside its lane), with a
+    backward of innermost sums too: ``V_bar = (P_bar + P_bar') V diag(w)``
+    and ``w_bar_k = sum_i V_ik (P_bar V)_ik``."""
+
+    @staticmethod
+    def forward(ctx, V, w):
+        ctx.save_for_backward(V, w)
+        return _bt(V * w[..., None, :], V)
+
+    @staticmethod
+    def backward(ctx, P_bar):
+        V, w = ctx.saved_tensors
+        Vt = V.transpose(-1, -2).contiguous()
+        V_bar = w_bar = None
+        if ctx.needs_input_grad[0]:
+            sym = P_bar + P_bar.transpose(-1, -2)
+            V_bar = _bt(sym, Vt) * w[..., None, :]
+        if ctx.needs_input_grad[1]:
+            PV = _bt(P_bar, Vt)
+            w_bar = _rowdot(Vt, PV.transpose(-1, -2).contiguous())
+        return V_bar, w_bar
+
+
+_reconstruct = _Reconstruct.apply
+
+
+def psd_project(cov_s):
+    """Step 5, the gated PSD projection, in its GRAD-SAFE form
+    (``mfm_tpu/scenario/kernel.py::psd_project``) for (S, K, K) stressed
+    covariances.
+
+    Forward outputs are bitwise the serving gate of :func:`scenario_batch`
+    on the same device — the same eigh, clamp floor and reconstruction;
+    when the gate fires the projection eigh's input is bitwise ``cov_s``,
+    when it does not the output IS ``cov_s`` — but the gating is
+    restructured so reverse-mode AD through it stays finite:
+
+    - the gate value comes from the eigenvalues of ``cov_s.detach()``: the
+      gate is a DECISION, not a differentiable quantity;
+    - the eigh whose vectors rebuild the projection
+      (:func:`~mfm_tpu_torch.ops.eigh.eigh_diff`) runs on
+      ``where(needs, cov_s, diag(1..K))``, so an unselected lane
+      differentiates a matrix with well-separated eigenvalues instead of
+      the inf/NaN a degenerate ``cov_s`` would produce;
+    - the reconstruction ``V diag(max(w, floor)) V'`` is flat in w below
+      the floor, so a pair of eigenvalues tied exactly there (stressed
+      vols driven to 0 zero rows and columns: eigenvalues of exactly 0)
+      contributes its limit, 0, to the gradient
+      (``eigh_diff(flat_below=floor)``), as LAPACK's rounding-split tie
+      does in the reference.
+
+    The serving kernel keeps its single-eigh gate (this form costs a
+    second eigendecomposition); the grad subsystem composes this one.
+    Returns ``(cov_psd, needs, min_eig)`` like the inline gate.
+    """
+    dtype, dev = cov_s.dtype, cov_s.device
+    K = cov_s.shape[-1]
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    eps = torch.finfo(dtype).eps
+    w_gate, _ = batched_eigh(cov_s.detach(), canonical_signs=False)
+    min_eig = w_gate[:, 0]
+    needs = min_eig < 0
+    generic = torch.diag(torch.arange(1, K + 1, device=dev).to(dtype))
+    # a fired lane's projection eigh is the gate's own (same input, same
+    # bits), so the gate's eigenvalues give its clamp floor beforehand
+    w, V = eigh_diff(torch.where(needs[:, None, None], cov_s, generic),
+                     flat_below=torch.maximum(w_gate[:, -1], zero) * (K * eps))
+    floor = torch.maximum(w[:, -1], zero) * (K * eps)
+    w_cl = torch.maximum(w, floor[:, None])
+    proj = _reconstruct(V, w_cl)
+    proj = 0.5 * (proj + proj.transpose(-1, -2))
+    return torch.where(needs[:, None, None], proj, cov_s), needs, min_eig
 
 
 def scenario_batch(base_cov, shift, scale, vol_mult, corr_beta, passthrough,

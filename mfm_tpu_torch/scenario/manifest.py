@@ -90,14 +90,25 @@ def _entry(result, factor_names) -> dict:
 
 def build_scenario_manifest(results, factor_names, *, stamp_json=None,
                             backend=None, summary: dict | None = None,
-                            staleness: int | None = None) -> dict:
+                            staleness: int | None = None,
+                            sensitivities: dict | None = None) -> dict:
     """Assemble the manifest dict (pure; :func:`write_scenario_manifest`
     persists).  ``results``: a batch's :class:`ScenarioResult` list;
     ``summary``: the obs block (``scenario_summary_from_registry``) —
-    the ONE volatile field, excluded from replay comparison.  The
-    reference's optional ``sensitivity`` blocks wait for the grad
-    subsystem (ROADMAP.md §A 12)."""
+    the ONE volatile field, excluded from replay comparison;
+    ``sensitivities``: optional name-keyed grad entries
+    (``GradEngine.sensitivities``) — each ok entry gains a deterministic
+    ``sensitivity`` block (exact d vol/d shock + d vol/d exposure rows),
+    additive next to the hash-audited spec so replay comparison and
+    :func:`audit_scenario_manifest` are untouched."""
     entries = [_entry(r, factor_names) for r in results]
+    if sensitivities:
+        for e in entries:
+            s = sensitivities.get(e["name"])
+            if s is not None and e["status"] == "ok":
+                e["sensitivity"] = {k: v for k, v in s.items()
+                                    if k not in ("name", "status",
+                                                 "problems")}
     return {
         "schema_version": SCENARIO_MANIFEST_SCHEMA_VERSION,
         "kind": "scenario_manifest",

@@ -32,9 +32,14 @@ aggregates are therefore exact, not approximate: the top-k table is
 bitwise the materializing engine's (tests/test_torch_sweep.py),
 offenders and projections included.
 
-The reference's grad-guided refinement (``refine=``) and its mesh
-sharding (``mesh=``) are not ported yet: they raise, naming ROADMAP.md
-§A 12 and §A 16.
+``refine=`` adds the grad-guided refinement: the coarse top-k thetas
+seed a reverse-stress ascent (:mod:`mfm_tpu_torch.grad.reverse`, two
+Jacobi eighs a step on the card), its endpoints fold through the exact
+path, and a dense local re-sweep around each book's best endpoint
+(:class:`_LocalSampler`) folds into the SAME carry, so the final worst
+case can only improve on the coarse top-1.  The reference's mesh
+sharding (``mesh=``) is not ported yet: it raises, naming ROADMAP.md
+§A 16.
 
 Host-side orchestration only: the device math lives in
 scenario/kernel.py.
@@ -59,7 +64,7 @@ from mfm_tpu_torch.scenario.kernel import (
     sweep_chunk,
     sweep_merge,
 )
-from mfm_tpu_torch.scenario.spec import PRESETS, ScenarioSpec
+from mfm_tpu_torch.scenario.spec import PRESETS, ScenarioSpec, validate_spec
 from mfm_tpu_torch.serve.query import bucket_for
 from mfm_tpu_torch.utils.chaos import chaos_point
 
@@ -309,6 +314,52 @@ class ReplaySampler:
                 "windows": [list(w) for w in self.windows]}
 
 
+class _LocalSampler:
+    """Internal: seeded uniform draws in a sub-box around refinement
+    centers (one center per book), corr_beta snapped to a fresh local
+    lattice.  Drives the dense local re-sweep after the gradient
+    ascent."""
+
+    kind = "local"
+
+    def __init__(self, ball, centers, K: int, n_per: int, *, span: float,
+                 seed: int, cb_levels: int = 9):
+        self.ball = ball
+        self.K = int(K)
+        self.centers = np.asarray(centers, np.float64)   # (B, 2K+2)
+        self.n_per = int(n_per)
+        self.span = float(span)
+        self.seed = int(seed)
+        self.n = self.n_per * len(self.centers)
+        self.windows = ()
+        lo, hi = ball.bounds(K)
+        self._lo = np.asarray(lo)
+        self._hi = np.asarray(hi)
+        cbs = self.centers[:, -1]
+        half = span * (ball.corr_beta_hi - ball.corr_beta_lo)
+        self.cb_values = np.unique(np.clip(
+            np.concatenate([np.linspace(c - half, c + half, cb_levels)
+                            for c in cbs]),
+            ball.corr_beta_lo, ball.corr_beta_hi))
+
+    def blocks(self, chunk: int):
+        rng = np.random.default_rng((self.seed, 0x5EEB))
+        width = self.span * (self._hi - self._lo)
+        for center in self.centers:
+            done = 0
+            while done < self.n_per:
+                c = min(chunk, self.n_per - done)
+                th = center + rng.uniform(-1.0, 1.0,
+                                          (c, len(center))) * width
+                th = np.clip(th, self._lo, self._hi)
+                # snap corr_beta to the certified local lattice
+                lv = np.abs(th[:, -1:] - self.cb_values[None, :]).argmin(1)
+                lv = lv.astype(np.int32)
+                th[:, -1] = self.cb_values[lv]
+                done += c
+                yield th, np.zeros(c, np.int32), lv
+
+
 # -- the streaming engine -----------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -430,10 +481,10 @@ class SweepEngine:
     # -- the streaming loop ---------------------------------------------------
     def sweep(self, portfolios, sampler, *, chunk: int = 8192,
               top_k: int = 16, bins: int = 64, hist_span: float = 8.0,
-              labels=None, refine: dict | None = None,
+              labels=None, ball=None, refine: dict | None = None,
               offender_chunk: int = OFFENDER_CHUNK) -> SweepResult:
         """Stream every scenario the sampler generates through the
-        aggregate carry.
+        aggregate carry; optionally refine with reverse-stress ascent.
 
         Args:
           portfolios: (B, K) factor-exposure rows (or one (K,) vector).
@@ -445,17 +496,19 @@ class SweepEngine:
           bins: histogram bins; the sketch spans ``[0, hist_span *
             base_vol)`` per book with a saturating top bin.
           labels: book labels for the manifest (default ``book{i}``).
-          refine: must stay None — the grad-guided refinement (and the
-            ``ball`` it reads) waits for ROADMAP.md §A 12.
+          ball: admissibility box for refinement seeds/bounds (defaults
+            to the sampler's, else the standard ``ShockBall``).
+          refine: None to skip, or options for the grad-guided loop:
+            ``steps`` / ``step`` (ascent schedule), ``n_local`` (dense
+            local draws per book), ``local_span`` (sub-box half-width as
+            a fraction of each axis), ``seed``, ``ball`` (override box
+            for the ascent/local stage — lets a tame coarse sampler pair
+            with the full preset-covering ``ShockBall``).
           offender_chunk: exact-path flush rung for uncertified lanes.
 
         Returns a :class:`SweepResult`; obs counters under
         ``mfm_sweep_*`` record the run.
         """
-        if refine is not None:
-            raise NotImplementedError(
-                "sweep(refine=...) needs the grad subsystem's reverse "
-                "stress ascent, which is not ported yet (ROADMAP.md §A 12)")
         t0 = time.perf_counter()
         xs = np.atleast_2d(np.asarray(portfolios, self.dtype))
         if xs.ndim != 2 or xs.shape[1] != self.K:
@@ -466,6 +519,11 @@ class SweepEngine:
                   else [str(x) for x in labels])
         if len(labels) != B:
             raise ValueError(f"{len(labels)} labels for B={B} books")
+        if ball is None:
+            ball = getattr(sampler, "ball", None)
+        if ball is None:
+            from mfm_tpu_torch.grad.engine import ShockBall
+            ball = ShockBall()
         chunk = int(chunk)
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
@@ -524,6 +582,12 @@ class SweepEngine:
                 carry = self._flush_offenders(carry, dev, state,
                                               offender_chunk)
         n_coarse = state["src"]
+
+        refined_blocks = None
+        if refine is not None:
+            carry, refined_blocks = self._refine(
+                carry, dev, lib_np, xs, ball, refine, chunk, state=state,
+                offender_chunk=offender_chunk)
         if state["off_n"]:
             carry = self._flush_offenders(carry, dev, state, state["off_n"])
 
@@ -536,6 +600,13 @@ class SweepEngine:
         books = self._book_tables(labels, xs, vol0, top_vol, top_theta,
                                   top_src, top_base, hist, lo, width,
                                   lib_rows, windows, n_coarse)
+        if refined_blocks is not None:
+            for b, blk in zip(books, refined_blocks):
+                blk["vol_final_top1"] = b["top"][0]["vol"] if b["top"] \
+                    else None
+                blk["improved"] = (blk["vol_final_top1"] is not None
+                                   and blk["vol_final_top1"]
+                                   >= blk["vol_coarse_top1"])
         counts_d = {
             "n_scenarios": n_ok + n_rejected,
             "n_ok": n_ok,
@@ -554,17 +625,18 @@ class SweepEngine:
         if window_problems:
             sampler_d["window_problems"] = window_problems
         return SweepResult(books=books, counts=counts_d, sampler=sampler_d,
-                           refined=None, chunk=chunk,
+                           refined=refined_blocks, chunk=chunk,
                            chunk_bucket=bucket, top_k=int(top_k),
                            bins=int(bins), hist_span=float(hist_span),
                            seconds=seconds)
 
     # -- one block through the hot path --------------------------------------
     def _fold_block(self, carry, dev, th64, bidx, lv, cert, row_of,
-                    sigma_lib, bucket, state):
+                    sigma_lib, bucket, state, force_offender=None):
         """Admit, certify and fold one sampler block (host numpy, as in
-        the reference); buffer offenders.  One copy of the block's lanes
-        and masks to the device."""
+        the reference); buffer offenders (``force_offender`` sends lanes
+        to the exact path whatever the certificate says).  One copy of
+        the block's lanes and masks to the device."""
         K = self.K
         c = len(th64)
         th = np.asarray(th64, self.dtype)
@@ -594,6 +666,8 @@ class SweepEngine:
                      & (lam_lo * s_lo ** 2
                         > SWEEP_EIGH_GUARD * eps * lam_hi * s_hi ** 2))
         clean = valid & (ident | certified)
+        if force_offender is not None:
+            clean &= ~force_offender
         offender = valid & ~clean
         reject = ~valid
 
@@ -607,8 +681,8 @@ class SweepEngine:
             state["off_total"] += int(offender.sum())
 
         if not clean.any() and not reject.any():
-            # nothing for the hot path to fold — the buffered lanes merge
-            # at flush time
+            # nothing for the hot path to fold (e.g. an all-offender
+            # ascent block) — the buffered lanes merge at flush time
             return carry
 
         pad = bucket - c
@@ -655,6 +729,116 @@ class SweepEngine:
         state["chunks"] += 1
         return sweep_merge(carry, covs, dev["xs"], th_t, self._put(src),
                            row_t, take_t, projected, dev["lo"], dev["width"])
+
+    # -- grad-guided refinement ----------------------------------------------
+    def _refine(self, carry, dev, lib_np, xs, ball, refine, chunk, *,
+                state, offender_chunk):
+        """Coarse top-k thetas -> reverse-stress ascent -> dense local
+        re-sweep, all merged back into the SAME carry (so the final
+        worst can only improve on the coarse top-1)."""
+        from mfm_tpu_torch.grad.engine import REVERSE_STEP, REVERSE_STEPS
+        from mfm_tpu_torch.grad.reverse import reverse_stress_batch
+        steps = int(refine.get("steps", REVERSE_STEPS))
+        step = float(refine.get("step", REVERSE_STEP))
+        n_local = int(refine.get("n_local", 512))
+        local_span = float(refine.get("local_span", 0.05))
+        seed = int(refine.get("seed", 0))
+        ball = refine.get("ball") or ball
+
+        K = self.K
+        B, k = xs.shape[0], int(carry[0].shape[1])
+        top_theta = carry[1].cpu().numpy()
+        top_src = carry[2].cpu().numpy()
+        top_base = carry[3].cpu().numpy()
+        coarse_top1 = carry[0][:, 0].cpu().numpy().astype(np.float64)
+
+        # seeds: each book's top thetas over the SHARED base (ascent runs
+        # against self.cov; replay-based entries keep their coarse rank
+        # but cannot seed a gradient against a different base)
+        ident = _identity_theta(K).astype(self.dtype)
+        P = B * k
+        theta0 = np.tile(ident, (P, 1))
+        xs_rep = np.repeat(xs, k, axis=0)
+        seed_counts = []
+        for b in range(B):
+            mask = (top_src[b] >= 0) & (top_base[b] == 0)
+            seed_counts.append(int(mask.sum()))
+            for j in np.nonzero(mask)[0]:
+                theta0[b * k + j] = top_theta[b, j]
+        pad = bucket_for(P) - P
+        if pad:
+            theta0 = np.concatenate([theta0, np.tile(ident, (pad, 1))])
+            xs_rep = np.concatenate([xs_rep, np.zeros((pad, K),
+                                                      self.dtype)])
+        lo_b, hi_b = ball.bounds(K)
+        put = self._put
+        theta_star, vol_star, _ = reverse_stress_batch(
+            dev["lib"][0], put(xs_rep), put(theta0.astype(self.dtype)),
+            put(np.asarray(lo_b, self.dtype)),
+            put(np.asarray(hi_b, self.dtype)),
+            put(np.asarray(step, self.dtype)), steps)
+        theta_star = theta_star[:P].cpu().numpy()
+        vol_star = vol_star[:P].cpu().numpy().astype(np.float64)
+
+        # fold the ascent endpoints through the EXACT path (their
+        # corr_beta is continuous — no lattice certificate applies)
+        row_of = np.arange(len(lib_np), dtype=np.int32)
+        sigma_lib = np.sqrt(np.maximum(
+            np.diagonal(lib_np, axis1=1, axis2=2), 0)).astype(self.dtype)
+        no_cert = (np.zeros((len(lib_np), 1)), np.ones((len(lib_np), 1)))
+        carry = self._fold_block(
+            carry, dev, theta_star.astype(np.float64),
+            np.zeros(P, np.int32), np.zeros(P, np.int32), no_cert,
+            row_of, sigma_lib, bucket_for(P), state,
+            force_offender=np.ones(P, bool))
+
+        # dense local re-sweep around each book's best refined theta
+        centers = np.empty((B, 2 * K + 2), np.float64)
+        ascent_best = np.empty(B, np.float64)
+        for b in range(B):
+            lane = b * k + int(np.argmax(vol_star[b * k:(b + 1) * k]))
+            centers[b] = theta_star[lane]
+            ascent_best[b] = float(vol_star[lane])
+        local = _LocalSampler(ball, centers, K, n_local, span=local_span,
+                              seed=seed)
+        cert = self._certify(lib_np, local.cb_values)
+        bucket = bucket_for(min(chunk, max(local.n_per, 1)))
+        for th64, bidx, lv in local.blocks(min(chunk, bucket)):
+            carry = self._fold_block(carry, dev, th64, bidx, lv, cert,
+                                     row_of, sigma_lib, bucket, state)
+            while state["off_n"] >= offender_chunk:
+                carry = self._flush_offenders(carry, dev, state,
+                                              offender_chunk)
+
+        psd = self._stressed_psd(centers)
+        blocks = []
+        for b in range(B):
+            spec = theta_to_spec(centers[b], self.factor_names,
+                                 f"sweep-refined-{b}")
+            admissible = (ball.contains(centers[b], K)
+                          and not validate_spec(spec, self.factor_names)
+                          and bool(psd[b]))
+            blocks.append({
+                "seed_count": seed_counts[b],
+                "ascent_steps": steps,
+                "n_local": n_local,
+                "local_span": local_span,
+                "vol_coarse_top1": float(coarse_top1[b]),
+                "vol_ascent_best": float(ascent_best[b]),
+                "theta_spec": spec.to_dict(),
+                "theta_spec_hash": spec.spec_hash(),
+                "admissible": bool(admissible),
+            })
+        return carry, blocks
+
+    def _stressed_psd(self, thetas) -> np.ndarray:
+        """Host check mirroring ``GradEngine._stressed_psd``: each refined
+        worst case, pushed through the REAL serving stress + gated
+        projection, stays PSD at compute dtype.  ``thetas`` (B, 2K+2); a
+        (B,) bool array."""
+        from mfm_tpu_torch.grad.engine import stressed_psd
+        return stressed_psd(self._scen._cov, self._put(np.asarray(
+            np.atleast_2d(thetas), self.dtype)), self.dtype)
 
     # -- result assembly ------------------------------------------------------
     def _book_tables(self, labels, xs, vol0, top_vol, top_theta, top_src,

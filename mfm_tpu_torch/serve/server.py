@@ -30,9 +30,10 @@ Four layers:
 
 A ``sweep`` request streams a bounded shock sweep of its book through
 :class:`~mfm_tpu_torch.scenario.sweep.SweepEngine` against the engine's
-covariance.  ``construct`` (portfolio construction) requests need the
-grad subsystem; :func:`parse_request` raises ``NotImplementedError`` for
-them (ROADMAP.md §A 12).
+covariance.  A ``construct`` request asks for a portfolio-construction
+solve (:class:`~mfm_tpu_torch.grad.engine.GradEngine`) instead of a risk
+query: each drained batch answers its construct lines in one batched
+solve per (solver, hmax), against the same engine's covariance.
 """
 
 from __future__ import annotations
@@ -94,6 +95,9 @@ SWEEP_MAX_N = 262144
 SWEEP_MAX_CHUNK = 16384
 SWEEP_MAX_TOP_K = 64
 SWEEP_MAX_BINS = 256
+
+#: construct request vocabulary (mfm_tpu_torch/grad/construct.py solvers)
+CONSTRUCT_SOLVERS = ("min_vol", "risk_parity", "hedge")
 
 #: JSONL key reserved for the fleet wire protocol (serve/replica.py).
 #: Admission REJECTS any request carrying it, so admitted lines can be
@@ -266,10 +270,11 @@ class CircuitBreaker:
 
 class _Request:
     __slots__ = ("rid", "weights", "bidx", "enq_t", "deadline_t", "scenario",
-                 "trace_id", "span", "sweep", "origin")
+                 "trace_id", "span", "construct", "sweep", "origin")
 
     def __init__(self, rid, weights, bidx, enq_t, deadline_t, scenario=None,
-                 trace_id=None, span=None, sweep=None, origin=None):
+                 trace_id=None, span=None, construct=None, sweep=None,
+                 origin=None):
         self.rid = rid
         self.weights = weights
         self.bidx = bidx
@@ -278,6 +283,7 @@ class _Request:
         self.scenario = scenario
         self.trace_id = trace_id
         self.span = span
+        self.construct = construct
         self.sweep = sweep
         # origin: an opaque routing token (a connection handle, a cache
         # fill) stamped by the layer above; None on the plain single-stream
@@ -291,6 +297,54 @@ def _line_trace_id(line: str) -> str:
     reuses the same ids and the chaos plans' bitwise-prefix contract on
     the response stream survives tracing."""
     return hashlib.sha256(line.encode("utf-8", "replace")).hexdigest()[:32]
+
+
+def _parse_construct(raw, engine):
+    """Decode + guard a request's ``construct`` block.  Accepts the string
+    shorthand (``"min_vol"``) or an object (``{"solver": "hedge",
+    "hedge_factors": [...], "hmax": 0.5}``).  Returns
+    ``(spec_dict_or_None, reason_bits, detail)`` — the spec dict is what
+    rides on the queued request into the drain-side solver dispatch."""
+    if isinstance(raw, str):
+        raw = {"solver": raw}
+    if not isinstance(raw, dict):
+        return None, REQ_REASON_BAD_CONSTRUCT, \
+            "construct must be a solver name or an object"
+    solver = raw.get("solver")
+    if solver not in CONSTRUCT_SOLVERS:
+        return None, REQ_REASON_BAD_CONSTRUCT, \
+            f"unknown construct solver {solver!r}; have " \
+            f"{list(CONSTRUCT_SOLVERS)}"
+    if engine.space != "factor":
+        return None, REQ_REASON_BAD_CONSTRUCT, \
+            "construction runs in factor space (engine serves " \
+            f"{engine.space!r})"
+    spec = {"solver": str(solver), "hedge_mask": None, "hmax": 1.0}
+    if solver == "hedge":
+        factors = raw.get("hedge_factors")
+        if factors is not None:
+            if not isinstance(factors, (list, tuple)) or not factors:
+                return None, REQ_REASON_BAD_CONSTRUCT, \
+                    "hedge_factors must be a non-empty list"
+            unknown = [str(f) for f in factors
+                       if str(f) not in engine.factor_index]
+            if unknown:
+                return None, REQ_REASON_BAD_CONSTRUCT, \
+                    f"hedge_factors outside the engine's space: " \
+                    f"{sorted(unknown)[:5]}"
+            mask_vec = np.zeros(engine.N, np.float64)
+            for f in factors:
+                mask_vec[engine.factor_index[str(f)]] = 1.0
+            spec["hedge_mask"] = mask_vec
+        try:
+            hmax = float(raw.get("hmax", 1.0))
+            if not (np.isfinite(hmax) and hmax > 0):
+                raise ValueError(hmax)
+        except (TypeError, ValueError):
+            return None, REQ_REASON_BAD_CONSTRUCT, \
+                f"bad hmax {raw.get('hmax')!r} (need finite > 0)"
+        spec["hmax"] = hmax
+    return spec, 0, ""
 
 
 def _parse_sweep(raw, engine):
@@ -348,8 +402,9 @@ def parse_request(line: str, engine, policy: ServePolicy, scenarios=None):
     outside it — including ANY tag when no table is served — is
     ``unknown_scenario``.  ``sweep`` asks for a streaming shock sweep of
     the request's book instead of a risk query; :func:`_parse_sweep`
-    guards its knobs.  The ``construct`` field is always None: a request
-    carrying one raises ``NotImplementedError`` (ROADMAP.md §A 12).
+    guards its knobs.  ``construct`` asks for a portfolio-construction
+    solve instead of a risk query (the weights become the warm start /
+    base book); :func:`_parse_construct` guards its vocabulary.
     """
     mask = 0
     rid = None
@@ -382,9 +437,12 @@ def parse_request(line: str, engine, policy: ServePolicy, scenarios=None):
         detail = f"unknown scenario {scenario!r} (serving " \
             f"{have[:5] if have else 'no scenario table'})"
     construct = None
-    if obj.get("construct") is not None:
-        raise NotImplementedError("construct requests are not ported yet "
-                                  "(ROADMAP.md §A 12)")
+    raw_c = obj.get("construct")
+    if raw_c is not None:
+        construct, c_bits, c_detail = _parse_construct(raw_c, engine)
+        if c_bits:
+            mask |= c_bits
+            detail = detail or c_detail
     sweep = None
     raw_s = obj.get("sweep")
     if raw_s is not None and raw_s is not False:
@@ -392,6 +450,11 @@ def parse_request(line: str, engine, policy: ServePolicy, scenarios=None):
         if s_bits:
             mask |= s_bits
             detail = detail or s_detail
+        elif construct is not None:
+            sweep = None
+            mask |= REQ_REASON_BAD_SWEEP
+            detail = detail or \
+                "a request is a sweep OR a construct solve, not both"
     if isinstance(raw_w, dict):
         # name-keyed weights: map onto the engine's own axis order.  In
         # factor space the keys are factor names; in stock space stock ids.
@@ -491,12 +554,20 @@ class QueryServer:
         carrying ``"scenario": name`` is answered from that engine;
         requests with no tag run the exact baseline path, and tags outside
         the table dead-letter with ``unknown_scenario``.
+      warm_index: optional :class:`~mfm_tpu_torch.serve.cache.
+        WarmStartIndex`.  When set, a construct request whose book is a
+        near miss of a previously solved one seeds the solver's
+        warm-start blend with the cached solution at a reduced step
+        budget; the response records the parity contract
+        (``warm_start``).  Cold solves are byte-for-byte unchanged (no
+        extra field), so every bitwise contract holds whenever the index
+        finds nothing.
     """
 
     def __init__(self, engine, policy: ServePolicy | None = None, *,
                  health: str = "unknown", dead_letter_path=None,
                  clock: Callable[[], float] = time.monotonic,
-                 reload_fn=None, scenarios=None):
+                 reload_fn=None, scenarios=None, warm_index=None):
         self.engine = engine
         self.scenarios: dict = dict(scenarios or {})
         self.policy = policy or ServePolicy()
@@ -510,6 +581,7 @@ class QueryServer:
         self._dead_path = dead_letter_path
         self._dead_fp = None
         self._reload_fn = reload_fn
+        self.warm_index = warm_index
         #: checkpoint generation currently served (None = untracked),
         #: moved by swap()
         self.generation: int | None = None
@@ -612,7 +684,7 @@ class QueryServer:
                                           "reasons": req_reason_names(mask),
                                           "detail": detail}, scenario_id=scen,
                                          trace_id=tid))]
-        rid, w, bidx, deadline_s, scen, tid, _, sweep = fields
+        rid, w, bidx, deadline_s, scen, tid, construct, sweep = fields
         if tid is None:
             tid = _line_trace_id(line)
         now = self._clock()
@@ -622,7 +694,8 @@ class QueryServer:
                                request_id=rid, scenario=scen)
         self._queue.append(_Request(rid, w, bidx, now, now + deadline_s,
                                     scenario=scen, trace_id=tid, span=sp,
-                                    sweep=sweep, origin=origin))
+                                    construct=construct, sweep=sweep,
+                                    origin=origin))
         # bounded queue: shedding drops the OLDEST queued work first —
         # under overload the head of the queue is the request whose
         # deadline is nearest death; the freshest work is the most useful
@@ -708,10 +781,25 @@ class QueryServer:
                          "detail": f"scenario {scen!r} no longer served"},
                         scenario_id=scen, trace_id=r.trace_id)))
                 continue
-            qgrp = [r for r in grp if r.sweep is None]
+            # split risk queries from construction solves: the query
+            # sub-batch runs the exact pre-construct path (one stack, one
+            # engine.query — untagged risk traffic stays bitwise the same),
+            # each (solver, hmax) construct sub-batch runs its own batched
+            # solve against the SAME engine's covariance (so scenario-tagged
+            # construction solves against the stressed world)
+            qgrp = [r for r in grp
+                    if r.construct is None and r.sweep is None]
             sgrp = [r for r in grp if r.sweep is not None]
+            cgrps: dict = {}
+            for r in grp:
+                if r.construct is not None:
+                    key = (r.construct["solver"], r.construct["hmax"])
+                    cgrps.setdefault(key, []).append(r)
             if qgrp:
                 out.extend(self._drain_query(engine, scen, qgrp))
+            for (solver, hmax), cg in cgrps.items():
+                out.extend(self._drain_construct(engine, scen, solver,
+                                                 hmax, cg))
             if sgrp:
                 out.extend(self._drain_sweep(engine, scen, sgrp))
         chaos_point("serve.after_batch", f"batch{self._batch_i}")
@@ -779,6 +867,119 @@ class QueryServer:
             out.append((r.origin, self._stamp(resp, scenario_id=scen,
                                               engine=engine,
                                               trace_id=r.trace_id)))
+        return out
+
+    def _drain_construct(self, engine, scen, solver, hmax, grp) -> list[tuple]:
+        """Answer one (solver, hmax) construct sub-batch in ONE batched
+        solve (:meth:`GradEngine.construct_solve`, padded to the portfolio
+        bucket, on the engine's device), with the query path's breaker /
+        outcome / span semantics.
+
+        With a :attr:`warm_index`, requests whose books are near misses
+        of previously solved ones split into a second solve seeded from
+        the cached solutions at a reduced step budget.  Cold results feed
+        the index; warm results never do (no warm-from-warm chaining).
+        Returns routed ``(origin, resp)`` pairs."""
+        from mfm_tpu_torch.grad.engine import (
+            MINVOL_STEPS,
+            RISKPARITY_STEPS,
+            GradEngine,
+        )
+        out = []
+        head = grp[0]
+        bsp = _trace.start_span(
+            "serve.construct", trace_id=head.trace_id,
+            parent_id=(head.span.span_id if head.span else None),
+            batch=self._batch_i, scenario=scen, solver=solver, n=len(grp),
+            trace_ids=[r.trace_id for r in grp[:32]])
+        full_steps = {"min_vol": MINVOL_STEPS,
+                      "risk_parity": RISKPARITY_STEPS}.get(solver)
+        seeds = [None] * len(grp)
+        if self.warm_index is not None and full_steps is not None:
+            for j, r in enumerate(grp):
+                seeds[j] = self.warm_index.nearest(solver, hmax, r.weights)
+        cold = [j for j in range(len(grp)) if seeds[j] is None]
+        warm = [j for j in range(len(grp)) if seeds[j] is not None]
+        warm_steps = (max(1, full_steps // self.warm_index.STEPS_DIVISOR)
+                      if warm else None)
+        t0 = time.perf_counter()
+        try:
+            ge = GradEngine(engine._cov, factor_names=engine.factor_names,
+                            staleness=engine.staleness, dtype=engine.dtype,
+                            device=engine.device)
+            results: dict = {}
+            if cold:
+                W = np.stack([grp[j].weights
+                              for j in cold]).astype(engine.dtype)
+                hmask = None
+                if solver == "hedge":
+                    hmask = np.stack([
+                        grp[j].construct["hedge_mask"]
+                        if grp[j].construct["hedge_mask"] is not None
+                        else np.ones(ge.K) for j in cold]).astype(engine.dtype)
+                res = ge.construct_solve(solver, W, hedge_mask=hmask,
+                                         hmax=hmax)
+                for i, j in enumerate(cold):
+                    results[j] = (res["weights"][i], res["vols"][i],
+                                  res["diag"][i], False)
+            if warm:
+                Wseed = np.stack([seeds[j]
+                                  for j in warm]).astype(engine.dtype)
+                res = ge.construct_solve(solver, Wseed, hmax=hmax,
+                                         steps=warm_steps)
+                for i, j in enumerate(warm):
+                    results[j] = (res["weights"][i], res["vols"][i],
+                                  res["diag"][i], True)
+        except Exception as e:   # noqa: BLE001 — any batch failure trips
+            _trace.end_span(bsp, outcome="error")
+            _frec.record_event("batch_error", trace_id=head.trace_id,
+                               kind_of="construct", scenario=scen,
+                               n=len(grp), detail=str(e)[:200])
+            self.breaker.record_failure()
+            for r in grp:
+                _obs.record_query_outcome("error")
+                if r.span is not None:
+                    _trace.end_span(r.span, outcome="error")
+                out.append((r.origin,
+                            self._stamp({"id": r.rid, "ok": False,
+                                         "outcome": "error",
+                                         "kind": "construct",
+                                         "detail": str(e)[:500]},
+                                        scenario_id=scen, engine=engine,
+                                        trace_id=r.trace_id)))
+            return out
+        dt = time.perf_counter() - t0
+        _trace.end_span(bsp, outcome="ok")
+        self.breaker.record_success()
+        _obs.record_query_batch(len(grp), dt)
+        done = self._clock()
+        for i, r in enumerate(grp):
+            _obs.record_query_outcome("ok")
+            _obs.record_query_latency(max(0.0, done - r.enq_t))
+            if r.span is not None:
+                _trace.end_span(r.span, outcome="ok", batch=self._batch_i)
+            w_i, vol_i, diag_i, warmed = results[i]
+            resp = {"id": r.rid, "ok": True, "outcome": "ok",
+                    "kind": "construct", "solver": solver,
+                    "weights": np.asarray(w_i).tolist(),
+                    "total_vol": float(vol_i)}
+            diag = np.asarray(diag_i)
+            resp["diag"] = diag.tolist() if diag.ndim else float(diag)
+            if warmed:
+                # the parity contract: a seeded solve converged to the
+                # same optimum statistically, not bitwise — recorded,
+                # never silently passed off as an exact computation
+                resp["warm_start"] = {"used": True, "steps": warm_steps,
+                                      "steps_saved": full_steps - warm_steps,
+                                      "parity": "seeded"}
+                self.warm_index.record_use(warm_steps,
+                                           full_steps - warm_steps)
+            elif self.warm_index is not None and full_steps is not None:
+                self.warm_index.add(solver, hmax, r.weights,
+                                    np.asarray(w_i))
+            out.append((r.origin,
+                        self._stamp(resp, scenario_id=scen, engine=engine,
+                                    trace_id=r.trace_id)))
         return out
 
     def _drain_sweep(self, engine, scen, grp) -> list[tuple]:

@@ -505,3 +505,26 @@ def test_one_date_update_at_csi300_width_is_bitwise(dtype):
     o, st = model(slice(Tw - 1, Tw)).update(st)
     _assert_outputs_equal(o, _suffix(full_out, Tw - 1), "one-date update")
     _assert_carries_equal(st, full_state, "one-date carry")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_normal_matrices_keep_their_bits_at_any_batch_position(dtype):
+    """``ops/xreg._gram`` (the regression's normal matrices X'WX) gives a
+    date the same bits wherever it sits in a batch of any size, on the
+    CPU: a batched matrix product there does not (MKL gives a matrix at
+    an odd position other bits than at position 0), which broke update ==
+    suffix for one-date updates, padded to 16 copies of the date at
+    position 0."""
+    from mfm_tpu_torch.ops.xreg import _gram
+
+    rng = np.random.default_rng(3)
+    for k, n in ((K - 1, N), (41, 300)):
+        Xr = torch.from_numpy(rng.standard_normal((48, n, k))).to(dtype)
+        XtW = Xr.transpose(-1, -2) * torch.from_numpy(
+            rng.random((48, 1, n))).to(dtype)
+        full = _gram(XtW, Xr)
+        for t in (0, 1, 21, 23, 47):
+            for rows in (1, 2, 16):
+                one = _gram(XtW[t:t + 1].expand(rows, k, n),
+                            Xr[t:t + 1].expand(rows, n, k))
+                assert _same(one[0], full[t]), (k, t, rows)

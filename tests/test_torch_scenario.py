@@ -662,6 +662,37 @@ def test_manifest_is_the_reference_field_for_field(engine):
     assert port["n_psd_projected"] >= 1
 
 
+def test_manifest_sensitivity_blocks_are_the_reference(engine, tmp_path):
+    """``build_scenario_manifest(sensitivities=)``: each ok entry gains
+    the grad engine's rows as its ``sensitivity`` block, rejected entries
+    none; field for field the reference's (numbers within PROJ_RTOL), and
+    the manifest still audits clean in both packages."""
+    from mfm_tpu.grad import GradEngine as RefGradEngine
+    from mfm_tpu_torch.grad import GradEngine
+
+    specs = _mixed_specs() + _poison()[:1]
+    ref_specs = _mixed_specs(RefBuilder, _ref_preset) + _poison(RefBuilder)[:1]
+    x = np.linspace(-0.2, 0.4, K)
+    sens = {e["name"]: e for e in GradEngine(
+        engine.cov, device="cpu").sensitivities(specs, x)}
+    ref_sens = {e["name"]: e for e in RefGradEngine(
+        engine.cov).sensitivities(ref_specs, x)}
+    port = build_scenario_manifest(engine.run(specs), engine.factor_names,
+                                   sensitivities=sens)
+    ref = ref_build(RefEngine(engine.cov).run(ref_specs),
+                    engine.factor_names, sensitivities=ref_sens)
+    blocks = [e for e in port["scenarios"] if "sensitivity" in e]
+    assert len(blocks) == port["n_ok"] == 9
+    assert "sensitivity" not in port["scenarios"][-1]
+    assert set(blocks[0]["sensitivity"]) == {
+        "vol", "nondifferentiable", "d_vol_mult", "d_corr_beta", "d_shift",
+        "d_scale", "d_exposure"}
+    _same_json(json.loads(json.dumps(port)), json.loads(json.dumps(ref)))
+    path = write_scenario_manifest(str(tmp_path), port)
+    for audit in (audit_scenario_manifest, ref_audit):
+        assert audit(path)[0] == []
+
+
 @pytest.mark.parametrize("writer", ["port", "reference"])
 def test_manifest_audits_clean_in_both_packages(engine, tmp_path, writer):
     port, ref = _manifest_pair(engine)

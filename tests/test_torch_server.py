@@ -205,6 +205,15 @@ def test_stream_matches_the_reference_line_by_line(tmp_path, gulp):
     _req("x", sweep={"n": 0}), _req("x", sweep={"chunk": -1}),
     _req("x", sweep={"top_k": 1.5}), _req("x", sweep={"bins": 4}),
     _req("x", sweep="not-a-spec"), _req("x", sweep=1),
+    _req("x", construct="min_vol"),
+    _req("x", construct={"solver": "risk_parity"}),
+    _req("x", construct={"solver": "hedge", "hedge_factors": ["size", "mom"],
+                         "hmax": 0.5}),
+    _req("x", construct="sharpe_max"),
+    _req("x", construct={"solver": "hedge", "hedge_factors": ["bogus"]}),
+    _req("x", construct={"solver": "hedge", "hmax": "x"}),
+    _req("x", construct=["min_vol"]),
+    _req("x", construct="min_vol", sweep=True),
 ])
 @pytest.mark.parametrize("mad_k", [0.0, 5.0])
 def test_parse_request_is_the_reference(line, mad_k):
@@ -220,24 +229,74 @@ def test_parse_request_is_the_reference(line, mad_k):
         assert got[0] is None
     else:
         for g, w in zip(got[0], want[0]):
-            if isinstance(w, np.ndarray):
-                assert np.array_equal(g, w, equal_nan=True) \
-                    and g.dtype == w.dtype
+            if isinstance(w, dict):     # the construct spec
+                assert sorted(g) == sorted(w)
+                g, w = ([d[k] for k in sorted(d)] for d in (g, w))
             else:
-                assert g == w
+                g, w = [g], [w]
+            for gi, wi in zip(g, w):
+                if isinstance(wi, np.ndarray):
+                    assert np.array_equal(gi, wi, equal_nan=True) \
+                        and gi.dtype == wi.dtype
+                else:
+                    assert gi == wi
     assert req_reason_names(got[1]) == ref_reason_names(want[1])
 
 
-@pytest.mark.parametrize("field,item", [
-    ({"construct": "min_vol"}, "§A 12"),
-    ({"construct": {"solver": "hedge"}}, "§A 12"),
-])
-def test_construct_and_sweep_requests_are_not_ported(field, item):
+def test_false_sweep_flag_is_no_sweep():
     eng = QueryEngine(_cov(), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        parse_request(_req("x", **field), eng, ServePolicy())
-    # a false sweep flag is no sweep
-    assert parse_request(_req("x", sweep=False), eng, ServePolicy())[1] == 0
+    fields, mask, _ = parse_request(_req("x", sweep=False), eng,
+                                    ServePolicy())
+    assert mask == 0 and fields[6] is None and fields[7] is None
+
+
+#: config 9's mix (bench.py:1336): a fifth of the lines construct solves
+CONSTRUCT_MIX = (0.45, 0.20, 0.15, 0.20, 0.0)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("gulp", [False, True])
+def test_construct_stream_matches_the_reference_line_by_line(gulp, warm):
+    """Config 9's traffic mix, construct lines included (min-vol and
+    risk parity), through both packages' servers: every response within
+    RTOL, keys and outcomes equal.  With a warm-start index on a repeating
+    (Zipf) stream the seeded solves carry the reference's ``warm_start``
+    stanza and both indexes end with the same stats."""
+    from mfm_tpu.serve.cache import WarmStartIndex as RefWarm
+    from mfm_tpu_torch.serve.cache import WarmStartIndex
+
+    if warm:
+        lines = trafficgen.gen_zipf_requests(3, 160, K, distinct=30,
+                                             mix=CONSTRUCT_MIX,
+                                             scenario="stress")
+    else:
+        lines = trafficgen.gen_requests(3, 160, K, mix=CONSTRUCT_MIX,
+                                        scenario="stress")
+    assert sum('"construct"' in x for x in lines) >= 20
+    port, ref = _servers({"batch_max": 16, "queue_max": 4096})
+    if warm:
+        port.warm_index, ref.warm_index = WarmStartIndex(), RefWarm()
+    got, got_n, _ = _run(port, lines, port_obs, gulp=gulp)
+    want, want_n, _ = _run(ref, lines, ref_obs, gulp=gulp)
+    # a construct answer's diag (the KKT residual, the contributions'
+    # spread) is a residual near rounding: held to 1e-12 absolute
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = json.loads(g), json.loads(w)
+        if "diag" in w:
+            assert g["diag"] == pytest.approx(w["diag"], rel=1e-6,
+                                              abs=1e-12), w["id"]
+            g["diag"] = w["diag"]
+            got[i] = json.dumps(g)
+    _hold_responses(got, want)
+    assert got_n == want_n
+    resps = [json.loads(x) for x in got]
+    kinds = {r.get("solver") for r in resps if r.get("kind") == "construct"}
+    assert kinds == {"min_vol", "risk_parity"}
+    seeded = [r for r in resps if "warm_start" in r]
+    if warm:
+        assert seeded and port.warm_index.stats() == ref.warm_index.stats()
+    else:
+        assert not seeded
 
 
 SWEEP_LINES = [

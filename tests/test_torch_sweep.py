@@ -417,12 +417,82 @@ def test_unresolvable_window_rejects_its_lanes(lookup):
 
 
 def test_unported_options_raise_naming_their_roadmap_items():
-    engine = _engine()
-    with pytest.raises(NotImplementedError, match="§A 12"):
-        engine.sweep(_books(), UniformSampler(_ball(), K, 8), chunk=8,
-                     refine={"steps": 2})
     with pytest.raises(NotImplementedError, match="§A 16"):
         SweepEngine(_base_cov(), mesh=object(), device="cpu")
+
+
+REFINE = {"steps": 20, "n_local": 32, "seed": 2}
+
+
+def _refined(case):
+    """One refined sweep in both packages: the sampler's own ball, or the
+    full preset-covering ShockBall for the ascent and the local stage."""
+    xs = _books()
+    port_opts, ref_opts = dict(REFINE), dict(REFINE)
+    if case == "full_ball":
+        port_opts["ball"], ref_opts["ball"] = ShockBall(), RefBall()
+    got = _engine().sweep(xs, UniformSampler(_ball(), K, 96, seed=1),
+                          chunk=32, top_k=4, refine=port_opts)
+    want = RefSweepEngine(_base_cov(), factor_names=NAMES).sweep(
+        xs, RefUniform(RefBall(**BALL), K, 96, seed=1), chunk=32, top_k=4,
+        refine=ref_opts)
+    return got, want
+
+
+def _spec_theta(spec):
+    return np.r_[[dict(spec["shift"]).get(f, 0.0) for f in NAMES],
+                 [dict(spec["scale"]).get(f, 1.0) for f in NAMES],
+                 spec["vol_mult"], spec["corr_beta"]]
+
+
+@pytest.mark.parametrize("case", ["sampler_ball", "full_ball"])
+def test_refined_sweep_is_the_reference(case):
+    """``sweep(refine=)`` against the reference's: counts exactly, the
+    refinement blocks' numbers within RTOL (their specs' thetas within
+    1e-9: the ascent runs through each package's eigh), the final top-k
+    vols within RTOL with the same origins and scenario indices wherever
+    the vols are not tied.  The port's spec hashes are its own specs'."""
+    got, want = _refined(case)
+    assert got.counts == want.counts
+    assert got.counts["n_scenarios"] > got.counts["n_coarse"]
+    assert len(got.refined) == len(want.refined) == 2
+    for g, w in zip(got.refined, want.refined):
+        assert sorted(g) == sorted(w)
+        for k in ("seed_count", "ascent_steps", "n_local", "local_span",
+                  "admissible", "improved"):
+            assert g[k] == w[k], k
+        for k in ("vol_coarse_top1", "vol_ascent_best", "vol_final_top1"):
+            np.testing.assert_allclose(g[k], w[k], rtol=RTOL)
+        np.testing.assert_allclose(_spec_theta(g["theta_spec"]),
+                                   _spec_theta(w["theta_spec"]), rtol=0,
+                                   atol=1e-9)
+        assert g["theta_spec_hash"] == ScenarioSpec.from_dict(
+            g["theta_spec"]).spec_hash()
+    for g, w in zip(got.books, want.books):
+        gv = np.array([e["vol"] for e in g["top"]])
+        wv = np.array([e["vol"] for e in w["top"]])
+        np.testing.assert_allclose(gv, wv, rtol=RTOL)
+        for j, (ge, we) in enumerate(zip(g["top"], w["top"])):
+            if (np.abs(wv - wv[j]) <= RTOL * wv[j]).sum() == 1:
+                assert (ge["src"], ge["origin"]) == (we["src"], we["origin"])
+
+
+def test_refined_worst_case_improves_is_admissible_and_audits_clean(
+        tmp_path):
+    """Each book's refined worst case beats (or equals) its coarse top-1
+    and is admissible; the refined sweep is deterministic to the bit; its
+    manifest audits clean in both packages."""
+    got, _ = _refined("full_ball")
+    again, _ = _refined("full_ball")
+    assert json.dumps(got.to_dict()) == json.dumps(again.to_dict())
+    for blk in got.refined:
+        assert blk["improved"] and blk["admissible"]
+        assert blk["vol_final_top1"] >= blk["vol_coarse_top1"]
+    assert any(e["origin"] == "refined" for b in got.books for e in b["top"])
+    path = write_sweep_manifest(str(tmp_path), build_sweep_manifest(
+        got, backend="cpu", staleness=0))
+    for audit in (audit_sweep_manifest, ref_audit):
+        assert audit(path)[0] == []
 
 
 def test_preset_dominance_is_the_reference():
