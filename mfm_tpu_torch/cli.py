@@ -1,0 +1,1213 @@
+"""Command-line entry point of the port (counterpart of ``mfm_tpu/cli.py``).
+
+    python -m mfm_tpu_torch.cli serve STATE [--device cuda|cpu] ...
+    python -m mfm_tpu_torch.cli serve STATE --replicas N      # pipe fleet
+    python -m mfm_tpu_torch.cli serve STATE --listen HOST:PORT [--http]
+    python -m mfm_tpu_torch.cli serve STATE --worker --listen HOST:PORT
+    python -m mfm_tpu_torch.cli doctor DIR --serve
+    python -m mfm_tpu_torch.cli metrics dump|snapshot|diff ...
+
+``serve`` is the batched portfolio-query service over a guarded risk-state
+checkpoint, alone or as a fleet: worker replicas over pipes or TCP behind
+a coalescing front end, a socket/HTTP listener, rolling rollouts, the
+response cache, SLOs, the flight recorder and the serve and fleet
+manifests.  ``doctor`` audits the checkpoint directory's artifacts and
+run manifest, and with ``--serve`` its serve and fleet manifests, their
+SLO blocks and flight-recorder dumps.  ``metrics`` reads what
+``--metrics-dir`` wrote.  The flags, outputs, manifests and exit codes are
+the reference's; ``--device`` (default ``cuda``) takes the place of its
+``JAX_PLATFORMS``: the service computes on the CUDA card unless asked for
+the CPU, and without a card ``--device cuda`` raises.  The serve path
+launches no CUDA kernel, and importing this module builds and loads none.
+
+The reference's other subcommands and ``doctor`` audits are not ported
+yet; each exits non-zero naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+SERVE_MANIFEST_NAME = "serve_manifest.json"
+
+#: the reference's subcommands this port does not carry yet, by the
+#: ROADMAP.md item that ports them
+UNPORTED_COMMANDS = {
+    "risk": "§A 15", "factors": "§A 15", "demo": "§A 15",
+    "pipeline": "§A 15", "crosscheck": "§A 15", "report": "§A 15",
+    "scenario": "§A 15", "grad": "§A 15",
+    "alpha": "§A 13",
+    "prepare": "§A 14", "etl-xlsx": "§A 14", "etl-update": "§A 14",
+    "etl-verify": "§A 14", "etl-missing": "§A 14",
+    "lint": "§A 16", "sync": "§A 16", "audit": "§A 16",
+}
+
+
+def _unported(args):
+    raise SystemExit(
+        f"mfm_tpu_torch.cli: `{args.cmd}` is not ported yet (ROADMAP.md "
+        f"{UNPORTED_COMMANDS[args.cmd]}); this package runs `serve`, "
+        "`doctor` and `metrics`")
+
+
+def _metrics_init(args) -> None:
+    """``--metrics-dir``: route the JSONL event stream there (telemetry
+    records regardless; this adds sinks)."""
+    mdir = getattr(args, "metrics_dir", None)
+    if not mdir:
+        return
+    from mfm_tpu_torch.obs.exporters import emit_event, route_events_to
+
+    os.makedirs(mdir, exist_ok=True)
+    route_events_to(os.path.join(mdir, "events.jsonl"))
+    emit_event("info", "run_start", cmd=args.cmd)
+
+
+def _metrics_flush(args) -> None:
+    """``--metrics-dir``: write the Prometheus textfile + snapshot JSON +
+    the run's Chrome trace (atomic, Perfetto-loadable)."""
+    mdir = getattr(args, "metrics_dir", None)
+    if not mdir:
+        return
+    from mfm_tpu_torch.obs.exporters import (
+        emit_event,
+        write_prometheus_textfile,
+    )
+    from mfm_tpu_torch.obs.metrics import snapshot_json
+    from mfm_tpu_torch.obs.trace import spans, write_chrome_trace
+
+    write_prometheus_textfile(os.path.join(mdir, "metrics.prom"))
+    with open(os.path.join(mdir, "metrics.json"), "w") as fh:
+        fh.write(snapshot_json() + "\n")
+    if spans():
+        write_chrome_trace(os.path.join(mdir, "trace.json"))
+    emit_event("info", "run_end", cmd=args.cmd)
+
+
+def _root_span(args):
+    """Open the per-run root span; its trace_id lands in the run manifest
+    so ``doctor`` can join manifests to traces."""
+    from mfm_tpu_torch.obs.trace import new_trace_id, start_span
+
+    return start_span(f"cli.{args.cmd}", trace_id=new_trace_id())
+
+
+def _kernel_block() -> dict:
+    """What this process did with the port's CUDA kernels: launches by
+    kernel and design, and the libraries it loaded (a serve process
+    launches none and loads none)."""
+    from mfm_tpu_torch.ops import _build
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts
+
+    return {"launches": launch_counts(),
+            "libraries_loaded": _build.load.cache_info().currsize}
+
+
+# -- doctor ---------------------------------------------------------------------
+
+def _audit_artifacts(paths, force: bool):
+    """One record per ``.npz``: payload checksum, generation vs the
+    ``latest.json`` pointer, and the risk-state field/stamp schema.
+    Returns ``(records, metas)``."""
+    from mfm_tpu_torch.data.artifacts import (
+        _NW_SCALARS,
+        _NW_STACKED,
+        ArtifactCorruptError,
+        ArtifactStaleError,
+        _file_sha256,
+        _stamp_from_json,
+        load_artifact,
+        read_pointer,
+    )
+
+    records, metas = [], {}
+    for p in paths:
+        rec = {"file": p, "status": "ok", "problems": [], "warnings": []}
+        records.append(rec)
+        try:
+            arrays, meta = load_artifact(p, fenced=True, force=force)
+        except ArtifactStaleError as err:
+            rec["status"] = "stale"
+            rec["problems"].append(str(err))
+            continue
+        except ArtifactCorruptError as err:
+            rec["status"] = "corrupt"
+            rec["problems"].append(str(err))
+            continue
+        metas[os.path.basename(p)] = meta
+        rec["kind"] = meta.get("kind", "raw")
+        rec["arrays"] = len(arrays)
+        if meta.get("sha256") is None:
+            rec["warnings"].append("no payload checksum (legacy artifact)")
+        gen = meta.get("generation")
+        entry = read_pointer(p)
+        if gen is not None:
+            rec["generation"] = gen
+        if entry is not None:
+            ptr_gen = entry.get("generation")
+            rec["pointer_generation"] = ptr_gen
+            if isinstance(gen, int) and isinstance(ptr_gen, int) \
+                    and gen < ptr_gen:
+                rec["warnings"].append(
+                    f"generation {gen} older than the pointer ({ptr_gen}) "
+                    "— audited past the fence via --force")
+            if gen == ptr_gen and isinstance(entry.get("sha256"), str) \
+                    and _file_sha256(p) != entry["sha256"]:
+                rec["problems"].append(
+                    "file hash differs from the latest.json pointer's — "
+                    "the live file changed after its pointer swap")
+        if meta.get("kind") == "risk_state":
+            required = (set(_NW_SCALARS) | set(_NW_STACKED)
+                        | {"vr_num", "vr_den"})
+            if "eig_draws" in arrays:
+                required |= {"eig_draws", "eig_R", "eig_p", "eig_n"}
+            else:
+                required |= {"sim_covs"}
+            missing = sorted(required - set(arrays))
+            if missing:
+                rec["problems"].append(f"missing state field(s) {missing}")
+            guard_keys = sorted(k for k in arrays if k.startswith("guard_"))
+            rec["guarded"] = len(guard_keys) == 5
+            if guard_keys and len(guard_keys) != 5:
+                rec["problems"].append(
+                    f"partial guard state {guard_keys} — expected all "
+                    "five guard_* leaves or none")
+            try:
+                stamp = _stamp_from_json(meta["stamp"])
+                if not isinstance(stamp, tuple):
+                    raise ValueError("stamp is not a tuple")
+            except (KeyError, TypeError, ValueError) as err:
+                rec["problems"].append(f"unusable config stamp ({err}) — "
+                                       "updates would be refused")
+            rec["last_date"] = meta.get("last_date")
+        if rec["problems"]:
+            rec["status"] = "unhealthy" if rec["status"] == "ok" \
+                else rec["status"]
+    return records, metas
+
+
+def _audit_run_manifest(mpath: str, metas: dict) -> dict:
+    """The run manifest beside the artifacts: schema, health field, and
+    stamp-vs-checkpoint identity."""
+    from mfm_tpu_torch.obs.manifest import ManifestError, read_run_manifest
+
+    rec = {"file": mpath, "kind": "run_manifest", "status": "ok",
+           "problems": [], "warnings": []}
+    try:
+        man = read_run_manifest(mpath)
+    except ManifestError as err:
+        rec["status"] = "corrupt"
+        rec["problems"].append(str(err))
+        return rec
+    rec["health"] = man["health"].get("status")
+    ckpt = man.get("checkpoint")
+    meta = metas.get(ckpt)
+    if ckpt and meta is None:
+        rec["problems"].append(
+            f"manifest names checkpoint {ckpt!r}, which is missing or "
+            "failed its own audit")
+    elif meta is not None and man.get("config_stamp") != meta.get("stamp"):
+        rec["problems"].append(
+            "manifest config_stamp does not match the checkpoint's identity "
+            "stamp — artifacts from different runs in one directory")
+    if rec["health"] == "degraded":
+        rec["warnings"].append(
+            "model health was degraded at manifest write time (see manifest "
+            "health.checks)")
+    if rec["problems"]:
+        rec["status"] = "unhealthy"
+    return rec
+
+
+def _audit_serve_manifest(man_dir: str, metas: dict) -> dict:
+    """The serve summary (``serve_manifest.json``, or a fleet run's merged
+    ``fleet_manifest.json``): breaker, shed, cache delivery, trace id and
+    SLO burn."""
+    from mfm_tpu_torch.obs.manifest import ManifestError, read_run_manifest
+    from mfm_tpu_torch.serve.replica import FLEET_MANIFEST_NAME
+
+    spath = os.path.join(man_dir, SERVE_MANIFEST_NAME)
+    rec = {"file": spath, "kind": "serve_manifest", "status": "ok",
+           "problems": [], "warnings": []}
+    fpath = os.path.join(man_dir, FLEET_MANIFEST_NAME)
+    if not os.path.exists(spath) and os.path.exists(fpath):
+        # a fleet run writes ONE merged manifest — the front end's serve
+        # summary lives there, not in serve_manifest.json
+        spath = fpath
+        rec["file"] = fpath
+    if not os.path.exists(spath):
+        rec["status"] = "missing"
+        rec["problems"].append(
+            "no serve_manifest.json beside the artifacts — has `serve` run "
+            "against this checkpoint dir?")
+        return rec
+    try:
+        man = read_run_manifest(spath)
+    except ManifestError as err:
+        rec["status"] = "corrupt"
+        rec["problems"].append(str(err))
+        return rec
+    serve = man.get("serve")
+    if not isinstance(serve, dict):
+        rec["problems"].append("serve manifest has no 'serve' summary block")
+    else:
+        for k in ("breaker_state", "breaker_open_total", "shed_total",
+                  "shed_rate", "requests_total"):
+            rec[k] = serve.get(k)
+        if serve.get("breaker_state") == "open":
+            rec["problems"].append(
+                "circuit breaker was OPEN at shutdown — the service exited "
+                "rejecting traffic (see serve.requests outcomes in the "
+                "manifest)")
+        if serve.get("shed_rate") or serve.get("shed_total"):
+            rec["warnings"].append(
+                f"load shedding occurred (shed_total="
+                f"{serve.get('shed_total')}, shed_rate="
+                f"{serve.get('shed_rate')})")
+        cb = serve.get("cache")
+        if isinstance(cb, dict) and cb.get("delivered_total"):
+            # delivery audit: every delivered response was either computed
+            # (a recorded outcome) or a cache hit
+            rec["cache_hits_total"] = cb.get("hits_total")
+            rec["cache_hit_rate"] = cb.get("hit_rate")
+            rec["cache_delivered_total"] = cb.get("delivered_total")
+            computed = serve.get("requests_total") or 0
+            expect = computed + (cb.get("hits_total") or 0)
+            if cb["delivered_total"] != expect:
+                rec["warnings"].append(
+                    "response-cache delivery audit is off: delivered "
+                    f"{cb['delivered_total']} != computed {computed} + "
+                    f"cache hits {cb.get('hits_total')} — responses "
+                    "bypassed or double-counted the cache seat")
+        ckpt = man.get("checkpoint")
+        if ckpt and ckpt not in metas:
+            rec["warnings"].append(
+                f"serve manifest names checkpoint {ckpt!r}, which is not "
+                "among the audited artifacts")
+    if man.get("health", {}).get("status") == "degraded":
+        rec["warnings"].append(
+            "query service ran with degraded model health (responses were "
+            "stamped degraded)")
+    if not man.get("trace_id"):
+        rec["warnings"].append(
+            "serve manifest carries no root trace_id — this run cannot be "
+            "joined to its trace (tracing disabled)")
+    # SLO burn audit: a fast-burning objective at shutdown is a page-now
+    # condition doctor FAILS on; slow burn warns
+    slo = serve.get("slo") if isinstance(serve, dict) else None
+    if isinstance(slo, dict):
+        rec["slo_worst_state"] = slo.get("worst_state")
+        for s in slo.get("slos", []):
+            if s.get("state") == "fast_burn":
+                rec["problems"].append(
+                    f"SLO {s.get('name')!r} was FAST-BURNING (burn "
+                    f"{s.get('burn_fast')} over the "
+                    f"{slo.get('window_fast_s')}s window, threshold "
+                    f"{slo.get('fast_burn_threshold')}) — the error budget "
+                    "was being spent at page-now rate")
+            elif s.get("state") == "slow_burn":
+                rec["warnings"].append(
+                    f"SLO {s.get('name')!r} was slow-burning (burn "
+                    f"{s.get('burn_slow')} over the "
+                    f"{slo.get('window_slow_s')}s window)")
+    if rec["problems"]:
+        rec["status"] = "unhealthy"
+    return rec
+
+
+def _audit_fleet_manifest(fpath: str) -> dict:
+    """The merged fleet manifest: per-replica delivered outcomes plus the
+    front end's locally-answered ledger must sum to the accepted count,
+    and the transport totals must agree with the per-replica counters."""
+    from mfm_tpu_torch.obs.manifest import ManifestError, read_run_manifest
+
+    frec = {"file": fpath, "kind": "fleet_manifest", "status": "ok",
+            "problems": [], "warnings": []}
+    try:
+        fman = read_run_manifest(fpath)
+    except ManifestError as err:
+        frec["status"] = "corrupt"
+        frec["problems"].append(str(err))
+        return frec
+    fm = fman.get("fleet")
+    if not isinstance(fm, dict):
+        frec["problems"].append("fleet manifest has no 'fleet' merge block")
+    else:
+        audit = fm.get("audit", {})
+        frec["accepted_total"] = audit.get("accepted_total")
+        frec["replica_outcomes_sum"] = audit.get("replica_outcomes_sum")
+        frec["frontend_local_total"] = audit.get("frontend_local_total")
+        delivered = audit.get("delivered_total",
+                              audit.get("replica_outcomes_sum"))
+        frec["delivered_total"] = delivered
+        if not audit.get("consistent"):
+            frec["problems"].append(
+                "delivered outcome counts (replicas + frontend-local = "
+                f"{delivered}) do not sum to the front end's accepted count "
+                f"({audit.get('accepted_total')}) — responses were lost "
+                "between dispatch and delivery")
+        redisp = 0
+        for rep in fm.get("replicas", []):
+            if rep.get("lost"):
+                frec["warnings"].append(
+                    f"replica {rep.get('replica')} was lost (exit "
+                    f"{rep.get('exit_code')}) — its in-flight batch "
+                    "re-dispatched to survivors")
+            if rep.get("wedged"):
+                frec["warnings"].append(
+                    f"replica {rep.get('replica')} wedged (deadline/"
+                    "heartbeat expiry with the process still alive) — "
+                    "quarantined and its in-flight batch re-dispatched")
+            elif rep.get("quarantined"):
+                frec["warnings"].append(
+                    f"replica {rep.get('replica')} was quarantined after "
+                    "failing its fence audit")
+            tp = rep.get("transport")
+            if isinstance(tp, dict):
+                redisp += int(tp.get("redispatches", 0) or 0)
+                neg = sorted(k for k, v in tp.items()
+                             if isinstance(v, int) and v < 0)
+                if neg:
+                    frec["problems"].append(
+                        f"replica {rep.get('replica')} transport counters "
+                        f"went negative ({', '.join(neg)}) — the counter "
+                        "plumbing is corrupt")
+                if tp.get("heartbeat_misses"):
+                    frec["warnings"].append(
+                        f"replica {rep.get('replica')} missed "
+                        f"{tp['heartbeat_misses']} heartbeat(s)")
+        tr = fm.get("transport")
+        if isinstance(tr, dict):
+            frec["transport"] = tr
+            if int(tr.get("redispatches", 0) or 0) != redisp:
+                frec["problems"].append(
+                    "fleet transport totals disagree with per-replica "
+                    f"counters (redispatches {tr.get('redispatches')} != "
+                    f"{redisp})")
+    if frec["problems"]:
+        frec["status"] = "unhealthy"
+    return frec
+
+
+def _audit_flightrec(fr_path: str) -> dict:
+    """A flight-recorder dump beside the artifacts: the run hit a
+    postmortem trigger (a warning); a torn dump is a failure."""
+    from mfm_tpu_torch.obs.flightrec import read_flightrec
+
+    rec = {"file": fr_path, "kind": "flightrec", "status": "ok",
+           "problems": [], "warnings": []}
+    try:
+        dump = read_flightrec(fr_path)
+    except (ValueError, OSError) as err:
+        rec["status"] = "corrupt"
+        rec["problems"].append(str(err))
+        return rec
+    rec["trigger"] = dump.get("trigger")
+    rec["trace_id"] = dump.get("trace_id")
+    rec["events"] = len(dump.get("events", []))
+    rec["spans"] = len(dump.get("spans", []))
+    rec["warnings"].append(
+        f"flight-recorder dump present (trigger={dump.get('trigger')!r}, "
+        f"trace_id={dump.get('trace_id')!r}) — the serve run hit a "
+        "postmortem trigger; inspect the bundled events/spans/metrics")
+    return rec
+
+
+def _doctor(args):
+    """Audit a serving state directory (or one artifact): payload
+    checksums, fencing generation vs ``latest.json``, the risk-state
+    field/stamp schema and the run manifest; with ``--serve`` the serve
+    and fleet manifests and flight-recorder dumps beside them.  Prints one
+    JSON record per file and exits non-zero when anything is corrupt,
+    stale, schema-broken or unhealthy."""
+    import glob
+
+    for flag, item in (("scenarios", "§A 15"), ("audit", "§A 16"),
+                       ("sync", "§A 16")):
+        if getattr(args, flag, None):
+            raise SystemExit(
+                f"mfm_tpu_torch.cli: `doctor --{flag}` is not ported yet "
+                f"(ROADMAP.md {item}); this package audits artifacts, the "
+                "run manifest and, with --serve, the serve and fleet "
+                "manifests")
+    if args.path is None:
+        raise SystemExit("doctor: PATH is required")
+    if os.path.isdir(args.path):
+        paths = sorted(glob.glob(os.path.join(args.path, "*.npz")))
+        if not paths:
+            raise SystemExit(f"{args.path}: no .npz artifacts to audit")
+        man_dir = args.path
+    elif os.path.exists(args.path):
+        paths = [args.path]
+        man_dir = os.path.dirname(args.path) or "."
+    else:
+        raise SystemExit(f"{args.path}: not found")
+
+    records, metas = _audit_artifacts(paths, args.force)
+    mpath = os.path.join(man_dir, "run_manifest.json")
+    if os.path.exists(mpath):
+        records.append(_audit_run_manifest(mpath, metas))
+    if args.serve:
+        from mfm_tpu_torch.serve.replica import FLEET_MANIFEST_NAME
+
+        records.append(_audit_serve_manifest(man_dir, metas))
+        fpath = os.path.join(man_dir, FLEET_MANIFEST_NAME)
+        if os.path.exists(fpath):
+            records.append(_audit_fleet_manifest(fpath))
+        for fr_path in sorted(glob.glob(
+                os.path.join(man_dir, "flightrec*.json"))):
+            records.append(_audit_flightrec(fr_path))
+    unhealthy = sum(r["status"] != "ok" for r in records)
+    print(json.dumps({"audited": len(records), "unhealthy": unhealthy,
+                      "records": records}, indent=1))
+    raise SystemExit(1 if unhealthy else 0)
+
+
+# -- serve ----------------------------------------------------------------------
+
+def _serve(args):
+    """Batched portfolio-query service over a guarded risk-state checkpoint:
+    JSONL requests in (stdin or --input), JSONL responses out, with request
+    guards + dead-letter quarantine, bounded-queue admission control with
+    oldest-first load shedding, per-request deadlines, degraded-serving
+    stamps (staleness + health verdict), and a circuit breaker.  At
+    shutdown the serve summary is written to ``serve_manifest.json``
+    beside the checkpoint (``fleet_manifest.json`` for a fleet,
+    ``serve_manifest.r{i}.json`` for a worker), which ``doctor --serve``
+    audits."""
+    import sys
+
+    from mfm_tpu_torch._device import resolve_device
+    from mfm_tpu_torch.data.artifacts import (
+        ArtifactCorruptError,
+        ArtifactStaleError,
+        load_risk_state,
+        read_pointer,
+    )
+    from mfm_tpu_torch.data.etl import with_retry
+    from mfm_tpu_torch.obs.instrument import guard_summary_from_registry
+    from mfm_tpu_torch.obs.manifest import (
+        ManifestError,
+        build_run_manifest,
+        device_name,
+        manifest_path_for,
+        read_run_manifest,
+        write_run_manifest,
+    )
+    from mfm_tpu_torch.obs.metrics import REGISTRY
+    from mfm_tpu_torch.obs.trace import end_span
+    from mfm_tpu_torch.serve.cache import ResponseCache, WarmStartIndex
+    from mfm_tpu_torch.serve.query import QueryEngine
+    from mfm_tpu_torch.serve.server import QueryServer, ServePolicy
+
+    # the card unless the caller asked for the CPU; raises without a card
+    device = resolve_device(args.device)
+    _metrics_init(args)
+    root = _root_span(args)
+    state_path = args.state
+
+    def _dead_letter_startup(rec: dict) -> None:
+        if not args.dead_letter:
+            return
+        rec = dict(rec)
+        rec.setdefault("kind", "startup_failure")
+        with open(args.dead_letter, "a", encoding="utf-8") as fh:
+            fh.write(json.dumps(rec, sort_keys=True) + "\n")
+
+    def _load():
+        return load_risk_state(state_path, device=device)
+
+    try:
+        state, meta = with_retry(_load, attempts=args.load_attempts,
+                                 backoff_s=args.load_backoff_s,
+                                 retryable=(OSError,))
+    except (ArtifactCorruptError, ArtifactStaleError) as e:
+        # fence audit failed before the loop even started: nothing to
+        # serve degraded FROM, so refuse outright
+        raise SystemExit(f"serve: checkpoint failed its fence audit: {e}")
+    except OSError as e:
+        # the retry history rides into the dead letter so the operator can
+        # tell "failed instantly" from "fought the outage"
+        _dead_letter_startup({
+            "path": state_path, "error": str(e),
+            "attempts": getattr(e, "attempts", 1),
+            "total_backoff_s": round(getattr(e, "total_backoff_s", 0.0), 3)})
+        raise SystemExit(f"serve: cannot load {state_path}: {e}")
+
+    benchmarks = None
+    if args.benchmarks:
+        with open(args.benchmarks, encoding="utf-8") as fh:
+            benchmarks = {str(k): v for k, v in json.load(fh).items()}
+
+    def _health_beside() -> str:
+        mpath = manifest_path_for(state_path)
+        if not os.path.exists(mpath):
+            return "unknown"
+        try:
+            return read_run_manifest(mpath)["health"].get("status",
+                                                          "unknown")
+        except ManifestError:
+            return "unknown"
+
+    try:
+        engine = QueryEngine.from_risk_state(state, meta,
+                                             benchmarks=benchmarks,
+                                             device=device)
+    except ValueError as e:
+        raise SystemExit(f"serve: {e}")
+
+    policy = ServePolicy(
+        queue_max=args.queue_max, batch_max=args.batch_max,
+        default_deadline_s=args.deadline_s,
+        breaker_failures=args.breaker_failures,
+        breaker_cooldown_s=args.breaker_cooldown_s,
+        weight_mad_k=args.weight_mad_k,
+        fsync_emits=args.fsync_emits)
+
+    def _scenario_hashes_beside() -> dict | None:
+        # the cache fences scenario-tagged requests on the served spec
+        # hash; absent manifest -> name-keyed fallback inside the cache
+        from mfm_tpu_torch.scenario.manifest import (
+            ScenarioManifestError,
+            read_scenario_manifest,
+            scenario_manifest_path_for,
+        )
+        try:
+            m = read_scenario_manifest(scenario_manifest_path_for(
+                os.path.dirname(state_path) or "."))
+        except (ScenarioManifestError, OSError):
+            return None
+        return {str(e.get("name")): str(e.get("spec_hash"))
+                for e in m.get("scenarios", []) if e.get("spec_hash")}
+
+    cache = None
+    if not (args.no_cache or args.worker):
+        cache = ResponseCache(
+            args.cache_entries, args.cache_bytes,
+            generation=int((meta or {}).get("generation") or 0),
+            scenario_hashes=_scenario_hashes_beside())
+    warm_index = (WarmStartIndex(tol=args.warm_tol)
+                  if args.warm_tol > 0 else None)
+
+    reload_fn = None
+    if args.watch or args.rollout or args.hold_fence:
+        # --rollout implies watching: the front end needs the reload hook
+        # to move its admission engine + cache fence once the fleet
+        # agrees.  --hold-fence implies it too — that flag's one job is
+        # "re-fence on the front end's reload frame", which is this hook
+        seen = {"gen": (read_pointer(state_path) or {}).get("generation")}
+
+        def reload_fn():
+            gen = (read_pointer(state_path) or {}).get("generation")
+            if gen == seen["gen"]:
+                return None
+            # fence-audit failures propagate (the server force-opens the
+            # breaker); transient IO keeps the old engine serving
+            try:
+                st, mt = with_retry(_load, attempts=2, backoff_s=0.05,
+                                    retryable=(OSError,))
+            except OSError as e:
+                print(f"serve: reload failed after "
+                      f"{getattr(e, 'attempts', 1)} attempts "
+                      f"({getattr(e, 'total_backoff_s', 0.0):.3f}s backoff)"
+                      f": {e} — still serving the previous engine",
+                      file=sys.stderr)
+                return None
+            seen["gen"] = gen
+            if cache is not None:
+                # bump the fence BEFORE the engine swap lands: stale
+                # entries become unreachable, no sweep needed
+                cache.set_fence(
+                    generation=int(gen or 0),
+                    scenario_hashes=_scenario_hashes_beside())
+            return {"engine": QueryEngine.from_risk_state(
+                        st, mt, benchmarks=benchmarks, device=device),
+                    "health": _health_beside(),
+                    "generation": int(gen or 0)}
+
+    server = QueryServer(engine, policy, health=_health_beside(),
+                         dead_letter_path=args.dead_letter,
+                         reload_fn=reload_fn, warm_index=warm_index)
+    # generation stamp for the rolling-rollout agreement protocol (a
+    # worker reports it in its "reloaded" frame)
+    server.generation = int((meta or {}).get("generation") or 0)
+    man_dir = os.path.dirname(state_path) or "."
+
+    # SLO engine + flight recorder: every serve process evaluates its own
+    # burn rates at scrape time, and triggered postmortem dumps land
+    # beside the checkpoint — workers get per-replica shard names so a
+    # fleet on one host never races the front end's dump
+    from mfm_tpu_torch.obs import flightrec as _frec
+    from mfm_tpu_torch.obs import slo as _slo
+    _slo.install(_slo.SloEngine())
+    frec_name = (f"flightrec.r{args.worker_id}.json" if args.worker
+                 else _frec.FLIGHTREC_NAME)
+    _frec.arm(os.path.join(man_dir, frec_name))
+
+    def _finish(summary: dict, manifest_name: str, extra: dict) -> None:
+        manifest = build_run_manifest(
+            stamp_json=meta.get("stamp"),
+            checkpoint=state_path,
+            backend=device_name(device),
+            metrics_snapshot=REGISTRY.snapshot(),
+            guard_summary=guard_summary_from_registry(),
+            health={"status": server.health, "checks": {}},
+            extra=dict(extra, serve=summary, trace_id=root.trace_id,
+                       kernels=_kernel_block()),
+        )
+        spath = os.path.join(man_dir, manifest_name)
+        write_run_manifest(spath, manifest)
+        end_span(root)
+        _metrics_flush(args)
+        print(json.dumps({"serve": summary, "manifest": spath,
+                          "trace_id": root.trace_id},
+                         indent=1), file=sys.stderr)
+
+    if args.worker:
+        # fleet worker: admitted lines in, seq envelopes out (the wire
+        # protocol in serve/replica.py); manifest shard beside the
+        # checkpoint for the front end's merge.  With --listen the same
+        # loop runs over ONE accepted TCP connection instead of stdin —
+        # the multi-host worker a front end attaches to with --workers
+        from mfm_tpu_torch.serve.replica import (
+            WORKER_MANIFEST_FMT,
+            run_worker,
+        )
+
+        if args.listen:
+            from mfm_tpu_torch.serve.transport import serve_worker_socket
+
+            host, _, port = args.listen.rpartition(":")
+
+            def announce(addr):
+                print(json.dumps({
+                    "worker_listening": f"{addr[0]}:{addr[1]}",
+                    "worker_id": args.worker_id}),
+                    file=sys.stderr, flush=True)
+
+            summary = serve_worker_socket(
+                server, host or "127.0.0.1", int(port or 0),
+                announce=announce, poll_on_flush=not args.hold_fence)
+        else:
+            summary = run_worker(server, sys.stdin, sys.stdout,
+                                 poll_on_flush=not args.hold_fence)
+        _finish(summary, WORKER_MANIFEST_FMT.format(idx=args.worker_id),
+                {"worker_id": args.worker_id})
+        return
+
+    if args.replicas or args.listen or args.workers:
+        _serve_fleet(args, server, state_path, man_dir, _finish,
+                     cache=cache)
+        return
+
+    in_fp = (sys.stdin if args.input in (None, "-")
+             else open(args.input, encoding="utf-8"))
+    out_fp = (sys.stdout if args.output in (None, "-")
+              else open(args.output, "w", encoding="utf-8"))
+    try:
+        summary = server.run(in_fp, out_fp, gulp=args.gulp, cache=cache)
+    finally:
+        if in_fp is not sys.stdin:
+            in_fp.close()
+        if out_fp is not sys.stdout:
+            out_fp.close()
+    _finish(summary, SERVE_MANIFEST_NAME, {})
+
+
+def _serve_fleet(args, server, state_path, man_dir, _finish,
+                 cache=None) -> None:
+    """The fleet/coalescing serve paths: ``--replicas N`` dispatches
+    batches to spawned worker subprocesses (each its own process and CUDA
+    context on ``--device``), ``--workers host:port,...`` attaches to
+    already-running TCP workers on any host (both may mix), ``--listen``
+    accepts concurrent socket (or ``--http``) connections; each alone also
+    works — ``--replicas`` over stdin is the deterministic drill mode, and
+    ``--listen`` without workers coalesces into the local engine."""
+    import signal
+    import sys
+    import threading
+
+    from mfm_tpu_torch.data.artifacts import read_pointer
+    from mfm_tpu_torch.obs.instrument import fleet_summary_from_registry
+    from mfm_tpu_torch.serve.coalesce import Coalescer
+    from mfm_tpu_torch.serve.frontend import SocketFrontend
+    from mfm_tpu_torch.serve.replica import (
+        FLEET_MANIFEST_NAME,
+        FleetServer,
+        Replica,
+        build_fleet_manifest,
+        replica_env,
+        worker_cmd,
+    )
+
+    fleet = None
+    replicas = []
+    if args.replicas:
+        policy_args = [
+            "--queue-max", str(args.queue_max),
+            "--batch-max", str(args.batch_max),
+            "--deadline-s", str(args.deadline_s),
+            "--breaker-failures", str(args.breaker_failures),
+            "--breaker-cooldown-s", str(args.breaker_cooldown_s),
+            "--weight-mad-k", str(args.weight_mad_k),
+            "--warm-tol", str(args.warm_tol)]
+        if args.benchmarks:
+            policy_args += ["--benchmarks", args.benchmarks]
+        if args.watch or args.rollout:
+            policy_args += ["--watch"]
+        if args.rollout:
+            # rollout workers must NOT self-poll: generations move one
+            # worker at a time on the front end's reload frames
+            policy_args += ["--hold-fence"]
+        if args.fsync_emits:
+            policy_args += ["--fsync-emits"]
+        # fork+exec (subprocess), never a fork of this process: it may
+        # hold a CUDA context already
+        replicas = [
+            Replica(i, worker_cmd(state_path, worker_id=i,
+                                  policy_args=policy_args,
+                                  device=args.device),
+                    env=replica_env(i),
+                    io_timeout_s=args.worker_timeout_s)
+            for i in range(args.replicas)]
+    if args.workers:
+        base = len(replicas)
+        for j, spec in enumerate(p.strip() for p in args.workers.split(",")
+                                 if p.strip()):
+            whost, _, wport = spec.rpartition(":")
+            try:
+                replicas.append(Replica.connect(
+                    base + j, (whost or "127.0.0.1", int(wport)),
+                    io_timeout_s=args.worker_timeout_s,
+                    attempts=args.connect_attempts,
+                    backoff_s=args.connect_backoff_s))
+            except OSError as e:
+                raise SystemExit(
+                    f"serve: cannot attach worker {spec}: {e} "
+                    f"(phase={getattr(e, 'phase', 'connect')}, "
+                    f"attempts={getattr(e, 'attempts', 1)}, "
+                    f"backoff={getattr(e, 'total_backoff_s', 0.0):.3f}s)")
+
+    def make_backend(deliver=None):
+        if replicas:
+            rollout_check = None
+            if args.rollout:
+                def rollout_check():
+                    return (read_pointer(state_path)
+                            or {}).get("generation")
+            return FleetServer(server, replicas, linger_s=args.linger_s,
+                               deliver=deliver, cache=cache,
+                               heartbeat_s=args.heartbeat_s,
+                               heartbeat_timeout_s=args.heartbeat_timeout_s,
+                               rollout_check=rollout_check)
+        return Coalescer(server, linger_s=args.linger_s, deliver=deliver,
+                         cache=cache)
+
+    if args.listen:
+        host, _, port = args.listen.rpartition(":")
+        fe = SocketFrontend(host or "127.0.0.1", int(port or 0),
+                            http=args.http)
+        backend = make_backend(deliver=fe.deliver)
+        fe.backend = backend
+        fleet = backend if replicas else None
+        addr = fe.listen()
+        print(json.dumps({"listening": f"{addr[0]}:{addr[1]}",
+                          "replicas": len(replicas),
+                          "http": bool(args.http)}),
+              file=sys.stderr, flush=True)
+
+        def _on_term(*_):
+            # the operator's kill is a postmortem trigger too: dump the
+            # flight recorder BEFORE the drain so the bundle shows what
+            # was in flight when the signal landed
+            from mfm_tpu_torch.obs import flightrec as _frec
+            state = (backend._flightrec_state()
+                     if hasattr(backend, "_flightrec_state") else None)
+            _frec.trigger_dump("sigterm", state=state)
+            fe.stop()
+
+        # signal handlers can only be installed from the main thread (an
+        # embedding caller on another thread stops the listener itself)
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                signal.signal(sig, _on_term)
+        fe.serve(backend)   # blocks until stop(); drains the backend
+    else:
+        backend = make_backend()
+        fleet = backend if replicas else None
+        in_fp = (sys.stdin if args.input in (None, "-")
+                 else open(args.input, encoding="utf-8"))
+        out_fp = (sys.stdout if args.output in (None, "-")
+                  else open(args.output, "w", encoding="utf-8"))
+
+        def emit(pairs):
+            for _origin, resp in pairs:
+                out_fp.write(json.dumps(resp, sort_keys=True) + "\n")
+            if pairs:
+                out_fp.flush()
+                if server.policy.fsync_emits:
+                    try:
+                        os.fsync(out_fp.fileno())
+                    except (OSError, ValueError):
+                        pass
+        try:
+            for line in in_fp:
+                line = line.strip()
+                if not line:
+                    continue
+                emit(backend.submit(line))
+            emit(backend.stop())
+        finally:
+            if in_fp is not sys.stdin:
+                in_fp.close()
+            if out_fp is not sys.stdout:
+                out_fp.close()
+
+    summary = fleet_summary_from_registry()
+    if fleet is not None:
+        fleet.close_replicas()
+        fm = build_fleet_manifest(summary, fleet, man_dir)
+        _finish(summary, FLEET_MANIFEST_NAME, {"fleet": fm})
+    else:
+        _finish(summary, SERVE_MANIFEST_NAME, {})
+
+
+# -- metrics --------------------------------------------------------------------
+
+def _metrics_paths(path: str, filename: str) -> str:
+    """Resolve a metrics artifact: PATH itself when it's a file, else
+    PATH/<filename>."""
+    p = os.path.join(path, filename) if os.path.isdir(path) else path
+    if not os.path.exists(p):
+        raise SystemExit(f"{p}: not found — run with --metrics-dir first")
+    return p
+
+
+def _load_metrics_snapshot(path: str) -> dict:
+    p = _metrics_paths(path, "metrics.json")
+    try:
+        with open(p, encoding="utf-8") as fh:
+            snap = json.load(fh)
+    except ValueError as err:
+        raise SystemExit(f"{p}: not valid JSON ({err})") from err
+    if not isinstance(snap, dict) or snap.get("schema") != 1 \
+            or not isinstance(snap.get("metrics"), dict):
+        raise SystemExit(f"{p}: not a metrics snapshot (schema 1)")
+    return snap
+
+
+def _snapshot_scalars(snap: dict) -> dict:
+    """Flatten a snapshot to {series key -> value} for diffing: counters/
+    gauges by value, histograms by their _count and _sum."""
+    out = {}
+    for name, m in snap["metrics"].items():
+        for s in m.get("series", []):
+            lbl = ",".join(f"{k}={v}" for k, v in sorted(s["labels"].items()))
+            key = f"{name}{{{lbl}}}" if lbl else name
+            if m.get("type") == "histogram":
+                out[key + ":count"] = s.get("count", 0)
+                out[key + ":sum"] = s.get("sum", 0.0)
+            else:
+                out[key] = s.get("value")
+    return out
+
+
+def _fleet_manifest_scalars(man: dict) -> dict | None:
+    """Flatten a merged fleet manifest (or the run manifest embedding
+    one) into diffable series keys, or None when ``man`` is not one.
+    Each replica shard contributes ``r{idx}:``-prefixed series (delivered
+    outcomes + transport counters), so a diff of two fleet runs shows
+    per-worker drift, not just the merged totals."""
+    fm = man.get("fleet")
+    if not isinstance(fm, dict):
+        fm = man if {"replicas", "audit"} <= set(man) else None
+    if fm is None:
+        return None
+    out = {}
+    snap = man.get("metrics")
+    if isinstance(snap, dict) and snap.get("schema") == 1 \
+            and isinstance(snap.get("metrics"), dict):
+        out.update(_snapshot_scalars(snap))
+    out["fleet:accepted_total"] = fm.get("accepted_total")
+    for k, v in (fm.get("transport") or {}).items():
+        out[f"fleet:transport:{k}"] = v
+    for k, v in ((fm.get("frontend_local") or {}).get("outcomes")
+                 or {}).items():
+        out[f"fleet:frontend_local:{k}"] = v
+    for rep in fm.get("replicas") or []:
+        i = rep.get("replica")
+        out[f"r{i}:outcomes_total"] = rep.get("outcomes_total")
+        for k, v in (rep.get("outcomes") or {}).items():
+            out[f"r{i}:outcomes:{k}"] = v
+        tp = rep.get("transport")
+        if isinstance(tp, dict):
+            for k, v in sorted(tp.items()):
+                if isinstance(v, (int, float)):
+                    out[f"r{i}:transport:{k}"] = v
+    return out
+
+
+def _metrics_diff_side(path: str) -> dict:
+    """One side of ``metrics diff``: a metrics snapshot (file or
+    --metrics-dir) or a merged ``fleet_manifest.json``."""
+    p = os.path.join(path, "metrics.json") if os.path.isdir(path) else path
+    if not os.path.exists(p):
+        raise SystemExit(f"{p}: not found — run with --metrics-dir first")
+    try:
+        with open(p, encoding="utf-8") as fh:
+            obj = json.load(fh)
+    except ValueError as err:
+        raise SystemExit(f"{p}: not valid JSON ({err})") from err
+    if isinstance(obj, dict):
+        fleet = _fleet_manifest_scalars(obj)
+        if fleet is not None:
+            return fleet
+        if obj.get("schema") == 1 and isinstance(obj.get("metrics"), dict):
+            return _snapshot_scalars(obj)
+    raise SystemExit(f"{p}: neither a metrics snapshot (schema 1) nor a "
+                     "merged fleet manifest")
+
+
+def _metrics(args):
+    """dump: print + parse-validate the Prometheus textfile; snapshot:
+    print the validated snapshot JSON; diff: per-series deltas between two
+    snapshots — either side may also be a merged fleet manifest, whose
+    replica shards diff as ``r{idx}:``-prefixed series."""
+    from mfm_tpu_torch.obs.exporters import parse_prometheus
+
+    if args.action == "dump":
+        p = _metrics_paths(args.path, "metrics.prom")
+        with open(p, encoding="utf-8") as fh:
+            text = fh.read()
+        parse_prometheus(text)  # malformed exposition exits via ValueError
+        print(text, end="")
+        return
+    if args.action == "snapshot":
+        print(json.dumps(_load_metrics_snapshot(args.path), indent=1,
+                         sort_keys=True))
+        return
+    a = _metrics_diff_side(args.a)
+    b = _metrics_diff_side(args.b)
+    delta = {}
+    for key in sorted(set(a) | set(b)):
+        va, vb = a.get(key), b.get(key)
+        if va != vb:
+            delta[key] = {"a": va, "b": vb,
+                          "delta": (None if va is None or vb is None
+                                    else round(vb - va, 9))}
+    print(json.dumps({"changed": len(delta), "series": delta}, indent=1))
+
+
+# -- argument parsing -------------------------------------------------------------
+
+_METRICS_DIR_HELP = (
+    "write telemetry here: events.jsonl (structured event stream), "
+    "metrics.prom (Prometheus textfile exposition), metrics.json "
+    "(snapshot, diffable with `metrics diff`) and trace.json (the Chrome "
+    "trace).  The run manifest is independent of this flag — it always "
+    "lands beside the checkpoint.")
+
+
+def _serve_parser(sub) -> None:
+    sv = sub.add_parser(
+        "serve",
+        help="batched portfolio-query service over a guarded risk-state "
+             "checkpoint: JSONL requests in, JSONL responses out, with "
+             "request guards + dead-letter quarantine, bounded-queue "
+             "admission control, deadlines, load shedding, and a circuit "
+             "breaker; alone or as a fleet of worker replicas")
+    sv.add_argument("state", help="risk-state .npz saved with quarantine "
+                                  "enabled (serves its last_good_cov)")
+    sv.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the service computes: the CUDA card "
+                         "(default; raises without one) or the CPU; fleet "
+                         "workers run on the front end's device")
+    sv.add_argument("--input", default="-",
+                    help="JSONL request file ('-' = stdin)")
+    sv.add_argument("--output", default="-",
+                    help="JSONL response file ('-' = stdout)")
+    sv.add_argument("--dead-letter", default=None,
+                    help="JSONL file collecting guarded-out requests "
+                         "(default: discard)")
+    sv.add_argument("--benchmarks", default=None,
+                    help="JSON file {name: [factor exposures]} of served "
+                         "benchmarks for active-risk/beta queries")
+    sv.add_argument("--queue-max", type=int, default=4096,
+                    help="admission bound; overflow sheds the OLDEST "
+                         "queued request (default 4096)")
+    sv.add_argument("--batch-max", type=int, default=1024,
+                    help="max requests per device batch (default 1024)")
+    sv.add_argument("--deadline-s", type=float, default=1.0,
+                    help="default per-request deadline budget (default 1.0)")
+    sv.add_argument("--breaker-failures", type=int, default=3,
+                    help="consecutive batch failures that open the "
+                         "circuit breaker (default 3)")
+    sv.add_argument("--breaker-cooldown-s", type=float, default=5.0,
+                    help="breaker open->half-open cooldown, also the "
+                         "retry_after_s on rejections (default 5.0)")
+    sv.add_argument("--weight-mad-k", type=float, default=0.0,
+                    help="reject requests with a weight beyond K MADs of "
+                         "the request's own median (0 = off)")
+    sv.add_argument("--gulp", action="store_true",
+                    help="read ALL input before the first drain — "
+                         "deterministic overload mode (shedding depends "
+                         "only on the input, not drain timing)")
+    sv.add_argument("--watch", action="store_true",
+                    help="poll latest.json between batches and hot-swap "
+                         "the engine when the checkpoint generation moves; "
+                         "a failed fence audit opens the breaker")
+    sv.add_argument("--fsync-emits", action="store_true",
+                    help="fsync the response stream after every emitted "
+                         "batch — responses survive SIGKILL through the "
+                         "OS page cache, not just the Python buffer")
+    sv.add_argument("--replicas", type=int, default=0,
+                    help="run N worker replica processes behind a "
+                         "coalescing front end sharing the fenced "
+                         "checkpoint store (0 = serve in-process); "
+                         "writes fleet_manifest.json beside the checkpoint")
+    sv.add_argument("--listen", default=None, metavar="HOST:PORT",
+                    help="accept concurrent socket connections (JSONL "
+                         "per connection) instead of reading --input; "
+                         "port 0 binds ephemerally and the bound address "
+                         "is printed to stderr")
+    sv.add_argument("--http", action="store_true",
+                    help="speak HTTP/1.1 on the --listen socket (POST / "
+                         "with a JSONL body; GET /healthz, /metrics)")
+    sv.add_argument("--linger-s", type=float, default=0.01,
+                    help="coalescer max-linger budget: the oldest "
+                         "admitted request flushes after this wait even "
+                         "if its bucket has not filled (default 0.01)")
+    sv.add_argument("--cache-entries", type=int, default=4096,
+                    help="response-cache entry bound: repeated request "
+                         "bodies answer from a content-addressed cache "
+                         "fenced on checkpoint generation + scenario "
+                         "spec hash (default 4096)")
+    sv.add_argument("--cache-bytes", type=int, default=64 << 20,
+                    help="response-cache resident-byte bound "
+                         "(default 64 MiB; LRU evicts past either bound)")
+    sv.add_argument("--no-cache", action="store_true",
+                    help="kill switch: disable the response cache "
+                         "entirely (every request computes)")
+    sv.add_argument("--warm-tol", type=float, default=0.0,
+                    help="construct warm-start tolerance: relative-L2 "
+                         "exposure distance under which a solved book "
+                         "seeds the next solve's warm-start blend "
+                         "(0 = off; warmed responses carry a "
+                         "warm_start parity stanza)")
+    sv.add_argument("--workers", default=None, metavar="HOST:PORT,...",
+                    help="attach to already-running TCP workers, each "
+                         "started elsewhere with `serve STATE --worker "
+                         "--listen HOST:PORT` against the same fenced "
+                         "checkpoint; mixes with --replicas; dialing "
+                         "retries with exponential backoff")
+    sv.add_argument("--rollout", action="store_true",
+                    help="rolling zero-downtime reload: when the "
+                         "checkpoint generation moves, drain + re-fence "
+                         "ONE worker at a time; the admission engine and "
+                         "response-cache fence move only after the whole "
+                         "fleet agrees (spawned workers run with "
+                         "--hold-fence; TCP workers should be started "
+                         "with it)")
+    sv.add_argument("--hold-fence", action="store_true",
+                    help="worker mode: do not self-poll the checkpoint "
+                         "pointer between batches; re-fence only on the "
+                         "front end's __fleet__ reload frame (the rolling "
+                         "rollout protocol)")
+    sv.add_argument("--worker-timeout-s", type=float, default=30.0,
+                    help="per-I/O deadline on every worker read/write; "
+                         "silence past this quarantines the worker as "
+                         "wedged and re-dispatches its in-flight batch "
+                         "(default 30)")
+    sv.add_argument("--heartbeat-s", type=float, default=5.0,
+                    help="ping a worker idle this long before handing it "
+                         "a batch; a missed pong quarantines it "
+                         "(default 5, 0 = off)")
+    sv.add_argument("--heartbeat-timeout-s", type=float, default=2.0,
+                    help="deadline on a heartbeat pong / live metrics "
+                         "scrape (default 2)")
+    sv.add_argument("--connect-attempts", type=int, default=5,
+                    help="--workers dial attempts per worker, with "
+                         "exponential backoff (default 5)")
+    sv.add_argument("--connect-backoff-s", type=float, default=0.05,
+                    help="base backoff between --workers dial attempts "
+                         "(default 0.05, doubles per retry)")
+    sv.add_argument("--worker", action="store_true",
+                    help=argparse.SUPPRESS)   # internal: fleet replica
+    sv.add_argument("--worker-id", type=int, default=0,
+                    help=argparse.SUPPRESS)   # internal: replica index
+    sv.add_argument("--load-attempts", type=int, default=3,
+                    help="startup checkpoint-load retries (default 3)")
+    sv.add_argument("--load-backoff-s", type=float, default=0.1,
+                    help="backoff between startup load retries "
+                         "(default 0.1)")
+    sv.add_argument("--metrics-dir", default=None, metavar="DIR",
+                    help=_METRICS_DIR_HELP)
+    sv.set_defaults(fn=_serve)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="mfm_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    dr = sub.add_parser(
+        "doctor",
+        help="audit serving artifacts: payload checksums, fencing "
+             "generations vs latest.json, risk-state schema/stamp, and "
+             "the run manifest beside them (schema/stamp-match/health; "
+             "exit 1 on any problem)")
+    dr.add_argument("path", nargs="?", default=None,
+                    help=".npz artifact or a directory of them (e.g. a "
+                         "checkpoint dir)")
+    dr.add_argument("--force", action="store_true",
+                    help="audit past a stale-generation refusal (reported "
+                         "as a warning instead of a failure)")
+    dr.add_argument("--serve", action="store_true",
+                    help="also audit the serve_manifest.json (or a fleet's "
+                         "fleet_manifest.json) beside the artifacts: exit "
+                         "non-zero if the query service's circuit breaker "
+                         "was open at shutdown, an SLO was fast-burning, "
+                         "the fleet's delivery audit is off or a "
+                         "flight-recorder dump is torn; warn on load "
+                         "shedding / degraded health")
+    dr.add_argument("--scenarios", action="store_true",
+                    help="not ported yet (ROADMAP.md §A 15)")
+    dr.add_argument("--audit", nargs="?", const="latest", default=None,
+                    metavar="FILE", help="not ported yet (ROADMAP.md §A 16)")
+    dr.add_argument("--sync", action="store_true",
+                    help="not ported yet (ROADMAP.md §A 16)")
+    dr.set_defaults(fn=_doctor)
+
+    _serve_parser(sub)
+
+    mt = sub.add_parser(
+        "metrics", help="read what --metrics-dir wrote: dump the "
+                        "Prometheus textfile, print the snapshot, diff two "
+                        "snapshots or fleet manifests")
+    mts = mt.add_subparsers(dest="action", required=True)
+    md = mts.add_parser("dump", help="print + validate metrics.prom")
+    md.add_argument("path", help="--metrics-dir or the .prom file")
+    msn = mts.add_parser("snapshot", help="print metrics.json")
+    msn.add_argument("path", help="--metrics-dir or the .json file")
+    mdf = mts.add_parser("diff", help="per-series deltas a -> b (each a "
+                                      "snapshot or a fleet manifest)")
+    mdf.add_argument("a")
+    mdf.add_argument("b")
+    mt.set_defaults(fn=_metrics)
+
+    for name, item in UNPORTED_COMMANDS.items():
+        up = sub.add_parser(name, help=f"not ported yet (ROADMAP.md {item})",
+                            add_help=False)
+        up.set_defaults(fn=_unported)
+
+    # an unported subcommand takes the reference's arguments, which this
+    # parser does not know: it exits naming its item whatever they are
+    args, extra = ap.parse_known_args(argv)
+    if extra and args.cmd not in UNPORTED_COMMANDS:
+        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,11 +4,15 @@
 - :mod:`~mfm_tpu_torch.obs.metrics` — counters/gauges/histograms + REGISTRY
 - :mod:`~mfm_tpu_torch.obs.instrument` — the serving metric catalog and
   its recording helpers
-- :mod:`~mfm_tpu_torch.obs.trace` — request-scoped spans
+- :mod:`~mfm_tpu_torch.obs.trace` — request-scoped spans, the fleet-wire
+  span merge and the Chrome-trace export
 - :mod:`~mfm_tpu_torch.obs.flightrec` — the postmortem ring and its dumps
+- :mod:`~mfm_tpu_torch.obs.exporters` — the JSONL event stream and the
+  Prometheus textfile
+- :mod:`~mfm_tpu_torch.obs.slo` — the SLO burn-rate engine
+- :mod:`~mfm_tpu_torch.obs.manifest` — run, serve and fleet manifests
 
-The exporters, run manifests, health monitors, the SLO engine and the
-Chrome-trace export wait for ROADMAP.md §A 10 and §A 15.
+The health monitors and the profiler capture wait for ROADMAP.md §A 15.
 """
 
 from mfm_tpu_torch.obs.metrics import (Counter, Gauge, Histogram,

@@ -36,6 +36,10 @@ DEFAULT_RING_CAPACITY = 512
 
 FLIGHTREC_SCHEMA_VERSION = 1
 
+#: the dump's on-disk name beside the checkpoint/manifests (fleet workers
+#: dump to ``flightrec.r{i}.json``)
+FLIGHTREC_NAME = "flightrec.json"
+
 _lock = threading.Lock()
 _ring: collections.deque = collections.deque()
 _dump_path: str | None = None

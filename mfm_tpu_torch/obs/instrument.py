@@ -5,16 +5,41 @@ reference's).
 
 Everything records host values — clocks around a device batch, counts,
 outcomes — never device tensors.  The catalog here covers what the query
-loop, the response cache, the coalescer, the span ring, the flight
-recorder, the scenario engine and the streaming sweep record; the
-reference's model-side metrics (guard tallies, update latency, checkpoint
-and compile counters), the fleet and the SLO engine wait for ROADMAP.md
+loop, the response cache, the coalescer, the serving fleet (front end,
+replicas, transport), the SLO engine, the span ring and its fleet-wire
+merge, the flight recorder, retries, the scenario engine and the
+streaming sweep record, and the guard counters the manifests' guard
+block reads; the reference's other model-side recorders (guard tallies,
+update latency, checkpoint and compile counters) wait for ROADMAP.md
 §A 15.
 """
 
 from __future__ import annotations
 
 from mfm_tpu_torch.obs.metrics import REGISTRY
+
+# -- guard verdicts (read by the manifests' guard block and the SLO engine) --
+
+GUARD_REASON_TOTAL = REGISTRY.counter(
+    "mfm_guard_reason_total",
+    "guard trips by reason bit (one date may tally several reasons)",
+    labelnames=("reason",))
+QUARANTINED_DATES_TOTAL = REGISTRY.counter(
+    "mfm_quarantined_dates_total", "dates excised by the quarantine policy")
+SERVED_DATES_TOTAL = REGISTRY.counter(
+    "mfm_served_dates_total", "dates served (healthy + degraded-mode)")
+SERVED_COV_STALENESS = REGISTRY.gauge(
+    "mfm_served_cov_staleness",
+    "dates since the most recently served covariance was fit (0 = fresh)")
+
+# -- retries (data/etl.py with_retry) -----------------------------------------
+
+RETRY_ATTEMPTS_TOTAL = REGISTRY.counter(
+    "mfm_retry_attempts_total", "with_retry attempts by outcome",
+    labelnames=("outcome",))   # outcome: ok | retried | exhausted
+RETRY_BACKOFF_SECONDS = REGISTRY.histogram(
+    "mfm_retry_backoff_seconds", "with_retry sleep durations",
+    buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0))
 
 # -- tracing (obs/trace.py span ring) -----------------------------------------
 
@@ -24,6 +49,15 @@ TRACE_DROPPED_TOTAL = REGISTRY.counter(
     "mfm_trace_dropped_total",
     "oldest spans evicted by ring-buffer overflow (trace is lossy past "
     "capacity, but counted)")
+TRACE_FOREIGN_SPANS_TOTAL = REGISTRY.counter(
+    "mfm_trace_foreign_spans_total",
+    "worker spans merged into this process's ring off the fleet wire "
+    "(clock-offset corrected before insertion)")
+TRACE_SKEW_UNCORRECTABLE_TOTAL = REGISTRY.counter(
+    "mfm_trace_skew_uncorrectable_total",
+    "merged foreign spans whose corrected timeline still fell outside "
+    "the dispatch window beyond the offset uncertainty (flagged "
+    "clock_skew=uncorrectable on the span, never reordered)")
 
 # -- flight recorder (obs/flightrec.py postmortem ring) -----------------------
 
@@ -36,7 +70,24 @@ FLIGHTREC_DROPPED_TOTAL = REGISTRY.counter(
 FLIGHTREC_DUMPS_TOTAL = REGISTRY.counter(
     "mfm_flightrec_dumps_total",
     "atomic flightrec.json dumps by trigger",
-    labelnames=("trigger",))
+    labelnames=("trigger",))   # breaker_open | wedge_quarantine |
+#                                fence_audit | sigterm | manual
+
+# -- SLO burn-rate engine (obs/slo.py) ----------------------------------------
+
+SLO_BURN_RATE = REGISTRY.gauge(
+    "mfm_slo_burn_rate",
+    "error-budget burn rate per SLO and window (1.0 = burning exactly "
+    "the budget; fast window trips paging, slow window trips tickets)",
+    labelnames=("slo", "window"))   # window: fast | slow
+SLO_STATE = REGISTRY.gauge(
+    "mfm_slo_state",
+    "SLO alert state (0 ok, 1 slow_burn, 2 fast_burn)",
+    labelnames=("slo",))
+SLO_BREACHES_TOTAL = REGISTRY.counter(
+    "mfm_slo_breaches_total",
+    "evaluations that found an SLO in a burning state",
+    labelnames=("slo", "state"))
 
 # -- query service (serve/server.py request loop) -----------------------------
 
@@ -84,6 +135,44 @@ COALESCE_LINGER_SECONDS = REGISTRY.histogram(
     "oldest-request wait inside the coalescer at flush time",
     buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
              0.5, 1.0))
+
+# -- serving fleet (serve/frontend.py, serve/replica.py, serve/transport.py) --
+
+FRONTEND_CONNECTIONS_TOTAL = REGISTRY.counter(
+    "mfm_frontend_connections_total", "client connections accepted")
+FLEET_DISPATCH_TOTAL = REGISTRY.counter(
+    "mfm_fleet_dispatch_total",
+    "admitted request lines dispatched to worker replicas",
+    labelnames=("replica",))
+FLEET_REPLICA_DEATHS_TOTAL = REGISTRY.counter(
+    "mfm_fleet_replica_deaths_total",
+    "worker replicas lost mid-serve (crash/SIGKILL — their in-flight "
+    "batch is re-dispatched to survivors)")
+FLEET_REPLICA_QUARANTINED_TOTAL = REGISTRY.counter(
+    "mfm_fleet_replica_quarantined_total",
+    "worker replicas drained out after failing their fence audit")
+FLEET_REDISPATCH_TOTAL = REGISTRY.counter(
+    "mfm_fleet_redispatch_total",
+    "request lines re-dispatched after a replica death or quarantine")
+FLEET_TRANSPORT_RECONNECTS_TOTAL = REGISTRY.counter(
+    "mfm_fleet_transport_reconnects_total",
+    "extra worker connect attempts beyond the first (with_retry backoff "
+    "while the worker was still loading its checkpoint)",
+    labelnames=("replica",))
+FLEET_TRANSPORT_HEARTBEAT_MISSES_TOTAL = REGISTRY.counter(
+    "mfm_fleet_transport_heartbeat_misses_total",
+    "heartbeat pings a worker failed to answer within the deadline "
+    "(wedged worker: quarantined, its batch re-dispatched)",
+    labelnames=("replica",))
+FLEET_TRANSPORT_IO_TIMEOUTS_TOTAL = REGISTRY.counter(
+    "mfm_fleet_transport_io_timeouts_total",
+    "per-I/O deadline expiries on worker reads/writes by failure phase "
+    "(connect = never attached, batch = lost mid-batch)",
+    labelnames=("replica", "phase"))
+FLEET_ROLLOUT_STEPS_TOTAL = REGISTRY.counter(
+    "mfm_fleet_rollout_steps_total",
+    "single-worker re-fence steps completed by rolling checkpoint "
+    "rollouts (one per worker per generation crossed)")
 
 # -- response cache (serve/cache.py content-addressed reuse) ------------------
 
@@ -162,6 +251,15 @@ SWEEP_PSD_PROJECTIONS_TOTAL = REGISTRY.counter(
 
 # -- recording helpers ----------------------------------------------------------
 
+def record_foreign_spans(n: int, uncorrectable: int = 0) -> None:
+    """Tally one fleet-wire span merge: spans ingested + how many were
+    flagged with uncorrectable clock skew."""
+    if n:
+        TRACE_FOREIGN_SPANS_TOTAL.inc(int(n))
+    if uncorrectable:
+        TRACE_SKEW_UNCORRECTABLE_TOTAL.inc(int(uncorrectable))
+
+
 def record_flightrec_event(n: int = 1, dropped: int = 0) -> None:
     FLIGHTREC_EVENTS_TOTAL.inc(int(n))
     if dropped:
@@ -170,6 +268,18 @@ def record_flightrec_event(n: int = 1, dropped: int = 0) -> None:
 
 def record_flightrec_dump(trigger: str) -> None:
     FLIGHTREC_DUMPS_TOTAL.inc(1, trigger=str(trigger))
+
+
+def record_slo_state(slo: str, state: str, burn_fast: float,
+                     burn_slow: float) -> None:
+    """Mirror one SLO evaluation onto the gauges; a burning state also
+    tallies ``mfm_slo_breaches_total``."""
+    SLO_BURN_RATE.set_value(float(burn_fast), slo=slo, window="fast")
+    SLO_BURN_RATE.set_value(float(burn_slow), slo=slo, window="slow")
+    SLO_STATE.set_value(
+        {"ok": 0, "slow_burn": 1, "fast_burn": 2}.get(state, 0), slo=slo)
+    if state != "ok":
+        SLO_BREACHES_TOTAL.inc(1, slo=slo, state=state)
 
 
 def record_query_outcome(outcome: str, n: int = 1) -> None:
@@ -204,18 +314,17 @@ def record_breaker_state(state: str) -> None:
 
 
 def serve_summary_from_registry() -> dict:
-    """The query service's summary block, off the live counters (the
-    reference's keys; its SLO block waits for ``obs/slo.py``, ROADMAP.md
-    §A 10).  A breaker left open at shutdown (``breaker_state`` = "open")
-    marks a failed serve run even if every request got a well-formed
-    response."""
+    """The manifest's query-service block, off the live counters (the
+    reference's keys).  A breaker left open at shutdown
+    (``breaker_state`` = "open") marks a failed serve run even if every
+    request got a well-formed response."""
     outcomes = {k[0]: int(v) for k, v in QUERY_REQUESTS_TOTAL.series().items()}
     total = sum(outcomes.values())
     shed = int(QUERY_SHED_TOTAL.value())
     state_code = int(BREAKER_STATE.value())
     p50 = QUERY_LATENCY_SECONDS.quantile_est(0.5)
     p99 = QUERY_LATENCY_SECONDS.quantile_est(0.99)
-    return {
+    out = {
         "requests": outcomes,
         "requests_total": total,
         "portfolios_total": int(QUERY_PORTFOLIOS_TOTAL.value()),
@@ -227,6 +336,15 @@ def serve_summary_from_registry() -> dict:
         "query_p99_latency_s": (None if p99 != p99 else round(p99, 6)),
         "cache": cache_summary_from_registry(),
     }
+    # the SLO block rides along whenever an engine is installed (the
+    # serve CLI installs one): /healthz, the serve/fleet manifests and
+    # doctor --serve all read the same evaluation.  Deferred import —
+    # obs/slo.py reads this module's catalog.
+    from mfm_tpu_torch.obs import slo as _slo
+    slo_block = _slo.installed_summary()
+    if slo_block is not None:
+        out["slo"] = slo_block
+    return out
 
 
 def record_coalesce_flush(n_true: int, capacity: int, trigger: str,
@@ -238,6 +356,10 @@ def record_coalesce_flush(n_true: int, capacity: int, trigger: str,
     if capacity > 0:
         COALESCE_BATCH_FILL.observe(min(1.0, n_true / capacity))
     COALESCE_LINGER_SECONDS.observe(max(0.0, float(lingered_s)))
+
+
+def record_frontend_connection(n: int = 1) -> None:
+    FRONTEND_CONNECTIONS_TOTAL.inc(int(n))
 
 
 def record_cache_hit(latency_s: float) -> None:
@@ -294,6 +416,88 @@ def cache_summary_from_registry() -> dict:
         "warm_steps_saved_total": int(
             CONSTRUCT_WARM_STEPS_SAVED_TOTAL.value()),
     }
+
+
+def record_fleet_dispatch(replica: int, n: int = 1) -> None:
+    FLEET_DISPATCH_TOTAL.inc(int(n), replica=str(replica))
+
+
+def record_replica_death(n: int = 1) -> None:
+    FLEET_REPLICA_DEATHS_TOTAL.inc(int(n))
+
+
+def record_replica_quarantine(n: int = 1) -> None:
+    FLEET_REPLICA_QUARANTINED_TOTAL.inc(int(n))
+
+
+def record_fleet_redispatch(n: int = 1) -> None:
+    FLEET_REDISPATCH_TOTAL.inc(int(n))
+
+
+def record_transport_reconnects(replica: int, n: int) -> None:
+    if n:
+        FLEET_TRANSPORT_RECONNECTS_TOTAL.inc(int(n), replica=str(replica))
+
+
+def record_heartbeat_miss(replica: int, n: int = 1) -> None:
+    FLEET_TRANSPORT_HEARTBEAT_MISSES_TOTAL.inc(int(n),
+                                               replica=str(replica))
+
+
+def record_transport_timeout(replica: int, phase: str,
+                             n: int = 1) -> None:
+    FLEET_TRANSPORT_IO_TIMEOUTS_TOTAL.inc(int(n), replica=str(replica),
+                                          phase=str(phase))
+
+
+def record_rollout_step(n: int = 1) -> None:
+    FLEET_ROLLOUT_STEPS_TOTAL.inc(int(n))
+
+
+def fleet_summary_from_registry() -> dict:
+    """The fleet manifest's front-end block, off the live counters.
+
+    Extends :func:`serve_summary_from_registry` with the coalescer and
+    replica-dispatch counters; ``doctor --serve`` audits the per-replica
+    outcome counts in the merged manifest against this block's dispatch
+    totals."""
+    out = serve_summary_from_registry()
+    flushes = {k[0]: int(v)
+               for k, v in COALESCE_FLUSHES_TOTAL.series().items()}
+    dispatch = {k[0]: int(v)
+                for k, v in FLEET_DISPATCH_TOTAL.series().items()}
+    fill_series = COALESCE_BATCH_FILL.series()
+    fill_mean = None
+    if fill_series:
+        st = next(iter(fill_series.values()))
+        if st.count:
+            fill_mean = round(st.total / st.count, 6)
+    linger_p99 = COALESCE_LINGER_SECONDS.quantile_est(0.99)
+    out.update({
+        "coalesce_flushes": flushes,
+        "coalesce_flushes_total": sum(flushes.values()),
+        "coalesce_batch_fill_frac": fill_mean,
+        "coalesce_linger_p99_s": (None if linger_p99 != linger_p99
+                                  else round(linger_p99, 6)),
+        "connections_total": int(FRONTEND_CONNECTIONS_TOTAL.value()),
+        "dispatch_by_replica": dispatch,
+        "dispatch_total": sum(dispatch.values()),
+        "replica_deaths_total": int(FLEET_REPLICA_DEATHS_TOTAL.value()),
+        "replica_quarantined_total": int(
+            FLEET_REPLICA_QUARANTINED_TOTAL.value()),
+        "redispatch_total": int(FLEET_REDISPATCH_TOTAL.value()),
+        "transport": {
+            "reconnects_total": int(sum(
+                FLEET_TRANSPORT_RECONNECTS_TOTAL.series().values())),
+            "heartbeat_misses_total": int(sum(
+                FLEET_TRANSPORT_HEARTBEAT_MISSES_TOTAL.series()
+                .values())),
+            "io_timeouts_total": int(sum(
+                FLEET_TRANSPORT_IO_TIMEOUTS_TOTAL.series().values())),
+        },
+        "rollout_steps_total": int(FLEET_ROLLOUT_STEPS_TOTAL.value()),
+    })
+    return out
 
 
 def record_scenario_batch(n_true: int, seconds: float) -> None:
@@ -358,4 +562,20 @@ def scenario_summary_from_registry() -> dict:
             SCENARIO_PSD_PROJECTIONS_TOTAL.value()),
         "batch_p50_latency_s": (None if p50 != p50 else round(p50, 6)),
         "batch_p99_latency_s": (None if p99 != p99 else round(p99, 6)),
+    }
+
+
+def guard_summary_from_registry() -> dict:
+    """The manifest's guard verdict summary, off the live counters."""
+    served = SERVED_DATES_TOTAL.value()
+    quarantined = QUARANTINED_DATES_TOTAL.value()
+    reasons = {}
+    for key, n in GUARD_REASON_TOTAL.series().items():
+        reasons[key[0]] = int(n)
+    return {
+        "served_dates": int(served),
+        "quarantined_dates": int(quarantined),
+        "quarantine_rate": (round(quarantined / served, 6) if served else 0.0),
+        "reasons": reasons,
+        "last_staleness": int(SERVED_COV_STALENESS.value()),
     }

@@ -13,12 +13,17 @@ Two guard surfaces protect the two directions of the serving stack:
 :mod:`mfm_tpu_torch.serve._checks` holds the formula primitives both guard
 layers share (MAD outliers, reason-bitmask plumbing).
 
-On top of the single loop, :mod:`mfm_tpu_torch.serve.cache` answers
-repeated request bodies from a bounded content-addressed response cache
-fenced on checkpoint generation + scenario spec hash, and
-:mod:`mfm_tpu_torch.serve.coalesce` merges concurrent submissions into the
-bucket ladder under a linger budget.  The socket front end, the worker
-replicas and their transport are ROADMAP.md §A 10's next step.
+The fleet layer stacks on top of the single loop:
+:mod:`mfm_tpu_torch.serve.cache` answers repeated request bodies from a
+bounded content-addressed response cache fenced on checkpoint generation +
+scenario spec hash, :mod:`mfm_tpu_torch.serve.coalesce` merges concurrent
+submissions into the bucket ladder under a linger budget,
+:mod:`mfm_tpu_torch.serve.frontend` accepts concurrent socket/HTTP
+connections, :mod:`mfm_tpu_torch.serve.replica` runs N worker processes
+behind the fenced checkpoint store, and
+:mod:`mfm_tpu_torch.serve.transport` carries the worker wire protocol over
+deadline-bearing pipe/TCP transports, so the fleet spans hosts and
+survives wedged workers.
 """
 
 from mfm_tpu_torch.serve.guard import (  # noqa: F401
@@ -53,3 +58,19 @@ from mfm_tpu_torch.serve.cache import (  # noqa: F401
     cacheable_response,
 )
 from mfm_tpu_torch.serve.coalesce import Coalescer  # noqa: F401
+from mfm_tpu_torch.serve.frontend import SocketFrontend  # noqa: F401
+from mfm_tpu_torch.serve.replica import (  # noqa: F401
+    FleetServer,
+    Replica,
+    ReplicaDeadError,
+    ReplicaWedgedError,
+    run_worker,
+)
+from mfm_tpu_torch.serve.transport import (  # noqa: F401
+    PipeTransport,
+    TcpTransport,
+    TransportClosed,
+    TransportError,
+    TransportTimeout,
+    serve_worker_socket,
+)

@@ -112,6 +112,12 @@ class Coalescer:
         self._oldest_t = None
         return out
 
+    def _poll_reload_locked(self) -> None:
+        """The reload point the hit-path throttle uses.  FleetServer
+        overrides this so a rollout fleet never moves the admission
+        engine (or the cache fence) ahead of its workers."""
+        self.server.poll_reload()
+
     # -- the public API ------------------------------------------------------
     def submit(self, line: str, origin=None) -> list:
         """Admit one request line from any thread.  Immediate responses
@@ -128,7 +134,7 @@ class Coalescer:
             if now - self._last_poll >= self.linger_s:
                 self._last_poll = now
                 with self._lock:
-                    self.server.poll_reload()
+                    self._poll_reload_locked()
             if self.server.breaker.state == "closed":
                 resp, token = self.cache.lookup(line)
                 if resp is not None:

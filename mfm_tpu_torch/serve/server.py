@@ -270,11 +270,11 @@ class CircuitBreaker:
 
 class _Request:
     __slots__ = ("rid", "weights", "bidx", "enq_t", "deadline_t", "scenario",
-                 "trace_id", "span", "construct", "sweep", "origin")
+                 "trace_id", "span", "construct", "sweep", "origin", "line")
 
     def __init__(self, rid, weights, bidx, enq_t, deadline_t, scenario=None,
                  trace_id=None, span=None, construct=None, sweep=None,
-                 origin=None):
+                 origin=None, line=None):
         self.rid = rid
         self.weights = weights
         self.bidx = bidx
@@ -286,9 +286,11 @@ class _Request:
         self.construct = construct
         self.sweep = sweep
         # origin: an opaque routing token (a connection handle, a cache
-        # fill) stamped by the layer above; None on the plain single-stream
-        # loop
+        # fill, a replica dispatch ordinal) stamped by the layer above; None
+        # on the plain single-stream loop.  line: the raw admitted request
+        # text — the fleet dispatcher forwards it verbatim to a worker
         self.origin = origin
+        self.line = line
 
 
 def _line_trace_id(line: str) -> str:
@@ -695,7 +697,7 @@ class QueryServer:
         self._queue.append(_Request(rid, w, bidx, now, now + deadline_s,
                                     scenario=scen, trace_id=tid, span=sp,
                                     construct=construct, sweep=sweep,
-                                    origin=origin))
+                                    origin=origin, line=line))
         # bounded queue: shedding drops the OLDEST queued work first —
         # under overload the head of the queue is the request whose
         # deadline is nearest death; the freshest work is the most useful

@@ -7,10 +7,9 @@ process at exactly that step — a deterministic "kill -9 mid write", no
 racy timers; ``MFM_CHAOS_KILL_MATCH`` narrows the kill to paths containing
 a substring.  With the variable unset a point costs one dict lookup.
 
-The points here are the ones the ported serving and scenario modules
-reach; the
-reference's byte-level and data faults, flaky stores and fault plans wait
-for ROADMAP.md §A 15.
+The points here are the ones the ported serving, scenario and
+observability modules reach; the reference's byte-level and data faults,
+flaky stores and fault plans wait for ROADMAP.md §A 15.
 """
 
 from __future__ import annotations
@@ -34,6 +33,10 @@ CRASH_POINTS = (
                                  # not yet renamed (scenario/sweep.py)
     "flightrec.after_tmp",   # flight-recorder dump: tmp durable, final file
                              # not yet renamed (obs/flightrec.py)
+    "run_manifest.after_tmp",  # run/serve/fleet manifest tmp durable, final
+                               # file not yet renamed (obs/manifest.py)
+    "trace.after_tmp",       # Chrome-trace flush: tmp durable, final file
+                             # not yet renamed (obs/trace.py)
 )
 
 

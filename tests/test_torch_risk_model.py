@@ -270,6 +270,12 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     files = sorted((ROOT / "mfm_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    # the fleet slice's modules and the CLI are among the scanned files
+    scanned = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {f"mfm_tpu_torch/{m}.py" for m in (
+        "cli", "data/etl", "serve/transport", "serve/replica",
+        "serve/frontend", "obs/slo", "obs/manifest", "obs/exporters",
+        "obs/trace", "obs/instrument")} <= scanned
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
