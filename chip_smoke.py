@@ -73,7 +73,24 @@ with one host SIGKILLed, every response the port CLI's ``--gulp``
 replay, the delivery audit and the merged Chrome trace) and
 ``fleet_frontend`` (``serve --listen --replicas 2``: four concurrent JSONL
 clients, the HTTP surface, SIGTERM and ``doctor --serve``); every fleet
-process reports its kernel launches (none).  Last it times each kernel at the main path's shapes, the two designs in turns
+process reports its kernel launches (none).  Then the all-A universe
+(T=2500, N=5000, K=42, M=100), in two phases: ``alla_risk`` (bench config
+1 at ``--universe alla``: ``run_fused``, its walls, busy share, peak
+memory and launches; both kernels at the run's own (250,000, 42, 42) and
+(2500, 42, 42) against their plain versions and timed; the outputs within
+the ``risk`` budgets of the path at float64 through the plain versions on
+the card) and ``alla_factors`` (bench config 4: ``FactorEngine(block=16)``
+within the ``factors`` budgets of float64 on the card, the t+1 label, the
+risk run within the ``risk`` budgets).  Then alpha, in three phases:
+``alpha_engine`` (bench config 5: 1,000 expressions at CSI300 width
+through ``compile_alpha_batch`` and ``alpha_summary``; chunked ==
+unchunked bitwise; the fused scores; float32 against the CPU at float64
+within ALPHA_TOL; ``select_alphas``'s picks at float64 as the CPU's;
+``cs_neutralize`` bitwise over two runs), ``alpha_alla`` (``compile_alpha_scores`` in chunks of 50
+at all-A; its peak memory) and ``alpha_cli`` (``python -m
+mfm_tpu_torch.cli alpha`` on the card, ``--select`` and ``--llm``: each
+scorecard is the in-process summary); the alpha path launches no kernel.
+Last it times each kernel at the main path's shapes, the two designs in turns
 (block, warp, warp, block), beside its plain version, its bound, the warp
 design's ceiling and ``torch.linalg.eigh``, and, after holding it against
 its plain version there, at the shapes a one-date update launches, and
@@ -380,6 +397,13 @@ def full_kernel_bound(B, n, sweeps):
     return bound(B, n, sweeps * (n - 1), 4 * B * n * n, 4 * B * (n * n + n))
 
 
+def weighted_kernel_bound(B, n, sweeps):
+    """:func:`bound` of the weighted kernel: G and d0 read, w and h
+    written, plus h's 3 n^2 flop a matrix."""
+    return bound(B, n, sweeps * (n - 1), 4 * B * (n * n + n), 4 * B * 2 * n,
+                 extra_ops=3 * n * n * B)
+
+
 def outputs_finite(out, valid):
     """Finite everywhere the outputs are defined."""
     nw, ev = out.nw_valid, out.eigen_valid
@@ -394,6 +418,83 @@ def outputs_finite(out, valid):
         "some_valid": bool(ev.any()),
     }
     return checks
+
+
+def require_launches(launches: dict, what: str, weighted: int, full: int):
+    """A path launched the warp design of the weighted kernel at least
+    ``weighted`` and of the full kernel at least ``full`` times, and the
+    block design never (n=42, float32)."""
+    require(launches["jacobi_eigh_weighted/warp"] >= weighted
+            and launches["jacobi_eigh/warp"] >= full,
+            f"{what}: the weighted kernel must launch >= {weighted} and the "
+            f"full kernel >= {full} times: {launches}")
+    require(launches["jacobi_eigh_weighted/block"] == 0
+            and launches["jacobi_eigh/block"] == 0,
+            f"{what} launched a block-design kernel: {launches}")
+
+
+def kernel_inputs(out, sim_covs, T, K, M):
+    """The two kernels' inputs as a run's eigen stage gave them: F0 (the
+    Newey-West covariances, the identity at invalid dates), the simulated
+    covariances in F0's eigenbasis G (T*M, K, K) with their weights d0,
+    and the two sweep counts."""
+    from mfm_tpu_torch.models.eigen import sim_sweeps_for
+    from mfm_tpu_torch.ops import eigh as E
+
+    eye = torch.eye(K, device="cuda")
+    F0 = torch.where(out.nw_valid[:, None, None], out.nw_cov, eye).contiguous()
+    D0, _ = E.batched_eigh(F0, canonical_signs=False)
+    s = torch.sqrt(torch.clamp_min(D0, 0.0))
+    G = (s[:, None, :, None] * sim_covs[None] * s[:, None, None, :]
+         ).reshape(T * M, K, K).contiguous()
+    d0 = D0[:, None, :].expand(T, M, K).reshape(T * M, K).contiguous()
+    return (F0, G, d0, sim_sweeps_for(K, torch.float32, T),
+            E._sweeps_for(K, torch.float32))
+
+
+def hold_kernels(F0, G, d0, sw, sf, where: str) -> dict:
+    """Each kernel against its plain version on a run's own inputs: the
+    weighted kernel's w bitwise and h within 1e-4 per matrix, the full
+    kernel's w and V bitwise (with reconstruction and orthogonality); the
+    plain weighted call (seconds) timed by CUDA events.  Emits phase
+    ``{where}_check``; returns it with both kernels' max |error| and that
+    time."""
+    from mfm_tpu_torch.ops import eigh as E
+    from mfm_tpu_torch.ops.eigh_cuda import (
+        jacobi_eigh_cuda,
+        jacobi_eigh_weighted_diag_cuda,
+    )
+
+    ww, hh = jacobi_eigh_weighted_diag_cuda(G, d0, sweeps=sw)
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    wwp, hhp = E.jacobi_eigh_weighted_diag_slots(G, d0, sw)
+    stop.record()
+    sync()
+    w_equal, h_rel = bool(torch.equal(ww, wwp)), rel_per_matrix(hh, hhp)
+    weighted_err = float(max((ww - wwp).abs().max(), (hh - hhp).abs().max()))
+    h_equal = bool(torch.equal(hh, hhp))
+    del ww, hh, wwp, hhp
+    wf, Vf = jacobi_eigh_cuda(F0, sweeps=sf, sort=False, canonical_signs=False)
+    sync()
+    wfp, Vfp = E.jacobi_eigh_slots(F0, sf)
+    f_equal = bool(torch.equal(wf, wfp)) and bool(torch.equal(Vf, Vfp))
+    full_err = float(max((wf - wfp).abs().max(), (Vf - Vfp).abs().max()))
+    rec, orth = recon_orth(wf, Vf, F0)
+    check = {"weighted_shape": list(G.shape), "weighted_w_equal": w_equal,
+             "weighted_h_equal": h_equal, "weighted_h_rel": h_rel,
+             "full_shape": list(F0.shape), "full_wV_equal": f_equal,
+             "full_recon": rec, "full_orth": orth}
+    emit(f"{where}_check", **check)
+    require(w_equal and h_rel <= 1e-4,
+            f"{where}: weighted kernel: w bitwise {w_equal}, h {h_rel}")
+    require(f_equal and rec <= 5e-5 and orth <= ORTH_TOL_F32,
+            f"{where}: full kernel: w, V bitwise {f_equal}, recon {rec} "
+            f"orth {orth}")
+    return {**check, "weighted_err": weighted_err, "full_err": full_err,
+            "weighted_plain_ms": start.elapsed_time(stop)}
 
 
 # -- the daily serving step ---------------------------------------------------
@@ -3479,12 +3580,7 @@ def fleet_checkpoint_phase(ctx) -> dict:
     emit("fleet_checkpoint", **out)
     require(eng.K == K and st.guarded,
             f"fleet_checkpoint: not a guarded K={K} checkpoint: {out}")
-    require(launches["jacobi_eigh_weighted/warp"] >= 1
-            and launches["jacobi_eigh/warp"] >= 1
-            and launches["jacobi_eigh/block"] == 0
-            and launches["jacobi_eigh_weighted/block"] == 0,
-            f"fleet_checkpoint: the pipeline did not launch both warp "
-            f"kernels alone: {launches}")
+    require_launches(launches, "fleet_checkpoint's pipeline", 1, 1)
     ctx["fleet"] = {"dirs": dirs, "bench": bench}
     return out
 
@@ -3965,6 +4061,704 @@ def fleet_frontend_phase(ctx) -> dict:
     return res
 
 
+# -- alpha ---------------------------------------------------------------------
+
+#: bench config 5's expression templates (bench.py:842-849)
+ALPHA_TEMPLATES = (
+    "cs_rank(delta(close, {d}))",
+    "-ts_corr(close, volume, {w})",
+    "cs_zscore(ts_std(ret, {w}))",
+    "decay_linear(cs_demean(ret), {w}) * {c}",
+    "where(ret > 0, cs_rank(volume), -cs_rank(ts_mean(volume, {d})))",
+    "ts_rank(close, {w}) - cs_rank(delta(volume, {d}))",
+)
+
+
+def alpha_workload(T: int, N: int, n_exprs: int = 1000):
+    """Config 5's workload, a numpy copy of ``bench.py::_alpha_workload``
+    (the same draws in the same order): a float32 close/volume/ret panel,
+    ``n_exprs`` expressions from the six templates, and the forward
+    returns.  Returns (panel dict, expressions, fwd)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    close = np.exp(np.cumsum(0.02 * rng.standard_normal((T, N)), axis=0))
+    panel = {
+        "close": close.astype(np.float32),
+        "volume": np.exp(rng.normal(10, 1, (T, N))).astype(np.float32),
+        "ret": np.vstack([np.full((1, N), np.nan),
+                          close[1:] / close[:-1] - 1]).astype(np.float32),
+    }
+    exprs = [ALPHA_TEMPLATES[i % len(ALPHA_TEMPLATES)].format(
+        d=2 + i % 9, w=5 + i % 20, c=round(0.5 + (i % 10) / 10, 2))
+        for i in range(n_exprs)]
+    fwd = np.concatenate([panel["ret"][1:],
+                          np.full((1, N), np.nan, np.float32)], axis=0)
+    return panel, exprs, fwd
+
+
+#: the card's float32 ``alpha_summary`` against the CPU's float64, the
+#: largest |difference| allowed per key.  No frozen budget exists for
+#: alpha, so it is derived as ``tools/parity_budget.json``'s budgets were:
+#: the reference's own float32-vs-float64 drift, measured with ``mfm_tpu``
+#: on the CPU (``evaluate_alphas(..., jit=False)`` then ``alpha_summary``,
+#: max |float32 - float64| over the expressions) on the six templates'
+#: first instances at config 5's own panel, (T, N) = ALPHA_TOL_SHAPE (the
+#: window sums' rounding grows with T; at N = 40 the drift of ic_ir is a
+#: fifth of this) — read 1.17e-4 (mean_ic), 2.00e-3 (ic_ir), 4.94e-5
+#: (mean_rank_ic), 1.98e-3 (coverage: ts_corr's variance products go
+#: negative, and so NaN, in other cells at float32), 4.13e-4
+#: (mean_turnover) and 1.18e-5 (mean_spread); each limit is 3x that,
+#: rounded up to two digits.  ``tests/test_torch_alpha.py`` re-measures
+#: the drift and holds each limit within 2.5-4x of it.
+ALPHA_TOL_SHAPE = (1390, 300)
+ALPHA_TOL = {"mean_ic": 3.6e-4, "ic_ir": 6.1e-3, "mean_rank_ic": 1.5e-4,
+             "coverage": 6.0e-3, "mean_turnover": 1.3e-3,
+             "mean_spread": 3.6e-5}
+#: the same for phase alpha_alla, float32 against float64 on the card at
+#: (2500, 5000), derived the same way at the all-A history and config 5's
+#: width, ALPHA_ALLA_TOL_SHAPE (the reference at (2500, 5000) itself
+#: takes minutes on the CPU; there it read coverage 1.03e-2 and
+#: mean_turnover 1.09e-3, every other key below this shape's): 2.57e-4,
+#: 4.44e-3, 1.66e-4, 8.92e-3, 1.03e-3 and 1.91e-5, times 3, rounded up
+ALPHA_ALLA_TOL_SHAPE = (2500, 300)
+ALPHA_ALLA_TOL = {"mean_ic": 7.8e-4, "ic_ir": 1.4e-2, "mean_rank_ic": 5.0e-4,
+                  "coverage": 2.7e-2, "mean_turnover": 3.1e-3,
+                  "mean_spread": 5.8e-5}
+
+
+# -- the all-A universe: bench configs 1 (--universe alla) and 4 --------------
+
+#: the all-A workload's simulated covariances: M and the generator's seed
+ALLA_SIMS = 100
+ALLA_SEED = 1
+
+
+def f64_reference(panel, P, config, sim_covs, T, device):
+    """The risk path at float64 on ``device`` through the kernels' plain
+    versions (``kernels=False``), on the float32 run's own inputs: the
+    reference the float32 path is held to within the ``risk`` budgets."""
+    import numpy as np
+
+    from mfm_tpu_torch import RiskModel
+
+    ret, cap, styles, industry, valid = panel
+    f64 = [torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+           .to(device=device, dtype=torch.float64) for x in (ret, cap, styles)]
+    rm = RiskModel(*f64, industry, valid, n_industries=P, config=config,
+                   device=device, kernels=False)
+    return rm.run_fused(sim_covs=sim_covs.to(torch.float64), sim_length=T)
+
+
+def alla_kernel_times(out, sim_covs, T, K, M) -> dict:
+    """Both kernels at the all-A path's shapes, on the inputs this run's
+    eigen stage gave them: the weighted kernel at (T*M, K, K), the full
+    kernel at (T, K, K); each held against its plain version there first
+    (:func:`hold_kernels`), then timed beside its plain version, its bound
+    and, for the full kernel, ``torch.linalg.eigh`` (at T*M matrices that
+    call takes minutes, so the weighted kernel's has none)."""
+    from mfm_tpu_torch.ops import eigh as E
+    from mfm_tpu_torch.ops.eigh_cuda import (
+        jacobi_eigh_cuda,
+        jacobi_eigh_weighted_diag_cuda,
+    )
+
+    F0, G, d0, sw, sf = kernel_inputs(out, sim_covs, T, K, M)
+    held = hold_kernels(F0, G, d0, sw, sf, "alla_kernel")
+    weighted = {
+        "shape": list(G.shape), "sweeps": sw,
+        "max_abs_err": held["weighted_err"],
+        "ms": time_ms(lambda: jacobi_eigh_weighted_diag_cuda(G, d0, sweeps=sw),
+                      3),
+        "plain_ms": held["weighted_plain_ms"],
+        "library_ms": None, **weighted_kernel_bound(G.shape[0], K, sw)}
+    full = {
+        "shape": list(F0.shape), "sweeps": sf, "max_abs_err": held["full_err"],
+        "ms": time_ms(lambda: jacobi_eigh_cuda(F0, sweeps=sf, sort=False,
+                                               canonical_signs=False), 20),
+        "plain_ms": time_ms(lambda: E.jacobi_eigh_slots(F0, sf), 2),
+        "library_ms": time_ms(lambda: torch.linalg.eigh(F0), 2),
+        **full_kernel_bound(F0.shape[0], K, sf)}
+    emit("alla_kernel_times", weighted=weighted, full=full)
+    return {"weighted": weighted, "full": full}
+
+
+def alla_risk_phase(ctx) -> dict:
+    """Phase alla_risk: bench config 1 at ``--universe alla`` (bench.py
+    170-184, on one device ``_bench_riskmodel_universe``):
+    ``RiskModel.run_fused`` at (T, N, P, Q) = (2500, 5000, 31, 10), K = 42,
+    M = 100, float32, ``sim_length=T`` (the production eigen path), on
+    ``synthetic_risk_inputs`` and simulated covariances from a seeded
+    generator.  The launches of the run, its walls (median of 3, as
+    ``bench.py::_time3``), stage walls, busy share and peak memory; both
+    kernels at the run's own all-A shapes against their plain versions;
+    the outputs within the ``risk`` budgets of the same path at float64
+    through the plain versions on the card."""
+    from mfm_tpu_torch import RiskModel, RiskModelConfig
+    from mfm_tpu_torch.convert import budget_check, outputs_to_numpy
+    from mfm_tpu_torch.data.synthetic import (
+        resolve_universe,
+        synthetic_risk_inputs,
+    )
+    from mfm_tpu_torch.models.eigen import auto_eigen_chunk, simulated_eigen_covs
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+
+    u = resolve_universe(ctx["universe"], T=ctx.get("alla_T"))
+    T, N, P, Q = u.T, u.N, u.P, u.Q
+    K, M, dev = 1 + P + Q, ALLA_SIMS, ctx["device"]
+    config = RiskModelConfig(eigen_n_sims=M)
+    panel = synthetic_risk_inputs(T, N, P, Q, seed=0)
+    sim_covs = simulated_eigen_covs(
+        torch.Generator(device=dev).manual_seed(ALLA_SEED), K, T, M,
+        dtype=torch.float32)
+    rm = RiskModel(*panel, n_industries=P, config=config, device=dev)
+    chunk = auto_eigen_chunk(T, M, K, 4, dev)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+
+    def run():
+        return rm.run_fused(sim_covs=sim_covs, sim_length=T)
+
+    reset_launches()
+    out, first_s = timed(run)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = outputs_finite(out, rm.valid)
+    walls = [timed(run)[1] for _ in range(3)]
+    stages = {}
+    fr, _, _ = rm.reg_by_time()
+    (nw_cov, nw_valid), stages["newey_west"] = timed(
+        lambda: rm.newey_west_by_time(fr))
+    _, stages["regression"] = timed(rm.reg_by_time)
+    (ecov, evalid), stages["eigen"] = timed(
+        lambda: rm.eigen_risk_adj_by_time(nw_cov, nw_valid,
+                                          sim_covs=sim_covs, sim_length=T))
+    _, stages["vol_regime"] = timed(
+        lambda: rm.vol_regime_adj_by_time(fr, ecov, evalid))
+    del fr, nw_cov, nw_valid, ecov, evalid
+    prof = profile_run(run)
+    kernels = alla_kernel_times(out, sim_covs, T, K, M)
+    ref, f64_s = timed(lambda: f64_reference(panel, P, config, sim_covs, T,
+                                             dev))
+    records, failed = budget_check(outputs_to_numpy(out),
+                                   outputs_to_numpy(ref), ctx["budget"])
+    res = {"universe": u.name, "T": T, "N": N, "P": P, "Q": Q, "K": K, "M": M,
+           "eigen_chunk": chunk, "launches": launches, "finite": finite,
+           "first_run_s": first_s, "e2e_median_s": statistics.median(walls),
+           "e2e_runs_s": walls, "stages_s": stages,
+           "peak_mem_gb": peak_gb, "base_mem_gb": base_gb,
+           "busy_s": prof["busy_s"], "busy_share": prof["busy_share"],
+           "device_kernels": prof["device_kernels"], "top_kernels": prof["top"],
+           "float64_plain_s": f64_s, "vs_float64": records,
+           "failed": failed}
+    emit("alla_risk", **res)
+    require_launches(launches, "alla_risk", 1, 2)
+    require(all(finite.values()), f"alla_risk: non-finite outputs: {finite}")
+    require(not failed, f"alla_risk: the float32 path is outside the risk "
+            f"budgets of float64: {failed}")
+    return {**res, "kernel_times": kernels}
+
+
+def alla_factors_phase(ctx) -> dict:
+    """Phase alla_factors: bench config 4 (bench.py:747-826).
+    ``FactorEngine(block=16)`` on ``synthetic_market_panel(T=2500, N=5000,
+    n_industries=31, seed=1)`` at float32, held to the same engine at
+    float64 on the card within the ``factors`` budgets; then ``risk_fn``
+    as the bench runs it: the t+1 label in row space, the valid mask,
+    ``RiskModel.run(sim_covs=, sim_length=T)`` over every date and the sum
+    of the finite outputs.  Walls are medians of 3; the launches are that
+    risk run's.  Last, as a check and not timed, the same risk run from
+    the first date on which every industry has a stock to the last with a
+    label, held to that run at float64 through the plain versions within
+    the ``risk`` budgets."""
+    from mfm_tpu_torch import FactorEngine, RiskModel, RiskModelConfig
+    from mfm_tpu_torch.convert import budget_check, outputs_to_numpy
+    from mfm_tpu_torch.data.synthetic import (
+        panel_to_engine_fields,
+        resolve_universe,
+        synthetic_market_panel,
+    )
+    from mfm_tpu_torch.factors.engine import (
+        gather_rows,
+        rowspace_index,
+        scatter_rows,
+    )
+    from mfm_tpu_torch.models.eigen import simulated_eigen_covs
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+    from mfm_tpu_torch.pipeline import BARRA_OUTPUT_STYLES
+
+    u = resolve_universe(ctx["universe"], T=ctx.get("alla_T"))
+    T, N, P, Q = u.T, u.N, u.P, u.Q
+    K, M, dev = 1 + P + Q, ALLA_SIMS, ctx["device"]
+    data, panel_s = timed(lambda: synthetic_market_panel(
+        T=T, N=N, n_industries=P, seed=1))
+
+    def engine(dtype):
+        return FactorEngine(panel_to_engine_fields(data, dtype, dev),
+                            torch.tensor(data["index_close"], dtype=dtype),
+                            block=16, device=dev)
+
+    eng = engine(torch.float32)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    factors, first_s = timed(eng.run)
+    fac_walls = [timed(eng.run)[1] for _ in range(3)]
+    fac_prof = profile_run(eng.run)
+    fac_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    f64, f64_s = timed(lambda: engine(torch.float64).run())
+    vs_f64 = _factor_records(factors, f64, ctx["factor_budget"])
+    del f64
+
+    cap = eng.fields["circ_mv"]
+    industry = torch.as_tensor(data["industry"], dtype=torch.int32,
+                               device=dev)[None, :].expand(T, N)
+    def risk_inputs():
+        styles = torch.stack([factors[src] for src, _ in BARRA_OUTPUT_STYLES],
+                             dim=-1)
+        # t+1 return label in row space (main.py:99 groupby shift(-1))
+        observed = torch.isfinite(factors["ret"]) | torch.isfinite(cap)
+        idx = rowspace_index(observed)
+        rs = gather_rows(factors["ret"], idx)
+        nxt = scatter_rows(torch.cat(
+            [rs[1:], torch.full((1, N), float("nan"), dtype=rs.dtype,
+                                device=dev)]), idx)
+        valid = (torch.isfinite(styles).all(dim=-1) & torch.isfinite(nxt)
+                 & torch.isfinite(cap) & (cap > 0))
+        return (torch.where(valid, nxt, float("nan")), cap, styles, industry,
+                valid)
+
+    # config 4's risk run, timed as risk_fn is: every date, sim_length=T,
+    # and the sum of the finite outputs; its launches are the path's
+    config = RiskModelConfig(eigen_n_sims=M, eigen_sim_length=T)
+    sim_covs = simulated_eigen_covs(
+        torch.Generator(device=dev).manual_seed(ALLA_SEED), K, T, M,
+        dtype=torch.float32)
+
+    def risk():
+        rm = RiskModel(*risk_inputs(), n_industries=P, config=config,
+                       device=dev)
+        out = rm.run(sim_covs=sim_covs, sim_length=T)
+        return (torch.where(torch.isfinite(out.factor_ret), out.factor_ret,
+                            0.0).sum()
+                + torch.where(torch.isfinite(out.vr_cov), out.vr_cov,
+                              0.0).sum()
+                + out.lamb.sum())
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    checksum, risk_first_s = timed(risk)
+    launches = launch_counts()
+    risk_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    risk_walls = [timed(risk)[1] for _ in range(3)]
+    risk_prof = profile_run(risk)
+    del sim_covs
+
+    # the check against float64 runs from the first date on which every
+    # industry has a valid stock to the last with a t+1 label: before it
+    # few stocks have every style yet (RSTR), and those dates' NaN factor
+    # returns reach every later date through the Newey-West sums, in the
+    # reference as here (which is why risk_fn sums only the finite outputs)
+    _, _, _, _, valid = risk_inputs()
+    covered = torch.stack([(valid & (industry == p)).any(dim=1)
+                           for p in range(P)], dim=1).all(dim=1)
+    lead = int(torch.argmax(covered.to(torch.int32)))
+    T1 = T - 1 - lead
+    check_config = RiskModelConfig(eigen_n_sims=M, eigen_sim_length=T1)
+    check_covs = simulated_eigen_covs(
+        torch.Generator(device=dev).manual_seed(ALLA_SEED), K, T1, M,
+        dtype=torch.float32)
+    rm = RiskModel(*(x[lead:T - 1] for x in risk_inputs()), n_industries=P,
+                   config=check_config, device=dev)
+    out = rm.run(sim_covs=check_covs, sim_length=T1)
+    finite = outputs_finite(out, rm.valid)
+    panel = (rm.ret, rm.cap, rm.styles, rm.industry, rm.valid)
+    ref, ref_s = timed(lambda: f64_reference(panel, P, check_config,
+                                             check_covs, T1, dev))
+    records, failed = budget_check(outputs_to_numpy(out),
+                                   outputs_to_numpy(ref), ctx["budget"])
+    fac_s, risk_s = statistics.median(fac_walls), statistics.median(risk_walls)
+    res = {"universe": u.name, "T": T, "N": N, "K": K, "M": M,
+           "panel_build_s": panel_s,
+           "factors": {"outputs": len(factors), "first_run_s": first_s,
+                       "wall_median_s": fac_s, "walls_s": fac_walls,
+                       "busy_share": fac_prof["busy_share"],
+                       "device_kernels": fac_prof["device_kernels"],
+                       "peak_mem_gb": fac_peak_gb, "float64_s": f64_s,
+                       "vs_float64": vs_f64},
+           "risk": {"risk_dates": T, "first_run_s": risk_first_s,
+                    "wall_median_s": risk_s, "walls_s": risk_walls,
+                    "busy_share": risk_prof["busy_share"],
+                    "device_kernels": risk_prof["device_kernels"],
+                    "top_kernels": risk_prof["top"],
+                    "peak_mem_gb": risk_peak_gb, "launches": launches,
+                    "finite_output_sum": float(checksum)},
+           "risk_check": {"leading_dates_missing_an_industry": lead,
+                          "check_dates": T1, "finite": finite,
+                          "valid_share": float(rm.valid.float().mean()),
+                          "float64_plain_s": ref_s, "vs_float64": records,
+                          "failed": failed},
+           "e2e_s": fac_s + risk_s,
+           "stocks_per_s": N * T / (fac_s + risk_s)}
+    emit("alla_factors", **res)
+    require(len(factors) == 2 + 18 + 5,
+            "alla_factors: not every factor came back")
+    require(not vs_f64["failed"], f"alla_factors: the float32 factors are "
+            f"outside the factors budgets of float64: {vs_f64['failed']}")
+    require(bool(covered[lead:T - 1].all()) and T1 >= T // 2,
+            f"alla_factors: dates past the leading {lead} lack an industry")
+    require_launches(launches, "alla_factors", 1, 2)
+    require(bool(torch.isfinite(checksum)), "alla_factors: the risk run's "
+            "sum of finite outputs is not finite")
+    require(all(finite.values()), f"alla_factors: non-finite outputs on the "
+            f"checked dates: {finite}")
+    require(not failed, f"alla_factors: the float32 risk run on the checked "
+            f"dates is outside the risk budgets of float64: {failed}")
+    return res
+
+
+# -- alpha: bench configs 5 and alpha_alla --------------------------------------
+
+def alpha_tensors(panel_np, fwd_np, device, dtype=torch.float32):
+    return ({k: torch.from_numpy(v).to(device=device, dtype=dtype)
+             for k, v in panel_np.items()},
+            torch.from_numpy(fwd_np).to(device=device, dtype=dtype))
+
+
+def summary_diff(got: dict, want: dict, tol: dict | None = None) -> dict:
+    """Per summary key: max |got - want| over the expressions, whether the
+    NaN patterns agree, and (with ``tol``) whether it is within."""
+    out = {}
+    for k, w in want.items():
+        g, w = got[k].double().cpu(), w.double().cpu()
+        nan_same = bool(torch.equal(torch.isnan(g), torch.isnan(w)))
+        m = torch.isfinite(g) & torch.isfinite(w)
+        d = float((g[m] - w[m]).abs().max()) if m.any() else 0.0
+        out[k] = {"max_abs": d, "nan_pattern_equal": nan_same}
+        if tol is not None:
+            out[k]["tol"] = tol[k]
+            out[k]["ok"] = nan_same and d <= tol[k]
+    return out
+
+
+def neutralize_twice(panel, device) -> dict:
+    """``cs_neutralize`` over a seeded 31-industry code field, twice on the
+    card: bitwise equal (a scatter-add's atomics would not be)."""
+    import numpy as np
+
+    from mfm_tpu_torch.alpha.dsl import compile_alpha_batch
+
+    T, N = panel["close"].shape
+    codes = np.random.default_rng(3).integers(0, 31, N).astype(np.float32)
+    p = {**panel, "ind": torch.from_numpy(codes).to(device)[None, :]
+         .expand(T, N).contiguous()}
+    batch = compile_alpha_batch(["cs_neutralize(ret, ind)",
+                                 "cs_neutralize(close, ind, 31)",
+                                 "cs_rank(cs_neutralize(volume, ind))"])
+    a, b = batch(p), batch(p)
+    sync()
+    return {"bitwise": same(a, b), "finite_share": float(
+        torch.isfinite(a).float().mean())}
+
+
+def alpha_engine_phase(ctx) -> dict:
+    """Phase alpha_engine: bench config 5 (bench.py:857-880), the 1,000
+    template expressions of ``_alpha_workload(1390, 300)``:
+    ``compile_alpha_batch`` then ``alpha_summary`` on the card, timed
+    (median of 3) with its busy share, launches (none: the alpha path
+    runs no eigh kernel) and peak memory; chunked (100) == unchunked
+    bitwise, and every copy of a repeated expression scored bitwise
+    alike; the fused ``compile_alpha_scores(chunk=50)`` against the
+    summary of the whole batch at rtol 1e-6; the card's float32 summary
+    against the CPU's float64 on the six templates and a seeded sample of
+    100 expressions within ALPHA_TOL; ``select_alphas(k=10)`` over that
+    sample on the card and on the CPU, both at float64, the same picks
+    (the card's float32 picks recorded beside them);
+    ``cs_neutralize`` bitwise over two runs."""
+    import numpy as np
+
+    from mfm_tpu_torch.alpha.dsl import compile_alpha_batch, compile_alpha_scores
+    from mfm_tpu_torch.alpha.metrics import alpha_summary
+    from mfm_tpu_torch.alpha.select import select_alphas
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+
+    T, N = ctx["alpha_shape"]
+    dev = ctx["device"]
+    panel_np, exprs, fwd_np = alpha_workload(T, N, ctx["alpha_exprs"])
+    panel, fwd = alpha_tensors(panel_np, fwd_np, dev)
+    batch = compile_alpha_batch(exprs)
+
+    def run():
+        return alpha_summary(batch(panel), fwd)
+
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    summ, first_s = timed(run)
+    launches = launch_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    walls = [timed(run)[1] for _ in range(3)]
+    prof = profile_run(run)
+
+    # the workload repeats expressions (a template's parameters cycle):
+    # every copy scores bitwise alike wherever it sits in the batch
+    copies = {}
+    for i, e in enumerate(exprs):
+        copies.setdefault(e, []).append(i)
+    copies = [torch.as_tensor(v, device=dev) for v in copies.values()
+              if len(v) > 1]
+    copies_bitwise = all(same(summ[k][v], summ[k][v[:1]].expand(len(v)))
+                         for k in summ for v in copies)
+    values = batch(panel)
+    chunked = compile_alpha_batch(exprs, chunk=100)(panel)
+    unchunked = compile_alpha_batch(exprs, chunk=None)(panel)
+    chunk_bitwise = same(chunked, unchunked) and same(values, unchunked)
+    del chunked, unchunked
+    fused = compile_alpha_scores(exprs, chunk=50)(panel, fwd)
+    fused_rel = {k: float(((fused[k] - summ[k]).abs() / summ[k].abs().clamp_min(
+        1e-30)).nan_to_num().max()) for k in summ}
+    fused_ok = all(torch.allclose(fused[k], summ[k], rtol=1e-6, atol=1e-7,
+                                  equal_nan=True) for k in summ)
+    fused_bitwise = all(same(fused[k], summ[k]) for k in summ)
+
+    rng = np.random.default_rng(5)
+    sample = sorted(set(range(len(ALPHA_TEMPLATES)))
+                    | set(rng.choice(len(exprs), 100, replace=False).tolist()))
+    sub = [exprs[i] for i in sample]
+    idx = torch.as_tensor(sample, device=dev)
+    panel64, fwd64 = alpha_tensors(panel_np, fwd_np, "cpu", torch.float64)
+    cpu_vals, cpu_s = timed(lambda: compile_alpha_batch(sub)(panel64))
+    cpu_summ = alpha_summary(cpu_vals, fwd64)
+    vs_cpu = summary_diff({k: v[idx] for k, v in summ.items()}, cpu_summ,
+                          ALPHA_TOL)
+    # the picks at float64 on both; at float32 |mean IC| moves by up to
+    # ALPHA_TOL["mean_ic"], more than the gaps between some candidates'
+    # scores, so the card's float32 picks are recorded beside them
+    panel64c, fwd64c = alpha_tensors(panel_np, fwd_np, dev, torch.float64)
+    sel = select_alphas(compile_alpha_batch(sub)(panel64c), fwd64c, 10)
+    sel_cpu = select_alphas(cpu_vals, fwd64, 10)
+    sel32 = select_alphas(values[idx], fwd, 10)
+    del values, cpu_vals, panel64c
+    neutral = neutralize_twice(panel, dev)
+    med = statistics.median(walls)
+    res = {"T": T, "N": N, "exprs": len(exprs), "first_run_s": first_s,
+           "wall_median_s": med, "walls_s": walls,
+           "exprs_per_s": len(exprs) / med, "busy_share": prof["busy_share"],
+           "busy_s": prof["busy_s"], "device_kernels": prof["device_kernels"],
+           "top_kernels": prof["top"], "peak_mem_gb": peak_gb,
+           "launches": launches, "chunked_bitwise": chunk_bitwise,
+           "repeated_expressions": len(copies),
+           "copies_bitwise": copies_bitwise,
+           "fused_within_1e-6": fused_ok, "fused_bitwise": fused_bitwise,
+           "fused_max_rel": fused_rel, "sample": len(sample),
+           "cpu_float64_s": cpu_s, "vs_cpu_float64": vs_cpu,
+           "select_card_float64": sel["indices"],
+           "select_cpu_float64": sel_cpu["indices"],
+           "select_card_float32": sel32["indices"],
+           "float32_picks_the_same": sel32["indices"] == sel_cpu["indices"],
+           "cs_neutralize": neutral}
+    emit("alpha_engine", **res)
+    require(not any(launches.values()),
+            f"alpha_engine: the alpha path launched an eigh kernel: "
+            f"{launches}")
+    require(chunk_bitwise, "alpha_engine: chunked != unchunked")
+    require(copies_bitwise, "alpha_engine: copies of one expression score "
+            "apart at different places in the batch")
+    require(fused_ok, f"alpha_engine: fused scores off the summary: "
+            f"{fused_rel}")
+    require(all(v["ok"] for v in vs_cpu.values()),
+            f"alpha_engine: card float32 vs CPU float64 outside ALPHA_TOL: "
+            f"{vs_cpu}")
+    require(sel["indices"] == sel_cpu["indices"],
+            f"alpha_engine: select_alphas picks {sel['indices']} on the "
+            f"card, {sel_cpu['indices']} on the CPU (float64)")
+    require(neutral["bitwise"], "alpha_engine: cs_neutralize moved between "
+            "two runs")
+    return res
+
+
+def alpha_alla_phase(ctx) -> dict:
+    """Phase alpha_alla: config 5 at all-A scale (bench.py:883-906):
+    ``compile_alpha_scores(exprs, chunk=50)`` on ``_alpha_workload(2500,
+    5000)`` — the (E, T, N) tensor would be 50 GB, so each chunk of 50 is
+    reduced to its summary before the next runs.  Its wall and peak
+    memory; the six templates' first instances within ALPHA_ALLA_TOL of
+    the card at float64; ``cs_neutralize`` bitwise over two runs."""
+    from mfm_tpu_torch.alpha.dsl import compile_alpha_scores
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+
+    T, N = ctx["alpha_alla_shape"]
+    dev = ctx["device"]
+    panel_np, exprs, fwd_np = alpha_workload(T, N, ctx["alpha_exprs"])
+    panel, fwd = alpha_tensors(panel_np, fwd_np, dev)
+    score = compile_alpha_scores(exprs, chunk=50)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    summ, first_s = timed(lambda: score(panel, fwd))
+    launches = launch_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    _, wall = timed(lambda: score(panel, fwd))
+    # the device's busy share over one chunk of 50 expressions
+    prof = profile_run(lambda: compile_alpha_scores(exprs[:50], chunk=50)(
+        panel, fwd))
+    six = len(ALPHA_TEMPLATES)
+    panel64, fwd64 = alpha_tensors(panel_np, fwd_np, dev, torch.float64)
+    ref, f64_s = timed(lambda: compile_alpha_scores(exprs[:six], chunk=50)(
+        panel64, fwd64))
+    del panel64, fwd64
+    vs_f64 = summary_diff({k: v[:six] for k, v in summ.items()}, ref,
+                          ALPHA_ALLA_TOL)
+    neutral = neutralize_twice(panel, dev)
+    res = {"T": T, "N": N, "exprs": len(exprs), "chunk": 50,
+           "chunks": -(-len(exprs) // 50), "first_run_s": first_s,
+           "wall_s": wall, "exprs_per_s": len(exprs) / wall,
+           "chunk_profile_wall_s": prof["wall_s"],
+           "busy_share": prof["busy_share"], "busy_s": prof["busy_s"],
+           "device_kernels": prof["device_kernels"], "top_kernels": prof["top"],
+           "peak_mem_gb": peak_gb, "panel_gb": 4 * T * N / 1e9,
+           "launches": launches, "float64_s": f64_s,
+           "vs_float64": vs_f64, "cs_neutralize": neutral,
+           "finite_mean_ic": int(torch.isfinite(summ["mean_ic"]).sum())}
+    emit("alpha_alla", **res)
+    require(all(v.shape == (len(exprs),) for v in summ.values()),
+            "alpha_alla: a summary is not one value per expression")
+    require(not any(launches.values()),
+            f"alpha_alla: the alpha path launched an eigh kernel: {launches}")
+    require(all(v["ok"] for v in vs_f64.values()),
+            f"alpha_alla: float32 vs float64 outside ALPHA_ALLA_TOL: "
+            f"{vs_f64}")
+    require(neutral["bitwise"], "alpha_alla: cs_neutralize moved between "
+            "two runs")
+    return res
+
+
+#: a raw chat reply for ``alpha --llm``: fences, a numbered list, labels,
+#: inline code, prose, a duplicate, a hallucinated field
+ALPHA_CHAT = """\
+Here are some alpha ideas for your panel:
+
+1. `cs_rank(delta(close, 3))`
+2. **Reversal**: -ts_corr(close, volume, 10)
+3. alpha_vol = cs_zscore(ts_std(ret, 7))
+
+```python
+decay_linear(cs_demean(ret), 8) * 0.8
+cs_rank(delta(close, 3))
+ts_rank(close, 12) - cs_rank(delta(volume, 4))
+```
+
+Factor 2 is a classic price-volume divergence signal, and
+`cs_rank(sentiment_score)` would need a field you do not have.
+"""
+
+
+def write_long_csv(path, panel_np, dates, stocks) -> None:
+    """The panel as a long csv (trade_date, ts_code, one column per
+    field), float32 values in their shortest round-trip form."""
+    import csv
+
+    import numpy as np
+
+    T, N = panel_np["close"].shape
+    names = list(panel_np)
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["trade_date", "ts_code", *names])
+        for t in range(T):
+            cols = [[("" if np.isnan(x) else str(x)) for x in panel_np[k][t]]
+                    for k in names]
+            for j in range(N):
+                w.writerow([dates[t], stocks[j], *(c[j] for c in cols)])
+
+
+def read_scorecard(path) -> dict:
+    import csv
+
+    import numpy as np
+
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    head = rows[0]
+    return {"expression": [r[0] for r in rows[1:]],
+            **{k: np.array([r[j] or "nan" for r in rows[1:]],
+                           dtype=np.float32)
+               for j, k in enumerate(head) if k in ALPHA_TOL}}
+
+
+def alpha_cli_phase(ctx) -> dict:
+    """Phase alpha_cli: ``python -m mfm_tpu_torch.cli alpha --exprs FILE
+    --panel LONG.csv --select 5`` as a subprocess on the card (its
+    default device) over config 5's panel written as a long csv, and
+    ``--llm`` on a raw chat reply; each scorecard equals, value for value,
+    ``alpha_summary`` computed in this process the way the CLI does
+    (the next-traded-day label of ``shift_ret_next_period``)."""
+    import numpy as np
+
+    from mfm_tpu_torch.alpha.dsl import compile_alpha_batch
+    from mfm_tpu_torch.alpha.llm import extract_expressions
+    from mfm_tpu_torch.alpha.metrics import alpha_summary
+    from mfm_tpu_torch.pipeline import shift_ret_next_period
+
+    T, N = ctx["alpha_shape"]
+    dev, d = ctx["device"], ctx["tmp"]
+    panel_np, exprs, _ = alpha_workload(T, N, ctx["alpha_exprs"])
+    exprs = exprs[:ctx["alpha_cli_exprs"]]
+    dates = [str(np.datetime64("2020-01-01") + t) for t in range(T)]
+    stocks = [f"{600000 + j}.SH" for j in range(N)]
+    panel_csv = os.path.join(d, "alpha_panel.csv")
+    _, csv_s = timed(lambda: write_long_csv(panel_csv, panel_np, dates,
+                                            stocks))
+    with open(os.path.join(d, "exprs.txt"), "w") as fh:
+        fh.write("# config 5's templates\n" + "\n".join(exprs) + "\n")
+    with open(os.path.join(d, "chat.md"), "w") as fh:
+        fh.write(ALPHA_CHAT)
+    panel = {k: torch.from_numpy(v).to(dev) for k, v in panel_np.items()}
+    ret = panel_np["ret"].astype(np.float64)
+    fwd = torch.from_numpy(shift_ret_next_period(ret, np.isfinite(ret))).to(
+        device=dev, dtype=torch.float32)
+    llm_exprs, _ = extract_expressions(ALPHA_CHAT, known_fields=set(panel))
+
+    res = {"T": T, "N": N, "csv_write_s": csv_s}
+    for name, src, extra in (
+            ("select", "exprs.txt", ["--select", "5", "--select-out",
+                                     os.path.join(d, "selected.txt")]),
+            ("llm", "chat.md", ["--llm"])):
+        out_csv = os.path.join(d, f"scores_{name}.csv")
+        cmd = [sys.executable, "-m", "mfm_tpu_torch.cli", "alpha", "--exprs",
+               os.path.join(d, src), "--panel", panel_csv, "--out", out_csv,
+               *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        require(proc.returncode == 0, f"alpha_cli {name}: exit "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        want_exprs = exprs if name == "select" else llm_exprs
+        card = read_scorecard(out_csv)
+        want = alpha_summary(compile_alpha_batch(want_exprs)(panel), fwd)
+        equal = card["expression"] == want_exprs and all(
+            np.array_equal(card[k], want[k].cpu().numpy(), equal_nan=True)
+            for k in want)
+        res[name] = {"wall_s": wall, "report": rec, "scorecard_equal": equal,
+                     "skipped_lines": proc.stderr.count("skipped")}
+        require(rec["device"].startswith("cuda"),
+                f"alpha_cli {name} did not run on the card: {rec}")
+        require(equal, f"alpha_cli {name}: the scorecard is not the "
+                "in-process alpha_summary")
+    emit("alpha_cli", **res)
+    require(res["select"]["report"]["n_selected"] == 5,
+            "alpha_cli: --select 5 did not select 5")
+    require(res["llm"]["report"]["llm_extraction"]["n_duplicates"] == 1
+            and res["llm"]["skipped_lines"] >= 1,
+            "alpha_cli --llm: the duplicate or the rejections went missing")
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3974,8 +4768,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from mfm_tpu_torch import RiskModel, RiskModelConfig
     from mfm_tpu_torch.convert import budget_check, outputs_to_numpy
-    from mfm_tpu_torch.data.synthetic import CSI300, synthetic_risk_inputs
-    from mfm_tpu_torch.models.eigen import sim_sweeps_for, simulated_eigen_covs
+    from mfm_tpu_torch.data.synthetic import (
+        CSI300,
+        UNIVERSES,
+        synthetic_risk_inputs,
+    )
+    from mfm_tpu_torch.models.eigen import simulated_eigen_covs
     from mfm_tpu_torch.models.risk_model import (
         MIN_EIGEN_DATES,
         MIN_REGRESSION_DATES,
@@ -3985,11 +4783,14 @@ def main() -> int:
     from mfm_tpu_torch.ops.eigh_cuda import (
         _launch_eigh,
         _launch_weighted,
-        jacobi_eigh_cuda,
-        jacobi_eigh_weighted_diag_cuda,
         launch_counts,
         reset_launches,
     )
+
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
 
     # -- phase 1: device and build --------------------------------------
     smi = subprocess.run(
@@ -4030,14 +4831,7 @@ def main() -> int:
     sync()
     launches = launch_counts()
     emit("main_path_launches", **launches)
-    require(launches["jacobi_eigh_weighted/warp"] >= 1,
-            "the main path never launched the weighted kernel's warp design")
-    require(launches["jacobi_eigh/warp"] >= 2,
-            "the main path launched the full kernel's warp design fewer "
-            "than 2 times")
-    require(launches["jacobi_eigh_weighted/block"] == 0
-            and launches["jacobi_eigh/block"] == 0,
-            "the main path (n=42, float32) launched a block-design kernel")
+    require_launches(launches, "the main path", 1, 2)
     finite = outputs_finite(out, rm.valid)
     emit("main_path_finite", **finite)
     require(all(finite.values()), f"non-finite or empty outputs: {finite}")
@@ -4087,6 +4881,7 @@ def main() -> int:
     emit("main_path_profile", **profile_run(
         lambda: rm.run_fused(sim_covs=sim_covs, sim_length=T)))
 
+    mark("build_checks_main_path")
     # -- phase 5: the daily serving step at CSI300 width -------------------
     def serve_model(sl, cfg=config, data=panel):
         return RiskModel(*(p[sl] for p in data), n_industries=P, config=cfg,
@@ -4102,6 +4897,7 @@ def main() -> int:
     serve_incremental(ctx)
     serve_checkpoint(ctx)
 
+    mark("serving")
     # -- phase 6: the risk pipeline at CSI300 width ------------------------
     ctx["shape"] = CSI300
     pipeline_ingest(ctx)
@@ -4111,12 +4907,14 @@ def main() -> int:
     eigen_mc_bf16(ctx)
     bias_launches = ctx["bias_launches"]
 
+    mark("pipeline")
     # -- phase 7: factor production at CSI300 width, raw panel to risk ------
     ctx["factor_budget"] = budget["factors"]
     factor_rolling(ctx)
     factor_engine(ctx)
     factor_launches = factor_pipeline(ctx)["launches"]
 
+    mark("factors")
     # -- phase 8: query serving, bench configs 6 and 10 -----------------------
     # the query path runs no kernel of the port: plain tensor ops
     reset_launches()
@@ -4128,6 +4926,7 @@ def main() -> int:
     require(not any(query_launches.values()),
             f"the query path launched an eigh kernel: {query_launches}")
 
+    mark("queries")
     # -- phase 9: scenarios, bench configs 7 and sweep -----------------------
     # each phase counts the launches of the runs that drive its path, not
     # those of its comparisons with plain versions or the CPU
@@ -4138,14 +4937,10 @@ def main() -> int:
     scenario_launches = {k: ctx["scenario_launches"].get(k, 0)
                          for k in launch_counts()}
     emit("scenario_launches", **scenario_launches)
-    require(scenario_launches["jacobi_eigh/warp"] >= 1,
-            "the scenario path never launched the full kernel's warp design")
-    require(scenario_launches["jacobi_eigh/block"] == 0
-            and scenario_launches["jacobi_eigh_weighted/block"] == 0,
-            f"the scenario path launched a block-design kernel: "
-            f"{scenario_launches}")
+    require_launches(scenario_launches, "the scenario path", 0, 1)
     gate = ctx["scenario_gate"]
 
+    mark("scenarios")
     # -- phase 10: differentiable risk, bench configs 8, 9 and sweep ----------
     # the runs that drive the grad path count their launches; comparisons
     # with plain versions or the CPU do not
@@ -4158,13 +4953,10 @@ def main() -> int:
     grad_launches = {k: ctx["grad_launches"].get(k, 0)
                      for k in launch_counts()}
     emit("grad_launches", **grad_launches)
-    require(grad_launches["jacobi_eigh/warp"] >= 1,
-            "the grad path never launched the full kernel's warp design")
-    require(grad_launches["jacobi_eigh/block"] == 0
-            and grad_launches["jacobi_eigh_weighted/block"] == 0,
-            f"the grad path launched a block-design kernel: {grad_launches}")
+    require_launches(grad_launches, "the grad path", 0, 1)
     grad_kernel = ctx["grad_kernel"]
 
+    mark("grad")
     # -- phase 11: the serving fleet, bench config 12 at CSI300 width ------
     # the pipeline that writes the fleet's checkpoint launches both
     # kernels; every fleet process after it (the in-process front ends
@@ -4185,40 +4977,38 @@ def main() -> int:
     emit("fleet_launches", **fleet_launches)
     scratch.cleanup()
     del ctx
+    torch.cuda.empty_cache()
 
+    mark("fleet")
+    # -- phase 12: the all-A universe, bench configs 1 (--universe alla), 4 --
+    # each path's launches are counted from 0 just before its run and read
+    # just after; its comparisons with plain versions come after that
+    actx = {"device": "cuda", "universe": "alla", "budget": budget["risk"],
+            "factor_budget": budget["factors"]}
+    alla = alla_risk_phase(actx)
+    torch.cuda.empty_cache()
+    alla_factors = alla_factors_phase(actx)
+    torch.cuda.empty_cache()
+
+    mark("all_a")
+    # -- phase 13: alpha, bench configs 5 and alpha_alla ----------------------
+    # the alpha path runs no eigh kernel
+    scratch = tempfile.TemporaryDirectory()
+    actx.update(alpha_shape=CSI300[:2], alpha_alla_shape=UNIVERSES["alla"][:2],
+                alpha_exprs=1000, alpha_cli_exprs=60, tmp=scratch.name)
+    alpha_launches = [alpha_engine_phase(actx)["launches"]]
+    torch.cuda.empty_cache()
+    alpha_launches.append(alpha_alla_phase(actx)["launches"])
+    torch.cuda.empty_cache()
+    alpha_cli_phase(actx)
+    scratch.cleanup()
+
+    mark("alpha")
     # -- phase 4: each kernel at the main path's shapes --------------------
     # the inputs are the ones this run's eigen stage gave the kernels
-    eye = torch.eye(K, device="cuda")
-    F0 = torch.where(out.nw_valid[:, None, None], out.nw_cov, eye).contiguous()
-    D0, _ = E.batched_eigh(F0, canonical_signs=False)
-    s = torch.sqrt(torch.clamp_min(D0, 0.0))
-    G = (s[:, None, :, None] * sim_covs[None] * s[:, None, None, :]
-         ).reshape(T * M, K, K).contiguous()
-    d0 = D0[:, None, :].expand(T, M, K).reshape(T * M, K).contiguous()
-    sw = sim_sweeps_for(K, torch.float32, T)
-    sf = E._sweeps_for(K, torch.float32)
-
-    ww, hh = jacobi_eigh_weighted_diag_cuda(G, d0, sweeps=sw)
-    sync()
-    wwp, hhp = E.jacobi_eigh_weighted_diag_slots(G, d0, sw)
-    w_equal, h_rel = bool(torch.equal(ww, wwp)), rel_per_matrix(hh, hhp)
-    require(w_equal and h_rel <= 1e-4,
-            f"weighted kernel at the main path's shape: w bitwise {w_equal}, "
-            f"h {h_rel}")
-    weighted_err = float(max((ww - wwp).abs().max(), (hh - hhp).abs().max()))
-    del wwp, hhp
-
-    wf, Vf = jacobi_eigh_cuda(F0, sweeps=sf, sort=False, canonical_signs=False)
-    sync()
-    wfp, Vfp = E.jacobi_eigh_slots(F0, sf)
-    f_equal = bool(torch.equal(wf, wfp)) and bool(torch.equal(Vf, Vfp))
-    rec, orth = recon_orth(wf, Vf, F0)
-    require(f_equal and rec <= 5e-5 and orth <= ORTH_TOL_F32,
-            f"full kernel at the main path's shape: w, V bitwise {f_equal}, "
-            f"recon {rec} orth {orth}")
-    full_err = float(max((wf - wfp).abs().max(), (Vf - Vfp).abs().max()))
-    emit("main_shape_check", weighted_w_equal=w_equal, weighted_h_rel=h_rel,
-         full_wV_equal=f_equal, full_recon=rec, full_orth=orth)
+    F0, G, d0, sw, sf = kernel_inputs(out, sim_covs, T, K, M)
+    held = hold_kernels(F0, G, d0, sw, sf, "main_shape")
+    weighted_err, full_err = held["weighted_err"], held["full_err"]
 
     def lib_weighted():
         w, V = torch.linalg.eigh(G)
@@ -4240,8 +5030,7 @@ def main() -> int:
         k: dict(ms=statistics.mean(turns[k]["warp"]),
                 prev_design_ms=statistics.mean(turns[k]["block"]))
         for k in calls}
-    timings["weighted"]["plain_ms"] = time_ms(
-        lambda: E.jacobi_eigh_weighted_diag_slots(G, d0, sw), 1)
+    timings["weighted"]["plain_ms"] = held["weighted_plain_ms"]
     timings["full"]["plain_ms"] = time_ms(lambda: E.jacobi_eigh_slots(F0, sf), 3)
     timings["full"]["library_ms"] = time_ms(lambda: torch.linalg.eigh(F0), 2)
     # one call of the library eigh at 139,000 matrices takes about a
@@ -4249,8 +5038,7 @@ def main() -> int:
     timings["weighted"]["library_ms"] = time_ms(lib_weighted, 1, warmup=False)
 
     bound_of = {
-        "weighted": lambda b: bound(b, K, sw * (K - 1), 4 * b * (K * K + K),
-                                    4 * b * 2 * K, extra_ops=3 * K * K * b),
+        "weighted": lambda b: weighted_kernel_bound(b, K, sw),
         "full": lambda b: full_kernel_bound(b, K, sf),
     }
     B, Bf = G.shape[0], F0.shape[0]
@@ -4300,6 +5088,20 @@ def main() -> int:
             f"a kernel disagrees with its plain version at an update's "
             f"shape: {checks}")
 
+    def alla_entry(name, key):
+        kt = alla["kernel_times"][key]
+        return {"alla_shape": kt["shape"], "alla_sweeps": kt["sweeps"],
+                "alla_launches": alla["launches"][f"{name}/warp"],
+                "alla_factors_launches":
+                    alla_factors["risk"]["launches"][f"{name}/warp"],
+                "alla_ms": kt["ms"], "alla_plain_ms": kt["plain_ms"],
+                "alla_bound_ms": kt["bound_ms"],
+                "alla_bound_by": kt["bound_by"],
+                "alla_library_ms": kt["library_ms"],
+                "alla_max_abs_err": kt["max_abs_err"],
+                "alpha_launches": sum(n[f"{name}/warp"]
+                                      for n in alpha_launches)}
+
     def entry(name, key, replaces, err, shape, sweeps, kernel):
         return {"name": name, "route": "cuda", "design": "warp",
                 "source": SOURCES["warp"], "replaces": replaces,
@@ -4317,7 +5119,7 @@ def main() -> int:
                 "factor_pipeline_launches": factor_launches[f"{name}/warp"],
                 "scenario_launches": scenario_launches[f"{name}/warp"],
                 "grad_launches": grad_launches[f"{name}/warp"],
-                **serve[key]}
+                **serve[key], **alla_entry(name, key)}
 
     kernels = [
         entry("jacobi_eigh_weighted", "weighted",
@@ -4334,7 +5136,10 @@ def main() -> int:
          "grad_bound_ms": grad_kernel["bound_ms"],
          "grad_library_ms": grad_kernel["library_ms"]},
     ]
-    emit("smoke", seconds=time.perf_counter() - t_start)
+    mark("kernel_times")
+    emit("smoke", seconds=time.perf_counter() - t_start,
+         sections_s={name: t - marks[i][1]
+                     for i, (name, t) in enumerate(marks[1:])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -37,6 +37,9 @@ Layout
 - :mod:`mfm_tpu_torch.grad`     — differentiable risk: reverse stress,
                                   exact sensitivities, portfolio
                                   construction
+- :mod:`mfm_tpu_torch.alpha`    — the alpha-expression DSL, scorecards,
+                                  de-correlated selection, LLM-output
+                                  extraction
 - :mod:`mfm_tpu_torch.obs`      — the serving stack's metrics, spans and
                                   flight recorder
 - :mod:`mfm_tpu_torch.convert`  — reference configs / numpy panels / states

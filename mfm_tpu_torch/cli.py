@@ -6,6 +6,8 @@
     python -m mfm_tpu_torch.cli serve STATE --worker --listen HOST:PORT
     python -m mfm_tpu_torch.cli doctor DIR --serve
     python -m mfm_tpu_torch.cli metrics dump|snapshot|diff ...
+    python -m mfm_tpu_torch.cli alpha --exprs FILE --panel LONG.csv \
+        [--select K] [--llm] [--device cuda|cpu]
 
 ``serve`` is the batched portfolio-query service over a guarded risk-state
 checkpoint, alone or as a fleet: worker replicas over pipes or TCP behind
@@ -14,10 +16,13 @@ response cache, SLOs, the flight recorder and the serve and fleet
 manifests.  ``doctor`` audits the checkpoint directory's artifacts and
 run manifest, and with ``--serve`` its serve and fleet manifests, their
 SLO blocks and flight-recorder dumps.  ``metrics`` reads what
-``--metrics-dir`` wrote.  The flags, outputs, manifests and exit codes are
-the reference's; ``--device`` (default ``cuda``) takes the place of its
-``JAX_PLATFORMS``: the service computes on the CUDA card unless asked for
-the CPU, and without a card ``--device cuda`` raises.  The serve path
+``--metrics-dir`` wrote.  ``alpha`` evaluates a batch of alpha-DSL
+expressions over a long panel and writes their scorecard, optionally with
+a de-correlated selection (its csv path needs no pandas).  The flags,
+outputs, manifests and exit codes are the reference's; ``--device``
+(default ``cuda``) takes the place of its ``JAX_PLATFORMS``: a command
+computes on the CUDA card unless asked for the CPU, and without a card
+``--device cuda`` raises.  The serve path
 launches no CUDA kernel, and importing this module builds and loads none.
 
 The reference's other subcommands and ``doctor`` audits are not ported
@@ -38,7 +43,6 @@ UNPORTED_COMMANDS = {
     "risk": "§A 15", "factors": "§A 15", "demo": "§A 15",
     "pipeline": "§A 15", "crosscheck": "§A 15", "report": "§A 15",
     "scenario": "§A 15", "grad": "§A 15",
-    "alpha": "§A 13",
     "prepare": "§A 14", "etl-xlsx": "§A 14", "etl-update": "§A 14",
     "etl-verify": "§A 14", "etl-missing": "§A 14",
     "lint": "§A 16", "sync": "§A 16", "audit": "§A 16",
@@ -49,7 +53,7 @@ def _unported(args):
     raise SystemExit(
         f"mfm_tpu_torch.cli: `{args.cmd}` is not ported yet (ROADMAP.md "
         f"{UNPORTED_COMMANDS[args.cmd]}); this package runs `serve`, "
-        "`doctor` and `metrics`")
+        "`doctor`, `metrics` and `alpha`")
 
 
 def _metrics_init(args) -> None:
@@ -1010,6 +1014,239 @@ _METRICS_DIR_HELP = (
     "lands beside the checkpoint.")
 
 
+# -- alpha ----------------------------------------------------------------------
+
+def _read_long_table(path):
+    """A csv/parquet long table as a dict of numpy columns, ``trade_date``
+    as datetime64 where it parses.  A csv needs no pandas (the card's
+    machine has none); parquet reads through pandas."""
+    import csv
+
+    import numpy as np
+
+    if path.endswith(".parquet"):
+        import pandas as pd
+
+        df = pd.read_parquet(path)
+        return {c: df[c].to_numpy() for c in df.columns}
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    if not rows:
+        raise SystemExit(f"{path}: empty table")
+    header, body = rows[0], rows[1:]
+    cols = {name: np.array([r[j] for r in body], dtype=str)
+            for j, name in enumerate(header)}
+    if "trade_date" in cols:
+        try:
+            cols["trade_date"] = np.array(
+                [d.replace(" ", "T") for d in cols["trade_date"]],
+                dtype="datetime64[ns]")
+        except ValueError:
+            pass  # not ISO dates: the strings keep their order
+    return cols
+
+
+def _extract_llm_sources(text, path, known_fields=None):
+    """``--llm`` ingestion: tolerant extraction with per-line rejection
+    reasons on stderr — stdout stays the command's single JSON line.
+    Returns ``(sources, count-only report)``."""
+    import sys
+
+    from mfm_tpu_torch.alpha.llm import extract_expressions
+
+    sources, rep = extract_expressions(text, known_fields=known_fields)
+    for no, cand, reason in rep.pop("rejected"):
+        print(f"{path}:{no}: skipped: {reason}", file=sys.stderr)
+    return sources, rep
+
+
+def _write_scorecard(path, exprs, columns) -> None:
+    """The scorecard csv: one row per expression, ``expression`` first,
+    then each column (numpy arrays; NaN as an empty cell), as
+    ``DataFrame.to_csv`` writes it."""
+    import csv
+
+    import numpy as np
+
+    def cell(v):
+        if isinstance(v, np.floating) and np.isnan(v):
+            return ""
+        return str(v)  # a float in its own dtype's shortest form
+
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["expression", *columns])
+        for i, e in enumerate(exprs):
+            w.writerow([e, *(cell(col[i]) for col in columns.values())])
+
+
+def _alpha(args):
+    """Batch alpha evaluation + scorecard over a long panel (the config-5
+    workload from the command line): expressions from a text file, one
+    per line, scored against next-traded-day returns, on ``--device``."""
+    import contextlib
+    import sys
+    import time
+
+    import numpy as np
+    import torch
+
+    from mfm_tpu_torch._device import resolve_device
+    from mfm_tpu_torch.alpha.dsl import compile_alpha, compile_alpha_batch
+    from mfm_tpu_torch.alpha.metrics import alpha_summary
+    from mfm_tpu_torch.panel import Panel
+    from mfm_tpu_torch.pipeline import shift_ret_next_period
+
+    # the card unless the caller asked for the CPU; raises without a card
+    device = resolve_device(args.device)
+    p = Panel.from_long(_read_long_table(args.panel))
+    fields = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+              for k, v in p.fields.items()}
+    if args.fwd_field not in fields:
+        raise SystemExit(f"panel has no field {args.fwd_field!r} "
+                         f"(have: {sorted(fields)})")
+
+    exprs = []
+    llm_report = None
+    # `--exprs -` reads stdin (generator | ... alpha --exprs - --panel ...)
+    src = (contextlib.nullcontext(sys.stdin) if args.exprs == "-"
+           else open(args.exprs))
+    with src as fh:
+        if args.llm:
+            # raw chat output: tolerant extraction instead of fail-fast
+            exprs, llm_report = _extract_llm_sources(
+                fh.read(), args.exprs, known_fields=fields)
+        else:
+            for i, line in enumerate(fh, 1):
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                try:
+                    # ast raises SyntaxError, the validator ValueError
+                    e = compile_alpha(line)
+                except (ValueError, SyntaxError) as err:
+                    raise SystemExit(f"{args.exprs}:{i}: {err}") from err
+                missing = [f for f in e.fields if f not in fields]
+                if missing:
+                    raise SystemExit(
+                        f"{args.exprs}:{i}: panel has no field(s) {missing} "
+                        f"(have: {sorted(fields)})")
+                exprs.append(line)
+    if not exprs:
+        raise SystemExit(f"{args.exprs}: no expressions")
+    observed = np.isfinite(np.asarray(p.fields[args.fwd_field]))
+    fwd = torch.as_tensor(shift_ret_next_period(
+        np.asarray(p.fields[args.fwd_field]), observed),
+        dtype=torch.float32, device=device)
+
+    t0 = time.perf_counter()
+    values = compile_alpha_batch(exprs, chunk=args.chunk)(fields)
+    summary = {k: v.cpu().numpy() for k, v in
+               alpha_summary(values, fwd, spread_q=args.spread_q).items()}
+    columns = dict(summary)
+    report: dict = {
+        "n_exprs": len(exprs),
+        "dates": int(values.shape[1]), "stocks": int(values.shape[2]),
+    }
+    if llm_report is not None:
+        report["llm_extraction"] = llm_report
+    if args.select is not None:
+        # greedy top-k under the PnL-correlation cap, ranked by |mean IC|
+        # (the scorecard's own); the scorecard gains selection columns and
+        # the chosen expressions land in --select-out, one per line
+        from mfm_tpu_torch.alpha.select import select_alphas
+
+        sel = select_alphas(values, fwd, args.select,
+                            max_corr=args.max_corr, min_score=args.min_ic,
+                            q=args.spread_q,
+                            scores=np.abs(summary["mean_ic"]))
+        columns["selected"] = np.zeros(len(exprs), bool)
+        columns["select_rank"] = np.full(len(exprs), -1)
+        columns["select_max_corr"] = np.full(len(exprs), np.nan)
+        for rank, (i, c) in enumerate(
+                zip(sel["indices"], sel["max_corr_to_selected"])):
+            columns["selected"][i] = True
+            columns["select_rank"][i] = rank
+            columns["select_max_corr"][i] = c
+        if args.select_out:
+            with open(args.select_out, "w") as fh:
+                fh.writelines(exprs[i] + "\n" for i in sel["indices"])
+            report["select_out"] = args.select_out
+        report["n_selected"] = len(sel["indices"])
+        report["n_rejected_by_corr"] = len(sel["rejected"])
+    if args.values_out:
+        # the evaluated alpha panels as a long parquet table (trade_date,
+        # ts_code, one column per expression), restricted to the selection
+        # when --select ran; gathered on the device before the host copy
+        keep = (list(sel["indices"]) if args.select is not None
+                else list(range(len(exprs))))
+        vals = (values[torch.as_tensor(keep, device=device)].cpu().numpy()
+                if keep else np.empty((0,) + values.shape[1:], np.float32))
+        out_panel = Panel(
+            dates=p.dates, stocks=p.stocks,
+            fields={f"alpha_{i:04d}": vals[j] for j, i in enumerate(keep)})
+        out_panel.to_long(dropna=False).to_parquet(args.values_out,
+                                                   index=False)
+        with open(args.values_out + ".exprs.txt", "w") as fh:
+            fh.writelines(f"alpha_{i:04d}\t{exprs[i]}\n" for i in keep)
+        report["values_out"] = args.values_out
+    wall = time.perf_counter() - t0
+    _write_scorecard(args.out, exprs, columns)
+    report.update({
+        "wall_s": round(wall, 3), "out": args.out, "device": str(device),
+        "best_mean_ic": float(np.nanmax(summary["mean_ic"])),
+    })
+    print(json.dumps(report))
+
+
+def _positive_int(v):
+    iv = int(v)
+    if iv < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return iv
+
+
+def _alpha_parser(sub) -> None:
+    al = sub.add_parser("alpha",
+                        help="batch alpha-expression evaluation + scorecard "
+                             "(bench config 5)")
+    al.add_argument("--exprs", required=True,
+                    help="text file, one expression per line (# = comment); "
+                         "'-' reads stdin (pipe an LLM's output straight in)")
+    al.add_argument("--panel", required=True,
+                    help="long csv/parquet with ts_code/trade_date + fields")
+    al.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where to compute: the CUDA card (default; raises "
+                         "without one) or the CPU")
+    al.add_argument("--out", default="alpha_scores.csv")
+    al.add_argument("--fwd-field", default="ret",
+                    help="field whose next-traded-day value is the target")
+    al.add_argument("--spread-q", type=float, default=0.2)
+    al.add_argument("--chunk", type=int, default=1000,
+                    help="expressions evaluated per group")
+    al.add_argument("--select", type=_positive_int, default=None, metavar="K",
+                    help="greedily pick the K best expressions (by |mean "
+                         "IC|) whose pairwise long-short-PnL correlation "
+                         "stays under --max-corr")
+    al.add_argument("--max-corr", type=float, default=0.7,
+                    help="redundancy cap for --select")
+    al.add_argument("--min-ic", type=float, default=0.0,
+                    help="--select floor: candidates with |mean IC| below "
+                         "this never join, even under k")
+    al.add_argument("--select-out", default=None, metavar="FILE.txt",
+                    help="write the selected expressions here, one per line")
+    al.add_argument("--values-out", default=None, metavar="FILE.parquet",
+                    help="write the evaluated alpha panels as a long table "
+                         "(selected expressions when --select ran, else "
+                         "all) + a FILE.exprs.txt column map (needs pandas)")
+    al.add_argument("--llm", action="store_true",
+                    help="treat --exprs as RAW LLM output (markdown fences, "
+                         "numbered lists, `name = expr` labels, prose): "
+                         "extract every valid DSL expression, dedup, and "
+                         "report what was rejected instead of failing fast")
+    al.set_defaults(fn=_alpha)
+
+
 def _serve_parser(sub) -> None:
     sv = sub.add_parser(
         "serve",
@@ -1180,6 +1417,7 @@ def main(argv=None):
     dr.set_defaults(fn=_doctor)
 
     _serve_parser(sub)
+    _alpha_parser(sub)
 
     mt = sub.add_parser(
         "metrics", help="read what --metrics-dir wrote: dump the "
@@ -1206,6 +1444,8 @@ def main(argv=None):
     args, extra = ap.parse_known_args(argv)
     if extra and args.cmd not in UNPORTED_COMMANDS:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    if getattr(args, "select_out", None) and args.select is None:
+        ap.error("--select-out requires --select")
     args.fn(args)
 
 

@@ -5,7 +5,9 @@
 :func:`synthetic_market_panel` and :func:`synthetic_barra_table` of those
 in ``mfm_tpu/data/synthetic.py`` (the modules import JAX, so the port
 cannot use them): the same numpy draws in the same order, so a seed gives
-both packages the same data.  :func:`panel_to_engine_fields` turns a
+both packages the same data; :class:`Universe`, :data:`UNIVERSES` and
+:func:`resolve_universe` are copies of the workload shapes there.
+:func:`panel_to_engine_fields` turns a
 market panel into the tensors :class:`~mfm_tpu_torch.factors.engine.
 FactorEngine` takes.
 """
@@ -18,6 +20,61 @@ import numpy as np
 
 #: the CSI300 universe of the reference's config-1 workload (T, N, P, Q)
 CSI300 = (1390, 300, 31, 10)
+
+
+class Universe:
+    """A named (T, N, P, Q) workload shape — the ``--universe`` knob.
+
+    ``csi300`` is the CSI300-shaped panel of the reference's config 1;
+    ``alla`` is the full A-share universe (~5,000 names, bench config 4).
+    An integer spec gives an N-stock universe with the CSI300 history
+    length and the same factor structure (P=31 industries + Q=10 styles),
+    so walls stay comparable along the N axis alone.
+    """
+
+    __slots__ = ("name", "T", "N", "P", "Q")
+
+    def __init__(self, name, T, N, P, Q):
+        self.name, self.T, self.N, self.P, self.Q = name, T, N, P, Q
+
+    def __repr__(self):
+        return (f"Universe({self.name!r}, T={self.T}, N={self.N}, "
+                f"P={self.P}, Q={self.Q})")
+
+
+#: the named universes (T, N, P, Q): csi300 is config 1's shape, alla
+#: config 4's
+UNIVERSES = {
+    "csi300": CSI300,
+    "alla": (2500, 5000, 31, 10),
+}
+
+
+def resolve_universe(spec, T: int | None = None) -> Universe:
+    """``'csi300' | 'alla' | N`` (int-like) -> :class:`Universe`.
+
+    ``T`` overrides the history length (e.g. a bounded run at N=5000); the
+    override is recorded in the universe's name (``_t{T}``), so a record
+    produced from it can never pass for the full-length workload.
+    """
+    if isinstance(spec, str) and spec in UNIVERSES:
+        t0, n, p, q = UNIVERSES[spec]
+        name = spec
+    else:
+        try:
+            n = int(spec)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"unknown universe {spec!r}: expected "
+                f"{sorted(UNIVERSES)} or an integer stock count") from None
+        if n <= 0:
+            raise ValueError(f"universe N must be positive, got {n}")
+        t0, (_, p, q) = UNIVERSES["csi300"][0], UNIVERSES["csi300"][1:]
+        name = f"n{n}"
+    t = t0 if T is None else int(T)
+    if t != t0:
+        name = f"{name}_t{t}"
+    return Universe(name, t, n, p, q)
 
 
 def synthetic_risk_inputs(T: int, N: int, P: int, Q: int, seed: int = 0):

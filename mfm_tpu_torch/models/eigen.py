@@ -290,6 +290,15 @@ def eigen_risk_adjust_by_time(
     return _rebuild(U0, D0, v2, scale_coef, valid & psd)
 
 
+def eigen_risk_adjust(cov: torch.Tensor, sim_covs: torch.Tensor,
+                      scale_coef: float = 1.4) -> torch.Tensor:
+    """Adjust one KxK covariance (the reference's ``eigen_risk_adj``,
+    ``utils.py:55-92``): :func:`eigen_risk_adjust_by_time` over one date."""
+    one = torch.ones((1,), dtype=torch.bool, device=cov.device)
+    out, _ = eigen_risk_adjust_by_time(cov[None], one, sim_covs, scale_coef)
+    return out[0]
+
+
 def _assemble_g(s_c, C, md):
     """The simulated covariances in F0's eigenbasis, G = diag(s) C_m
     diag(s), for a (c, K) slab of sqrt-eigenvalues ``s_c`` and C (c or 1,

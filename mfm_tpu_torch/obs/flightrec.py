@@ -42,12 +42,23 @@ FLIGHTREC_NAME = "flightrec.json"
 
 _lock = threading.Lock()
 _ring: collections.deque = collections.deque()
+_capacity = DEFAULT_RING_CAPACITY
 _dump_path: str | None = None
+
+
+def set_capacity(n: int) -> None:
+    """Resize the event ring (overflow drops oldest, counted)."""
+    global _capacity
+    if int(n) < 1:
+        raise ValueError(f"flightrec capacity must be >= 1, got {n}")
+    with _lock:
+        _capacity = int(n)
+        _evict_locked()
 
 
 def _evict_locked() -> int:
     dropped = 0
-    while len(_ring) > DEFAULT_RING_CAPACITY:
+    while len(_ring) > _capacity:
         _ring.popleft()
         dropped += 1
     return dropped
@@ -91,10 +102,12 @@ def last_trace_id() -> str | None:
 
 
 def reset_flightrec() -> None:
-    """Drop every event and disarm the recorder (tests)."""
-    global _dump_path
+    """Drop every event, restore the default capacity and disarm the
+    recorder (tests)."""
+    global _capacity, _dump_path
     with _lock:
         _ring.clear()
+        _capacity = DEFAULT_RING_CAPACITY
         _dump_path = None
 
 

@@ -170,12 +170,32 @@ def _solve_from_normal(normal: _NormalEq, Ginv: torch.Tensor, *,
     omega = Ginv @ XtW if R is None else R @ (Ginv @ XtW)  # (T, K, N)
     factor_ret = _rowdot(omega, retz[..., None, :])  # (T, K)
     spec = retz - _rowdot(X, factor_ret[..., None, :])
-    # equal-weight population variance over the date's universe
-    r2 = 1.0 - masked_var(spec, valid, dim=-1, ddof=0) / masked_var(
-        retz, valid, dim=-1, ddof=0)
+    # equal-weight population variance over the date's universe; R^2 is
+    # 1 minus a ratio near 1 where the factors explain little (~K/N of
+    # noise returns: 0.8% at all-A width), so at float32 the two
+    # variances and the ratio are taken in float64, and only R^2 rounded
+    hi = torch.promote_types(spec.dtype, torch.float64)
+    r2 = (1.0 - masked_var(spec.to(hi), valid, dim=-1, ddof=0) / masked_var(
+        retz.to(hi), valid, dim=-1, ddof=0)).to(spec.dtype)
     spec = torch.where(valid, spec, torch.full_like(spec, float("nan")))
     exposure = (omega @ X) if return_exposure else None
     return CrossSectionResult(factor_ret, spec, r2, exposure)
+
+
+@highest_matmul_precision
+def cross_section_regress(ret, cap, styles, industry, valid, *,
+                          n_industries: int,
+                          standardize_styles: bool = True,
+                          return_exposure: bool = False) -> CrossSectionResult:
+    """One date's constrained WLS pure-factor regression, masked: ret/cap/
+    industry/valid (N,), styles (N, Q); the results without the date axis.
+    Industry codes outside [0, P) are invalid; P=0 runs the no-industry
+    branch.  It is :func:`regress_panel` over a panel of one date."""
+    res = regress_panel(ret[None], cap[None], styles[None], industry[None],
+                        valid[None], n_industries=n_industries,
+                        standardize_styles=standardize_styles,
+                        return_exposure=return_exposure)
+    return CrossSectionResult(*(None if x is None else x[0] for x in res))
 
 
 @highest_matmul_precision

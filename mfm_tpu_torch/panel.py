@@ -3,9 +3,9 @@
 The reference keeps its data in long DataFrames (one row per stock-date)
 and loops over ``groupby`` groups.  Here a panel is a dict of dense
 ``(T, N)`` arrays (dates x stocks) where NaN marks a missing observation,
-so ragged per-date universes become masking, never dynamic shapes.  Only
-:meth:`Panel.from_long` and :meth:`Panel.to_long` import pandas, when
-called.
+so ragged per-date universes become masking, never dynamic shapes.
+:meth:`Panel.from_long` takes a DataFrame or a dict of numpy columns;
+only :meth:`Panel.to_long` imports pandas, when called.
 """
 
 from __future__ import annotations
@@ -65,24 +65,22 @@ class Panel:
                   stock_col: str = "ts_code",
                   value_cols: Iterable[str] | None = None,
                   dtype=np.float64) -> "Panel":
-        """Pivot a long (stock-date rows) DataFrame into a dense Panel.
-        A duplicated (date, stock) pair keeps its last row."""
-        import pandas as pd
-
-        dates = np.sort(df[date_col].unique())
-        stocks = np.sort(df[stock_col].unique())
-        ti = df[date_col].map({d: i for i, d in enumerate(dates)}).to_numpy()
-        si = df[stock_col].map({s: j for j, s in enumerate(stocks)}).to_numpy()
+        """Pivot a long (stock-date rows) table — a DataFrame or a dict of
+        numpy columns — into a dense Panel.  Value columns are read as
+        numbers, anything unparsable as NaN (``pd.to_numeric(...,
+        errors="coerce")``).  A duplicated (date, stock) pair keeps its
+        last row."""
+        dates, ti = np.unique(np.asarray(df[date_col]), return_inverse=True)
+        stocks, si = np.unique(np.asarray(df[stock_col]),
+                               return_inverse=True)
         if value_cols is None:
-            value_cols = [c for c in df.columns if c not in (date_col, stock_col)]
+            value_cols = [c for c in df if c not in (date_col, stock_col)]
         fields: Dict[str, np.ndarray] = {}
         for c in value_cols:
             arr = np.full((len(dates), len(stocks)), np.nan, dtype=dtype)
-            arr[ti, si] = pd.to_numeric(df[c], errors="coerce").to_numpy(
-                dtype=dtype)  # later rows overwrite earlier ones
+            arr[ti, si] = _numeric(df[c], dtype)  # later rows overwrite
             fields[c] = arr
-        return cls(dates=np.asarray(dates), stocks=np.asarray(stocks),
-                   fields=fields)
+        return cls(dates=dates, stocks=stocks, fields=fields)
 
     def to_long(self, *names: str, dropna: bool = True):
         """Flatten back to a long DataFrame, by default one row per
@@ -103,6 +101,21 @@ class Panel:
         return Panel(dates=self.dates, stocks=self.stocks,
                      fields={n: self.fields[n] for n in names},
                      static=dict(self.static))
+
+
+def _numeric(col, dtype) -> np.ndarray:
+    """A column as numbers in ``dtype``; an entry that does not parse as a
+    number is NaN."""
+    a = np.asarray(col)
+    if a.dtype.kind in "fiub":
+        return a.astype(dtype)
+    out = np.full(a.shape, np.nan, dtype=dtype)
+    for i, v in enumerate(a.tolist()):
+        try:
+            out[i] = float(v)
+        except (TypeError, ValueError):
+            pass
+    return out
 
 
 def pct_change(close: np.ndarray) -> np.ndarray:

@@ -334,7 +334,7 @@ def test_device_cuda_raises_without_a_card(ckpts):
     (["risk", "--barra", "x.csv", "--out", "o"], "§A 15"),
     (["scenario", "run", "state.npz"], "§A 15"),
     (["grad", "reverse", "state.npz"], "§A 15"),
-    (["alpha", "--exprs", "a.txt"], "§A 13"),
+    (["pipeline", "--store", "s", "--alphas", "a.txt"], "§A 15"),
     (["etl-update", "--store", "s"], "§A 14"),
     (["lint"], "§A 16"),
     (["doctor", ".", "--scenarios"], "§A 15"),
