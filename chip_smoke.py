@@ -73,9 +73,32 @@ with one host SIGKILLed, every response the port CLI's ``--gulp``
 replay, the delivery audit and the merged Chrome trace) and
 ``fleet_frontend`` (``serve --listen --replicas 2``: four concurrent JSONL
 clients, the HTTP surface, SIGTERM and ``doctor --serve``); every fleet
-process reports its kernel launches (none).  Then the all-A universe
-(T=2500, N=5000, K=42, M=100), in two phases: ``alla_risk`` (bench config
-1 at ``--universe alla``: ``run_fused``, its walls, busy share, peak
+process reports its kernel launches (none).  Then the CLI's compute
+subcommands at CSI300 width, in six phases: ``cli_risk`` (the
+398,228-row table written as a csv and run through ``python -m
+mfm_tpu_torch.cli risk --save-state --quarantine --specific-risk
+--save-outputs --portfolio-bias 100 --metrics-dir`` as a subprocess:
+every table and artifact bit for bit ``run_risk_pipeline`` in this
+process on the same csv and seed, the subprocess's launches the warp
+design's, one weighted and two or more full; the run manifest beside the
+checkpoint and ``doctor``; its csv read and write times; a second one
+with ``--profile`` for the busy share and peak memory), ``cli_update``
+(``--save-state`` on 1350 dates then ``--update`` to 1390, bitwise the
+full run's last 40; again with
+``--quarantine`` over a collapsed date: quarantined, counted in the
+manifest's guard summary, ``health`` the verdict of ``evaluate_health``),
+``cli_demo`` (``demo`` at CSI300 width with ``--check-determinism``,
+bitwise ``run_risk_pipeline``), ``cli_factors`` (config 3's raw panel as
+a long csv through ``factors``: bitwise ``run_factor_pipeline`` on the
+same csv, within the ``factors`` budgets of float64), ``cli_scenario``
+(``scenario run`` and ``scenario sweep --n 65536`` on the guarded
+checkpoint, bitwise the in-process engines; ``doctor --scenarios``) and
+``cli_grad`` (``grad reverse`` on 64 books, ``sensitivity``, ``construct
+min_vol`` on 100 books, each report bitwise ``GradEngine``); all but the
+headline ``risk`` go through ``cli.main`` in this process.  Then the
+all-A universe (T=2500, N=5000, K=42, M=100), in two phases:
+``alla_risk`` (bench config 1 at ``--universe alla``: ``run_fused``, its
+walls, busy share, peak
 memory and launches; both kernels at the run's own (250,000, 42, 42) and
 (2500, 42, 42) against their plain versions and timed; the outputs within
 the ``risk`` budgets of the path at float64 through the plain versions on
@@ -92,7 +115,10 @@ mfm_tpu_torch.cli alpha`` on the card, ``--select`` and ``--llm``: each
 scorecard is the in-process summary); the alpha path launches no kernel.
 Last it times each kernel at the main path's shapes, the two designs in turns
 (block, warp, warp, block), beside its plain version, its bound, the warp
-design's ceiling and ``torch.linalg.eigh``, and, after holding it against
+design's ceiling and ``torch.linalg.eigh`` (for the weighted kernel the
+library and the kernel on the same first 8,192 matrices of G, with their
+ratio: one library call on all 139,000 takes about 72 s, more than this
+run can spare), and, after holding it against
 its plain version there, at the shapes a one-date update launches, and
 samples the SM clock from ``nvidia-smi`` while each warp kernel runs.
 
@@ -4061,6 +4087,615 @@ def fleet_frontend_phase(ctx) -> dict:
     return res
 
 
+# -- the CLI's compute subcommands at CSI300 width ----------------------------
+
+def cli_call(argv) -> tuple:
+    """``mfm_tpu_torch.cli.main(argv)`` in this process: (exit code,
+    standard output).  The card is the CLI's default device."""
+    import contextlib
+    import io
+
+    from mfm_tpu_torch import cli
+
+    out, code = io.StringIO(), 0
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        try:
+            cli.main(list(map(str, argv)))
+        except SystemExit as e:
+            code = e.code
+    return code, out.getvalue()
+
+
+def read_table_exact(path) -> tuple:
+    """A result table the CLI wrote as (index, columns, float64 values),
+    each cell parsed by Python's ``float``: the CLI writes the ``repr`` of
+    a float64, which reads back bit for bit."""
+    import csv
+
+    import numpy as np
+
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    vals = np.array([[float(c) if c else np.nan for c in r[1:]]
+                     for r in rows[1:]])
+    return [r[0] for r in rows[1:]], rows[0][1:], vals
+
+
+def tables_equal(out_dir, outputs, arrays, rows=slice(None),
+                 specific=None) -> dict:
+    """Each result table in ``out_dir`` against ``outputs`` (at the dates
+    ``rows``): the same index and bit for bit the same numbers."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.artifacts import _numpy
+
+    dates = [str(d) for d in np.asarray(arrays.dates)[rows]]
+    names = arrays.factor_names()
+    o = outputs
+    want = {"factor_returns": (_numpy(o.factor_ret[rows]), dates),
+            "r_squared": (_numpy(o.r2[rows])[:, None], dates),
+            "specific_returns": (_numpy(o.specific_ret[rows]), dates),
+            "final_covariance": (_numpy(o.vr_cov[-1]), names),
+            "lambda": (_numpy(o.lamb[rows])[:, None], dates)}
+    if specific is not None:
+        want["specific_risk"] = (specific[rows], dates)
+    res = {}
+    for name, (vals, index) in want.items():
+        got_index, _, got = read_table_exact(os.path.join(out_dir,
+                                                          name + ".csv"))
+        res[name] = (got_index == [str(x) for x in index]
+                     and np.array_equal(got, vals.astype(np.float64),
+                                        equal_nan=True))
+    return res
+
+
+def stage_seconds(metrics_dir) -> dict:
+    """``mfm_stage_seconds`` by stage from a ``--metrics-dir`` snapshot."""
+    with open(os.path.join(metrics_dir, "metrics.json")) as fh:
+        snap = json.load(fh)["metrics"]
+    return {s["labels"]["stage"]: s["value"]
+            for s in snap.get("mfm_stage_seconds", {}).get("series", [])}
+
+
+def cli_risk_phase(ctx) -> dict:
+    """Phase cli_risk: the CSI300 barra table (398,228 rows) written as a
+    csv and run through ``python -m mfm_tpu_torch.cli risk --save-state
+    --quarantine --specific-risk --save-outputs --portfolio-bias 100
+    --metrics-dir`` as a subprocess on the card (M = 100, float32, its own
+    seeded draws); each table, ``portfolio_bias.json`` and
+    ``risk_outputs.npz`` bit for bit ``run_risk_pipeline`` in this process
+    on the same csv and seed; the subprocess's kernel launches (the warp
+    design: one weighted launch, two or more full ones); the run manifest
+    beside the checkpoint, and ``doctor`` on it; a second subprocess with
+    ``--profile`` for the busy share and peak memory."""
+    import numpy as np
+
+    from mfm_tpu_torch import PipelineConfig, RiskModelConfig
+    from mfm_tpu_torch import run_risk_pipeline
+    from mfm_tpu_torch.config import QuarantinePolicy
+    from mfm_tpu_torch.data.artifacts import load_risk_outputs
+    from mfm_tpu_torch.data.csvio import read_csv, write_csv
+
+    dev, T = ctx["device"], ctx["T"]
+    d = os.path.join(ctx["tmp"], "cli")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "barra.csv")
+    _, write_s = timed(lambda: write_csv(path, ctx["table"]))
+    out, ck = os.path.join(d, "risk_out"), os.path.join(d, "ck", "state.npz")
+    mdir, pdir = os.path.join(d, "metrics"), os.path.join(d, "profile")
+
+    def risk(*flags):
+        cmd = [sys.executable, "-m", "mfm_tpu_torch.cli", "risk", "--barra",
+               path, *flags]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True,
+                              text=True, timeout=600)
+        require(proc.returncode == 0, f"cli_risk: exit {proc.returncode}: "
+                f"{proc.stderr[-2000:]}")
+        return (json.loads(proc.stdout.strip().splitlines()[-1]),
+                time.perf_counter() - t0)
+
+    rec, process_s = risk("--out", out, "--save-state", ck, "--quarantine",
+                          "--specific-risk", "--save-outputs",
+                          "--portfolio-bias", "100", "--metrics-dir", mdir)
+    # the profiler's post-processing of ~84,000 kernels lands in the
+    # record's wall, so the busy share and peak come from a run of their own
+    prof_rec, prof_process_s = risk("--out", os.path.join(d, "risk_prof"),
+                                    "--profile", pdir)
+    with open(os.path.join(pdir, "profile_summary.json")) as fh:
+        prof = json.load(fh)
+
+    parsed, read_s = timed(lambda: read_csv(path))
+    cfg = PipelineConfig(risk=RiskModelConfig(
+        quarantine=QuarantinePolicy(enabled=True)))
+    res, run_s = timed(lambda: run_risk_pipeline(parsed, config=cfg,
+                                                 with_state=True, device=dev))
+    spec = res._specific_panels(42.0, 10, 1.0, 10)[1]
+    equal = tables_equal(out, res.outputs, res.arrays, specific=spec)
+    with open(os.path.join(out, "portfolio_bias.json")) as fh:
+        equal["portfolio_bias"] = json.load(fh) == res.portfolio_bias(
+            n_portfolios=100, burn_in=252)
+    saved, _ = load_risk_outputs(os.path.join(out, "risk_outputs.npz"), dev)
+    equal["risk_outputs"] = compare_rows(saved, res.outputs)["bitwise"]
+    mpath = os.path.join(os.path.dirname(ck), "run_manifest.json")
+    with open(mpath) as fh:
+        man = json.load(fh)
+    doctor_rc, _ = cli_call(["doctor", os.path.dirname(ck)])
+    launches = rec["kernels"]["launches"]
+    result = {"rows": len(parsed["date"]), "dates": rec["dates"],
+              "stocks": rec["stocks"], "factors": rec["factors"],
+              "cli_wall_s": rec["wall_s"], "process_s": process_s,
+              "csv_write_s": write_s, "csv_read_in_process_s": read_s,
+              "stages_s": stage_seconds(mdir),
+              "in_process_run_s": run_s, "profile": prof,
+              "profiled_cli_wall_s": prof_rec["wall_s"],
+              "profiled_process_s": prof_process_s,
+              "kernels": rec["kernels"], "tables_bitwise": equal,
+              "manifest": {"backend": man["backend"],
+                           "checkpoint": man["checkpoint"],
+                           "health": man["health"]["status"],
+                           "guard": man["guard"],
+                           "kernels": man["kernels"]["launches"]},
+              "doctor_rc": doctor_rc}
+    emit("cli_risk", **result)
+    require(rec["dates"] == T and rec["factors"] == ctx["K"],
+            f"cli_risk: the run covered the wrong shape: {rec}")
+    require(all(equal.values()), f"cli_risk: a table is not the in-process "
+            f"pipeline's: {equal}")
+    require(launches["jacobi_eigh_weighted/warp"] == 1
+            and launches["jacobi_eigh/warp"] >= 2
+            and launches["jacobi_eigh/block"] == 0
+            and launches["jacobi_eigh_weighted/block"] == 0,
+            f"cli_risk: the subprocess must launch the warp design only, "
+            f"the weighted kernel once: {launches}")
+    require(man["backend"] == torch.device(dev).type
+            and man["checkpoint"] == "state.npz" and doctor_rc == 0,
+            f"cli_risk: the manifest or doctor: {result['manifest']}, "
+            f"doctor {doctor_rc}")
+    require(prof["busy_share"] is not None,
+            "cli_risk: the profiler saw no device time")
+    ctx["cli"] = {"dir": d, "csv": path, "ck": ck, "result": res,
+                  "parsed": parsed}
+    return result
+
+
+def cli_update_phase(ctx) -> dict:
+    """Phase cli_update: ``risk --save-state`` on the first 1350 dates'
+    rows of the csv, then ``risk --update`` with the whole csv (both
+    through ``cli.main`` in this process, the draws' length pinned to
+    1390): the appended 40 dates bit for bit the full run's last 40; then
+    the same with ``--quarantine`` on a table whose date 1360 lost 60% of
+    its rows: that date, and only it, quarantined; the manifest's guard
+    summary counts it (the registry's counters moved by one quarantined
+    date and 40 served ones); its health is ``evaluate_health`` of the
+    appended outputs under that guard summary."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.artifacts import load_risk_outputs
+    from mfm_tpu_torch.obs.health import evaluate_health
+    from mfm_tpu_torch.obs.instrument import guard_summary_from_registry
+    from mfm_tpu_torch.obs.metrics import MetricsRegistry
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+    from mfm_tpu_torch.pipeline import date_stamp
+
+    c, dev, T = ctx["cli"], ctx["device"], ctx["T"]
+    T0, off = SERVE_T0, 10
+    full, parsed, d = c["result"], c["parsed"], c["dir"]
+    dates = np.unique(parsed["date"])
+    with open(c["csv"]) as fh:
+        header, *body = fh.read().splitlines()
+    # the csv's own lines, so every number parses to the same bits
+    head_rows = parsed["date"] < dates[T0]
+    poisoned_date = dates[T0 + off]
+    names, industry = parsed["stocknames"], parsed["industry"]
+    _, first_row = np.unique(industry, return_index=True)
+    on_date = np.nonzero(parsed["date"] == poisoned_date)[0]
+    droppable = on_date[~np.isin(names[on_date], names[first_row])]
+    drop = np.random.default_rng(0).choice(
+        droppable, int(round(0.6 * len(on_date))), replace=False)
+    keep = np.ones(len(body), bool)
+    keep[drop] = False
+    files = {}
+    for name, mask in (("head", head_rows), ("poisoned", keep)):
+        files[name] = os.path.join(d, f"{name}.csv")
+        with open(files[name], "w") as fh:
+            fh.write("\n".join([header, *(ln for ln, k in zip(body, mask)
+                                          if k)]) + "\n")
+    pin = ["--eigen-sim-length", T]
+    res = {"T0": T0, "appended": T - T0}
+    walls = {}
+    for leg, flags, table in (("plain", [], c["csv"]),
+                              ("guarded", ["--quarantine"],
+                               files["poisoned"])):
+        ck = os.path.join(d, f"ck_{leg}", "state.npz")
+        (code, _), walls[f"{leg}_save_state_s"] = timed(lambda: cli_call(
+            ["risk", "--barra", files["head"], "--out",
+             os.path.join(d, f"head_{leg}"), "--save-state", ck, *flags,
+             *pin]))
+        require(code == 0, f"cli_update {leg}: --save-state exit {code}")
+        before = guard_summary_from_registry()
+        reset_launches()
+        (code, txt), walls[f"{leg}_update_s"] = timed(lambda: cli_call(
+            ["risk", "--barra", table, "--out", os.path.join(d, f"upd_{leg}"),
+             "--update", ck, "--save-outputs", *flags, *pin]))
+        launches = launch_counts()
+        require(code == 0, f"cli_update {leg}: --update exit {code}")
+        rec = json.loads(txt.splitlines()[-1])
+        with open(os.path.join(os.path.dirname(ck), "run_manifest.json")) as f:
+            man = json.load(f)
+        outs, _ = load_risk_outputs(os.path.join(d, f"upd_{leg}",
+                                                 "risk_outputs.npz"), dev)
+        guard = man["guard"]
+        res[leg] = {
+            "record": {k: rec[k] for k in ("update_wall_s", "health",
+                                           "stocks", "factors")},
+            "appended_dates": [rec["appended_dates"][0],
+                               rec["appended_dates"][-1],
+                               len(rec["appended_dates"])],
+            "launches": launches, "guard": guard,
+            "guard_delta": {
+                "served": guard["served_dates"] - before["served_dates"],
+                "quarantined": (guard["quarantined_dates"]
+                                - before["quarantined_dates"])},
+            "health": man["health"]["status"],
+            "health_recomputed": evaluate_health(
+                outs, guard_summary=guard,
+                registry=MetricsRegistry())["status"]}
+        if leg == "plain":
+            res[leg]["rows_vs_full"] = compare_rows(
+                outs, suffix(full.outputs, T0))
+            res[leg]["tables_vs_full"] = tables_equal(
+                os.path.join(d, f"upd_{leg}"), full.outputs, full.arrays,
+                rows=slice(T0, None))
+        else:
+            res[leg]["quarantined"] = rec["quarantined"]
+    res["walls_s"] = walls
+    emit("cli_update", **res)
+    p, g = res["plain"], res["guarded"]
+    require(p["appended_dates"][2] == T - T0 and p["rows_vs_full"]["bitwise"]
+            and all(p["tables_vs_full"].values()),
+            f"cli_update: the appended dates are not the full run's last "
+            f"{T - T0}: {p['tables_vs_full']}")
+    require(p["launches"]["jacobi_eigh_weighted/warp"] >= 1
+            and p["launches"]["jacobi_eigh/warp"] >= 2
+            and p["launches"]["jacobi_eigh/block"] == 0,
+            f"cli_update: the update did not go through the warp design: "
+            f"{p['launches']}")
+    require([q["date"] for q in g["quarantined"]]
+            == [date_stamp(poisoned_date)]
+            and "universe_collapse" in g["quarantined"][0]["reasons"],
+            f"cli_update: the collapsed date, and only it, must quarantine: "
+            f"{g['quarantined']}")
+    require(g["guard_delta"] == {"served": T - T0, "quarantined": 1},
+            f"cli_update: the manifest's guard summary must count the one "
+            f"quarantined date: {g['guard_delta']}")
+    require(all(x["health"] == x["health_recomputed"] == x["record"]["health"]
+                for x in (p, g)),
+            f"cli_update: the health verdict is not evaluate_health's: "
+            f"{[(x['health'], x['health_recomputed']) for x in (p, g)]}")
+    return res
+
+
+def cli_demo_phase(ctx) -> dict:
+    """Phase cli_demo: ``demo --dates 1390 --stocks 300 --industries 31
+    --styles 10 --eigen-sims 100 --check-determinism`` through
+    ``cli.main``: deterministic, and its tables bit for bit
+    ``run_risk_pipeline`` on ``synthetic_barra_table`` of the same
+    arguments."""
+    from mfm_tpu_torch import PipelineConfig, RiskModelConfig
+    from mfm_tpu_torch import run_risk_pipeline
+    from mfm_tpu_torch.data.synthetic import synthetic_barra_table
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+
+    T, N, P, Q = ctx["shape"]
+    out = os.path.join(ctx["cli"]["dir"], "demo")
+    reset_launches()
+    (code, txt), wall = timed(lambda: cli_call(
+        ["demo", "--dates", T, "--stocks", N, "--industries", P, "--styles",
+         Q, "--eigen-sims", 100, "--check-determinism", "--out", out]))
+    launches = launch_counts()
+    require(code == 0, f"cli_demo: exit {code}")
+    rec = json.loads(txt.splitlines()[-1])
+    table, _ = synthetic_barra_table(T=T, N=N, P=P, Q=Q, seed=0)
+    want = run_risk_pipeline(table, config=PipelineConfig(
+        risk=RiskModelConfig(eigen_n_sims=100)), device=ctx["device"])
+    equal = tables_equal(out, want.outputs, want.arrays)
+    res = {"record": rec, "process_wall_s": wall, "launches": launches,
+           "tables_bitwise": equal}
+    emit("cli_demo", **res)
+    require(rec["deterministic"] is True, "cli_demo: not deterministic")
+    require(all(equal.values()), f"cli_demo: a table is not "
+            f"run_risk_pipeline's: {equal}")
+    require(launches["jacobi_eigh_weighted/warp"] == 3
+            and launches["jacobi_eigh/block"] == 0,
+            f"cli_demo: three runs, one weighted launch each: {launches}")
+    return res
+
+
+def cli_factors_phase(ctx) -> dict:
+    """Phase cli_factors: bench config 3's raw panel written as a long csv
+    (with its index prices and industry map) through ``factors --panel
+    --index --industry`` (``cli.main``, float32): ``barra_data.csv`` bit
+    for bit ``run_factor_pipeline`` on the panel read from the same csv,
+    and its factors within the ``factors`` budgets of the float64 run."""
+    import csv
+
+    import numpy as np
+
+    from mfm_tpu_torch import PipelineConfig, run_factor_pipeline
+    from mfm_tpu_torch.cli import _read_long_table, _reindex
+    from mfm_tpu_torch.data.csvio import read_csv, write_csv
+    from mfm_tpu_torch.data.synthetic import PANEL_META_KEYS
+    from mfm_tpu_torch.panel import Panel
+
+    data, dev = _factor_panel(ctx), ctx["device"]
+    d = os.path.join(ctx["cli"]["dir"], "factors")
+    os.makedirs(d, exist_ok=True)
+    T, N = data["close"].shape
+    days = np.asarray(data["dates"]).astype("datetime64[D]")
+    ed = data["end_date_code"].astype(np.float64)
+    ed[ed < 0] = np.nan
+    long = {"trade_date": np.repeat(days, N),
+            "ts_code": np.tile(data["stocks"], T),
+            **{k: np.asarray(v).reshape(-1) for k, v in data.items()
+               if k not in PANEL_META_KEYS},
+            "end_date": (20_000_000 + ed).reshape(-1)}
+    paths = {k: os.path.join(d, f"{k}.csv") for k in ("panel", "index",
+                                                      "industry")}
+    _, write_s = timed(lambda: write_csv(paths["panel"], long))
+    write_csv(paths["index"], {"trade_date": days,
+                               "close": data["index_close"]})
+    write_csv(paths["industry"], {
+        "ts_code": data["stocks"],
+        "l1_code": np.array([f"sw{c:02d}" for c in data["industry"]])})
+    out = os.path.join(d, "out")
+    (code, txt), cli_s = timed(lambda: cli_call(
+        ["factors", "--panel", paths["panel"], "--index", paths["index"],
+         "--industry", paths["industry"], "--out", out]))
+    require(code == 0, f"cli_factors: exit {code}")
+    rec = json.loads(txt.splitlines()[-1])
+
+    p, read_s = timed(lambda: Panel.from_long(
+        _read_long_table(paths["panel"])))
+    index = read_csv(paths["index"], parse_dates=("trade_date",))
+    ind = read_csv(paths["industry"])
+    e = p.fields.pop("end_date")
+    ok = np.isfinite(e)
+    rid = np.full(e.shape, -1, np.int32)
+    rid[ok] = np.searchsorted(np.unique(e[ok]), e[ok])
+    p.fields["end_date_code"] = rid
+    args = (p.fields, _reindex(index["trade_date"], index["close"], p.dates),
+            _reindex(ind["ts_code"], ind["l1_code"], p.stocks), p.dates,
+            p.stocks)
+    table, factors = run_factor_pipeline(*args, PipelineConfig(), device=dev)
+    _, f64 = run_factor_pipeline(*args, PipelineConfig(dtype="float64"),
+                                 device=dev)
+    budget = _factor_records(factors, {k: f64[k] for k in factors},
+                             ctx["factor_budget"])
+    with open(os.path.join(out, "barra_data.csv"), newline="") as fh:
+        header, *rows = list(csv.reader(fh))
+    text = ("date", "stocknames", "industry")
+    got = {k: [r[j] for r in rows] for j, k in enumerate(header)}
+    bitwise = (header == list(table)
+               and got["date"] == [str(x) for x in np.asarray(
+                   table["date"]).astype("datetime64[D]")]
+               and got["stocknames"] == table["stocknames"].tolist()
+               and got["industry"] == table["industry"].tolist()
+               and all(np.array_equal(
+                   np.array([float(c) if c else np.nan for c in got[k]]),
+                   np.asarray(table[k], np.float64), equal_nan=True)
+                   for k in header if k not in text))
+    res = {"rows": rec["rows"], "panel_rows": T * N, "csv_write_s": write_s,
+           "cli_wall_s": cli_s, "panel_read_in_process_s": read_s,
+           "barra_bitwise": bitwise, "budget_max_rel": budget["max_rel"],
+           "budget_failed": budget["failed"]}
+    emit("cli_factors", **res)
+    require(rec["rows"] == len(table["date"]) and bitwise,
+            "cli_factors: barra_data.csv is not run_factor_pipeline's on "
+            "the panel read from the same csv")
+    require(not budget["failed"], f"cli_factors: outside the factors "
+            f"budgets of float64: {budget['failed']}")
+    return res
+
+
+CLI_SPECS = [{"name": "replay-window", "replay": ["2024-01-02",
+                                                  "2024-02-01"]},
+             {"name": "cf-quarantine", "flip_quarantine": ["2024-03-01"]}]
+
+
+def _without(obj, key):
+    """``obj`` (a JSON tree) with every ``key`` entry dropped."""
+    if isinstance(obj, dict):
+        return {k: _without(v, key) for k, v in obj.items() if k != key}
+    if isinstance(obj, list):
+        return [_without(v, key) for v in obj]
+    return obj
+
+
+def cli_scenario_phase(ctx) -> dict:
+    """Phase cli_scenario: on phase cli_risk's guarded checkpoint,
+    ``scenario run`` with the three presets, a replay and a counterfactual
+    (the CLI's engine holds no history, so those two are rejected, as the
+    reference's are) and ``scenario sweep`` at its defaults (65,536
+    uniform scenarios, chunks of 8,192, the refinement), through
+    ``cli.main``: each manifest, its summary block aside, the in-process
+    ``ScenarioEngine`` / ``SweepEngine`` on the same checkpoint bit for
+    bit; ``doctor --scenarios`` exits 0; the PSD gate's launches."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.artifacts import load_risk_state
+    from mfm_tpu_torch.grad import ShockBall
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+    from mfm_tpu_torch.scenario import (
+        PRESETS,
+        ScenarioEngine,
+        ScenarioSpec,
+        SweepEngine,
+        UniformSampler,
+        build_scenario_manifest,
+        build_sweep_manifest,
+    )
+
+    dev, ck = ctx["device"], ctx["cli"]["ck"]
+    ckdir = os.path.dirname(ck)
+    spec_path = os.path.join(ctx["cli"]["dir"], "specs.json")
+    with open(spec_path, "w") as fh:
+        json.dump(CLI_SPECS, fh)
+    names = sorted(PRESETS)
+    reset_launches()
+    (code, _), run_s = timed(lambda: cli_call(
+        ["scenario", "run", ck, *(a for n in names for a in ("--preset", n)),
+         "--spec", spec_path]))
+    run_launches = launch_counts()
+    require(code == 0, f"cli_scenario run: exit {code}")
+    reset_launches()
+    (code, _), sweep_s = timed(lambda: cli_call(["scenario", "sweep", ck]))
+    sweep_launches = launch_counts()
+    require(code == 0, f"cli_scenario sweep: exit {code}")
+    doctor_rc, _ = cli_call(["doctor", ckdir, "--scenarios"])
+
+    st, meta = load_risk_state(ck, dev)
+    eng = ScenarioEngine.from_risk_state(st, meta, device=dev)
+    specs = [PRESETS[n] for n in names] + [ScenarioSpec.from_dict(s)
+                                           for s in CLI_SPECS]
+    results = eng.run(specs)
+    want_run = build_scenario_manifest(
+        results, eng.factor_names, stamp_json=meta.get("stamp"),
+        backend=torch.device(dev).type, summary={}, staleness=eng.staleness)
+    sw = SweepEngine.from_risk_state(st, meta, device=dev)
+    W = np.full((1, sw.K), 1.0 / sw.K)
+    ball = ShockBall(shift_max=0.01, scale_range=0.5, vol_mult_hi=3.5,
+                     corr_beta_hi=0.95)
+    result = sw.sweep(W, UniformSampler(ball, sw.K, 65536, seed=0),
+                      chunk=8192, top_k=16, bins=64, hist_span=8.0,
+                      ball=ball, refine={"seed": 0})
+    want_sweep = build_sweep_manifest(
+        result, stamp_json=meta.get("stamp"), backend=torch.device(dev).type,
+        staleness=sw.staleness, dominance=sw.preset_dominance(result, W),
+        summary={})
+    got = {}
+    for name in ("scenario_manifest.json", "sweep_manifest.json"):
+        with open(os.path.join(ckdir, name)) as fh:
+            got[name] = _without(json.load(fh), "summary")
+    same_run = got["scenario_manifest.json"] == _without(
+        json.loads(json.dumps(want_run)), "summary")
+    same_sweep = got["sweep_manifest.json"] == _without(
+        json.loads(json.dumps(want_sweep)), "summary")
+    man = got["scenario_manifest.json"]
+    res = {"run_wall_s": run_s, "sweep_wall_s": sweep_s,
+           "n_ok": man["n_ok"], "n_rejected": man["n_rejected"],
+           "n_psd_projected": man["n_psd_projected"],
+           "sweep_counts": got["sweep_manifest.json"]["sweep"]["counts"],
+           "run_bitwise": same_run, "sweep_bitwise": same_sweep,
+           "doctor_scenarios_rc": doctor_rc,
+           "run_launches": run_launches, "sweep_launches": sweep_launches}
+    emit("cli_scenario", **res)
+    require(same_run and same_sweep, "cli_scenario: a manifest is not the "
+            "in-process engine's")
+    require(man["n_ok"] == len(names) and man["n_rejected"] == 2,
+            f"cli_scenario: the presets must run and the replay and "
+            f"counterfactual be rejected: {man['n_ok']}, {man['n_rejected']}")
+    require(doctor_rc == 0, "cli_scenario: doctor --scenarios failed")
+    require(run_launches["jacobi_eigh/warp"] >= 1
+            and run_launches["jacobi_eigh/block"] == 0,
+            f"cli_scenario: the PSD gate did not run on the warp kernel: "
+            f"{run_launches}")
+    ctx["cli_launches"] = {"scenario_run": run_launches,
+                           "scenario_sweep": sweep_launches}
+    return res
+
+
+def cli_grad_phase(ctx) -> dict:
+    """Phase cli_grad: on the same checkpoint, ``grad reverse`` (64
+    books), ``grad sensitivity`` (identity and the presets) and ``grad
+    construct min_vol`` (100 books) through ``cli.main``: each
+    ``grad_report.json`` the in-process ``GradEngine`` on the same inputs,
+    bit for bit; the launches of each."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.artifacts import load_risk_state
+    from mfm_tpu_torch.grad import GradEngine, ShockBall
+    from mfm_tpu_torch.grad.engine import REVERSE_STEPS
+    from mfm_tpu_torch.grad.report import build_grad_report
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+    from mfm_tpu_torch.scenario import PRESETS, ScenarioSpec
+
+    dev, ck, d = ctx["device"], ctx["cli"]["ck"], ctx["cli"]["dir"]
+    st, meta = load_risk_state(ck, dev)
+    ge = GradEngine.from_risk_state(st, meta, device=dev)
+    K = ge.K
+    rng = np.random.default_rng(12)
+    books = {"reverse": (0.2 * rng.standard_normal((64, K))).round(6),
+             "construct": np.abs(rng.standard_normal((100, K))).round(6)}
+    for k, W in books.items():
+        with open(os.path.join(d, f"books_{k}.json"), "w") as fh:
+            json.dump(W.tolist(), fh)
+    stamp = dict(stamp_json=meta.get("stamp"),
+                 backend=torch.device(dev).type, staleness=ge.staleness)
+
+    def want_reverse():
+        ball = ShockBall(vol_mult_hi=3.5, corr_beta_hi=0.95)
+        return build_grad_report(
+            "reverse_stress", ge.reverse_stress(books["reverse"], ball=ball,
+                                                steps=REVERSE_STEPS),
+            params={"ball": ball.to_dict(), "steps": REVERSE_STEPS}, **stamp)
+
+    def want_sensitivity():
+        W = np.full(K, 1.0 / K)
+        specs = [ScenarioSpec.identity()] + [PRESETS[n]
+                                             for n in sorted(PRESETS)]
+        return build_grad_report("sensitivity", ge.sensitivities(specs, W),
+                                 params={"portfolio": W.tolist()}, **stamp)
+
+    def want_construct():
+        r = ge.construct_solve("min_vol", books["construct"])
+        entries = [{"label": f"p{i}", "solver": "min_vol",
+                    "weights": {str(n): float(v) for n, v in
+                                zip(ge.factor_names, r["weights"][i])},
+                    "total_vol": float(r["vols"][i]),
+                    "diag": (np.asarray(r["diag"][i]).tolist()
+                             if np.asarray(r["diag"][i]).ndim
+                             else float(r["diag"][i]))}
+                   for i in range(len(books["construct"]))]
+        return build_grad_report("construct", entries,
+                                 params={"solver": "min_vol"}, **stamp)
+
+    res, launches = {}, {}
+    for name, argv, want in (
+            ("reverse", ["reverse", "--portfolio",
+                         os.path.join(d, "books_reverse.json")],
+             want_reverse),
+            ("sensitivity", ["sensitivity"], want_sensitivity),
+            ("construct", ["construct", "min_vol", "--portfolio",
+                           os.path.join(d, "books_construct.json")],
+             want_construct)):
+        out = os.path.join(d, f"grad_{name}")
+        reset_launches()
+        (code, _), wall = timed(lambda: cli_call(["grad", argv[0], ck,
+                                                  *argv[1:], "--out", out]))
+        launches[name] = launch_counts()
+        require(code == 0, f"cli_grad {name}: exit {code}")
+        with open(os.path.join(out, "grad_report.json")) as fh:
+            got = json.load(fh)
+        res[name] = {"wall_s": wall, "entries": len(got["entries"]),
+                     "bitwise": got == json.loads(json.dumps(want())),
+                     "launches": launches[name]}
+    emit("cli_grad", **res)
+    require(all(r["bitwise"] for r in res.values()),
+            f"cli_grad: a report is not the in-process GradEngine's: "
+            f"{ {k: r['bitwise'] for k, r in res.items()} }")
+    require(res["reverse"]["entries"] == 64
+            and res["construct"]["entries"] == 100,
+            "cli_grad: the reports hold the wrong number of books")
+    require(launches["reverse"]["jacobi_eigh/warp"] >= 1
+            and launches["reverse"]["jacobi_eigh/block"] == 0,
+            f"cli_grad reverse: eigh_diff did not run on the warp kernel: "
+            f"{launches['reverse']}")
+    ctx["cli_launches"].update({f"grad_{k}": v for k, v in launches.items()})
+    return res
+
+
 # -- alpha ---------------------------------------------------------------------
 
 #: bench config 5's expression templates (bench.py:842-849)
@@ -4975,11 +5610,28 @@ def main() -> int:
         **{f"frontend_{name}": k["launches"]
            for name, k in fleet_fe["kernels"].items()}}
     emit("fleet_launches", **fleet_launches)
+
+    mark("fleet")
+    # -- phase 11b: the CLI's compute subcommands at CSI300 width -------------
+    # the headline `risk` run is a subprocess on the card; the others go
+    # through cli.main in this process, each launch count read around the
+    # CLI call alone
+    cli_risk = cli_risk_phase(ctx)
+    cli_update = cli_update_phase(ctx)
+    cli_demo = cli_demo_phase(ctx)
+    cli_factors_phase(ctx)
+    cli_scenario_phase(ctx)
+    cli_grad_phase(ctx)
+    cli_launches = {"risk_subprocess": cli_risk["kernels"]["launches"],
+                    "risk_update": cli_update["plain"]["launches"],
+                    "risk_update_guarded": cli_update["guarded"]["launches"],
+                    "demo": cli_demo["launches"], **ctx["cli_launches"]}
+    emit("cli_launches", **cli_launches)
     scratch.cleanup()
     del ctx
     torch.cuda.empty_cache()
 
-    mark("fleet")
+    mark("cli")
     # -- phase 12: the all-A universe, bench configs 1 (--universe alla), 4 --
     # each path's launches are counted from 0 just before its run and read
     # just after; its comparisons with plain versions come after that
@@ -5010,9 +5662,9 @@ def main() -> int:
     held = hold_kernels(F0, G, d0, sw, sf, "main_shape")
     weighted_err, full_err = held["weighted_err"], held["full_err"]
 
-    def lib_weighted():
-        w, V = torch.linalg.eigh(G)
-        return w, torch.einsum("bki,bk->bi", V * V, d0)
+    def lib_weighted(A, d):
+        w, V = torch.linalg.eigh(A)
+        return w, torch.einsum("bki,bk->bi", V * V, d)
 
     calls = {
         "weighted": (lambda design: _launch_weighted(G, d0, sw, design), 5),
@@ -5033,9 +5685,18 @@ def main() -> int:
     timings["weighted"]["plain_ms"] = held["weighted_plain_ms"]
     timings["full"]["plain_ms"] = time_ms(lambda: E.jacobi_eigh_slots(F0, sf), 3)
     timings["full"]["library_ms"] = time_ms(lambda: torch.linalg.eigh(F0), 2)
-    # one call of the library eigh at 139,000 matrices takes about a
-    # minute; it was warmed up on the (1390, 42, 42) batch just above
-    timings["weighted"]["library_ms"] = time_ms(lib_weighted, 1, warmup=False)
+    # one call of the library eigh on all 139,000 matrices of G takes about
+    # 72 s, so the library and the warp kernel are timed on the same first
+    # 8,192 of them; the library was warmed up on the (1390, 42, 42) batch
+    # just above
+    B8 = 8192
+    lib_8192 = time_ms(lambda: lib_weighted(G[:B8], d0[:B8]), 1,
+                       warmup=False)
+    warp_8192 = time_ms(lambda: _launch_weighted(G[:B8], d0[:B8], sw,
+                                                 "warp"), 20)
+    timings["weighted"].update(
+        library_ms=None, library_ms_8192=lib_8192, ms_8192=warp_8192,
+        library_over_kernel_8192=lib_8192 / warp_8192)
 
     bound_of = {
         "weighted": lambda b: weighted_kernel_bound(b, K, sw),
@@ -5119,6 +5780,8 @@ def main() -> int:
                 "factor_pipeline_launches": factor_launches[f"{name}/warp"],
                 "scenario_launches": scenario_launches[f"{name}/warp"],
                 "grad_launches": grad_launches[f"{name}/warp"],
+                "cli_launches": {k: v[f"{name}/warp"]
+                                 for k, v in cli_launches.items()},
                 **serve[key], **alla_entry(name, key)}
 
     kernels = [

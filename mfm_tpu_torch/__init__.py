@@ -48,8 +48,8 @@ Layout
                                   market panels, risk panels and tables,
                                   fenced npz checkpoints
 
-Nothing here needs pandas; only the result tables of the pipeline and
-``load_barra_csv`` import it, when called.
+Nothing here needs pandas; only the DataFrame forms of the pipeline's
+result tables import it, when called.
 """
 
 from mfm_tpu_torch.config import (

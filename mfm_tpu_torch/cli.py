@@ -1,37 +1,52 @@
 """Command-line entry point of the port (counterpart of ``mfm_tpu/cli.py``).
 
+    python -m mfm_tpu_torch.cli risk --barra barra_data.csv --out results/
+    python -m mfm_tpu_torch.cli risk --barra NEW.csv --update ck/state.npz
+    python -m mfm_tpu_torch.cli demo --out results/     # synthetic end-to-end
+    python -m mfm_tpu_torch.cli factors --panel P.csv --index I.csv \
+        --industry M.csv --out results/
+    python -m mfm_tpu_torch.cli scenario list|run|sweep ...
+    python -m mfm_tpu_torch.cli grad reverse|sensitivity|construct ...
     python -m mfm_tpu_torch.cli serve STATE [--device cuda|cpu] ...
     python -m mfm_tpu_torch.cli serve STATE --replicas N      # pipe fleet
     python -m mfm_tpu_torch.cli serve STATE --listen HOST:PORT [--http]
     python -m mfm_tpu_torch.cli serve STATE --worker --listen HOST:PORT
-    python -m mfm_tpu_torch.cli doctor DIR --serve
+    python -m mfm_tpu_torch.cli doctor DIR [--serve] [--scenarios]
     python -m mfm_tpu_torch.cli metrics dump|snapshot|diff ...
     python -m mfm_tpu_torch.cli alpha --exprs FILE --panel LONG.csv \
         [--select K] [--llm] [--device cuda|cpu]
 
-``serve`` is the batched portfolio-query service over a guarded risk-state
+``risk`` runs the risk model over a barra-format csv, checkpoints it
+(``--save-state``, with the run manifest and its health verdict beside
+the checkpoint) or serves new dates from a checkpoint (``--update``);
+``demo`` runs it on a seeded synthetic table; ``factors`` produces the
+barra table from a raw long panel.  ``scenario`` and ``grad`` stress,
+differentiate and construct against a guarded checkpoint.  ``serve`` is
+the batched portfolio-query service over a guarded risk-state
 checkpoint, alone or as a fleet: worker replicas over pipes or TCP behind
 a coalescing front end, a socket/HTTP listener, rolling rollouts, the
 response cache, SLOs, the flight recorder and the serve and fleet
 manifests.  ``doctor`` audits the checkpoint directory's artifacts and
-run manifest, and with ``--serve`` its serve and fleet manifests, their
-SLO blocks and flight-recorder dumps.  ``metrics`` reads what
-``--metrics-dir`` wrote.  ``alpha`` evaluates a batch of alpha-DSL
-expressions over a long panel and writes their scorecard, optionally with
-a de-correlated selection (its csv path needs no pandas).  The flags,
-outputs, manifests and exit codes are the reference's; ``--device``
-(default ``cuda``) takes the place of its ``JAX_PLATFORMS``: a command
-computes on the CUDA card unless asked for the CPU, and without a card
-``--device cuda`` raises.  The serve path
+run manifest, with ``--serve`` its serve and fleet manifests, their SLO
+blocks and flight-recorder dumps, and with ``--scenarios`` its scenario
+and sweep manifests.  ``metrics`` reads what ``--metrics-dir`` wrote.
+``alpha`` evaluates a batch of alpha-DSL expressions over a long panel and
+writes their scorecard, optionally with a de-correlated selection.  The
+csv paths need no pandas.  The flags, outputs, manifests and exit codes
+are the reference's; ``--device`` (default ``cuda``) takes the place of
+its ``JAX_PLATFORMS``: a command computes on the CUDA card unless asked
+for the CPU, and without a card ``--device cuda`` raises.  The serve path
 launches no CUDA kernel, and importing this module builds and loads none.
 
-The reference's other subcommands and ``doctor`` audits are not ported
-yet; each exits non-zero naming its ROADMAP.md item.
+The reference's other subcommands, ``risk --barra-store``, ``risk --mesh``
+and ``doctor --audit/--sync`` are not ported yet; each exits non-zero
+naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 
@@ -40,9 +55,7 @@ SERVE_MANIFEST_NAME = "serve_manifest.json"
 #: the reference's subcommands this port does not carry yet, by the
 #: ROADMAP.md item that ports them
 UNPORTED_COMMANDS = {
-    "risk": "§A 15", "factors": "§A 15", "demo": "§A 15",
-    "pipeline": "§A 15", "crosscheck": "§A 15", "report": "§A 15",
-    "scenario": "§A 15", "grad": "§A 15",
+    "pipeline": "§A 15", "crosscheck": "§A 14", "report": "§A 14",
     "prepare": "§A 14", "etl-xlsx": "§A 14", "etl-update": "§A 14",
     "etl-verify": "§A 14", "etl-missing": "§A 14",
     "lint": "§A 16", "sync": "§A 16", "audit": "§A 16",
@@ -52,8 +65,9 @@ UNPORTED_COMMANDS = {
 def _unported(args):
     raise SystemExit(
         f"mfm_tpu_torch.cli: `{args.cmd}` is not ported yet (ROADMAP.md "
-        f"{UNPORTED_COMMANDS[args.cmd]}); this package runs `serve`, "
-        "`doctor`, `metrics` and `alpha`")
+        f"{UNPORTED_COMMANDS[args.cmd]}); this package runs `risk`, "
+        "`demo`, `factors`, `scenario`, `grad`, `serve`, `doctor`, "
+        "`metrics` and `alpha`")
 
 
 def _metrics_init(args) -> None:
@@ -419,23 +433,98 @@ def _audit_flightrec(fr_path: str) -> dict:
     return rec
 
 
+def _audit_scenario_manifests(man_dir: str) -> list:
+    """``--scenarios``: the scenario manifest beside the artifacts (a torn
+    write, an embedded spec whose recomputed hash disagrees with the
+    recorded one, or inconsistent counts all mean the last stress run
+    cannot be trusted), and the sweep manifest when one is there."""
+    from mfm_tpu_torch.scenario.manifest import (
+        ScenarioManifestError,
+        audit_scenario_manifest,
+        read_scenario_manifest,
+        scenario_manifest_path_for,
+    )
+    from mfm_tpu_torch.scenario.sweep import (
+        SweepManifestError,
+        audit_sweep_manifest,
+        read_sweep_manifest,
+        sweep_manifest_path_for,
+    )
+
+    no_trace = ("manifest carries no root trace_id — this run cannot be "
+                "joined to its trace (pre-tracing build, or tracing "
+                "disabled)")
+    scpath = scenario_manifest_path_for(man_dir)
+    swpath = sweep_manifest_path_for(man_dir)
+    rec = {"file": scpath, "kind": "scenario_manifest", "status": "ok",
+           "problems": [], "warnings": []}
+    records = [rec]
+    if not os.path.exists(scpath):
+        if os.path.exists(swpath):
+            # a sweep ran here but no preset drill did — fine for the
+            # artifacts, just worth flagging
+            rec["warnings"].append(
+                "no scenario_manifest.json beside the artifacts (only a "
+                "sweep manifest) — run `mfm-tpu scenario run` for the "
+                "preset drill record")
+        else:
+            rec["status"] = "missing"
+            rec["problems"].append(
+                "no scenario_manifest.json beside the artifacts — has "
+                "`mfm-tpu scenario run` run against this checkpoint dir?")
+    else:
+        try:
+            problems, warnings = audit_scenario_manifest(scpath)
+        except ScenarioManifestError as err:
+            rec["status"] = "corrupt"
+            rec["problems"].append(str(err))
+        else:
+            rec["problems"].extend(problems)
+            rec["warnings"].extend(warnings)
+            summary = read_scenario_manifest(scpath).get("summary") or {}
+            if not summary.get("trace_id"):
+                rec["warnings"].append("scenario " + no_trace)
+            if rec["problems"]:
+                rec["status"] = "unhealthy"
+    # sweep manifests are optional — audit one only when present, so
+    # checkpoints that never ran a sweep stay green
+    if os.path.exists(swpath):
+        swrec = {"file": swpath, "kind": "sweep_manifest", "status": "ok",
+                 "problems": [], "warnings": []}
+        records.append(swrec)
+        try:
+            problems, warnings = audit_sweep_manifest(swpath)
+        except SweepManifestError as err:
+            swrec["status"] = "corrupt"
+            swrec["problems"].append(str(err))
+        else:
+            swrec["problems"].extend(problems)
+            swrec["warnings"].extend(warnings)
+            summary = read_sweep_manifest(swpath).get("summary") or {}
+            if not summary.get("trace_id"):
+                swrec["warnings"].append("sweep " + no_trace)
+            if swrec["problems"]:
+                swrec["status"] = "unhealthy"
+    return records
+
+
 def _doctor(args):
     """Audit a serving state directory (or one artifact): payload
     checksums, fencing generation vs ``latest.json``, the risk-state
     field/stamp schema and the run manifest; with ``--serve`` the serve
-    and fleet manifests and flight-recorder dumps beside them.  Prints one
+    and fleet manifests and flight-recorder dumps beside them, with
+    ``--scenarios`` the scenario and sweep manifests.  Prints one
     JSON record per file and exits non-zero when anything is corrupt,
     stale, schema-broken or unhealthy."""
     import glob
 
-    for flag, item in (("scenarios", "§A 15"), ("audit", "§A 16"),
-                       ("sync", "§A 16")):
+    for flag in ("audit", "sync"):
         if getattr(args, flag, None):
             raise SystemExit(
                 f"mfm_tpu_torch.cli: `doctor --{flag}` is not ported yet "
-                f"(ROADMAP.md {item}); this package audits artifacts, the "
-                "run manifest and, with --serve, the serve and fleet "
-                "manifests")
+                "(ROADMAP.md §A 16); this package audits artifacts, the "
+                "run manifest and, with --serve and --scenarios, the serve, "
+                "fleet, scenario and sweep manifests")
     if args.path is None:
         raise SystemExit("doctor: PATH is required")
     if os.path.isdir(args.path):
@@ -463,6 +552,8 @@ def _doctor(args):
         for fr_path in sorted(glob.glob(
                 os.path.join(man_dir, "flightrec*.json"))):
             records.append(_audit_flightrec(fr_path))
+    if args.scenarios:
+        records.extend(_audit_scenario_manifests(man_dir))
     unhealthy = sum(r["status"] != "ok" for r in records)
     print(json.dumps({"audited": len(records), "unhealthy": unhealthy,
                       "records": records}, indent=1))
@@ -878,6 +969,890 @@ def _serve_fleet(args, server, state_path, man_dir, _finish,
         _finish(summary, SERVE_MANIFEST_NAME, {})
 
 
+# -- shared helpers of the compute subcommands ---------------------------------
+
+def _unported_flag(cmd: str, flag: str, item: str):
+    raise SystemExit(
+        f"mfm_tpu_torch.cli: `{cmd} {flag}` is not ported yet (ROADMAP.md "
+        f"{item})")
+
+
+@contextlib.contextmanager
+def _profile_ctx(profile_dir, device):
+    """``torch.profiler`` capture of the block into ``profile_dir`` — a
+    Chrome trace (``trace.json``, Perfetto-viewable) and
+    ``profile_summary.json`` (wall, summed device kernel time, their
+    ratio, peak device memory) — or a no-op when no dir was asked for
+    (shared by every ``--profile`` flag).  On the card it records the
+    device's activity only: tracing the host's ~80,000 launches of a risk
+    run as well costs tens of seconds."""
+    if not profile_dir:
+        yield
+        return
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device.type == "cuda"
+    acts = [ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]
+    os.makedirs(profile_dir, exist_ok=True)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        yield
+        if cuda:
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    rows = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    with open(os.path.join(profile_dir, "profile_summary.json"), "w") as fh:
+        json.dump({"device": str(device), "wall_s": wall,
+                   "device_s": busy if rows else None,
+                   "busy_share": busy / wall if rows else None,
+                   "device_kernels": sum(e.count for e in rows),
+                   "peak_memory_bytes": (torch.cuda.max_memory_allocated(
+                       device) if cuda else None)}, fh, indent=1)
+
+
+def _require_matplotlib(flag: str):
+    """Fail fast with the install hint instead of an ImportError traceback
+    (shared by every plotting flag)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as err:
+        raise SystemExit(f"{flag} needs matplotlib "
+                         "(pip install 'mfm-tpu[plot]')") from err
+
+
+def _maybe_portfolio_bias(res, args) -> None:
+    """Run the USE4 random-portfolio acceptance test and write
+    ``OUT/portfolio_bias.json`` when ``--portfolio-bias Q`` was given."""
+    if not args.portfolio_bias:
+        return
+    rep = res.portfolio_bias(n_portfolios=args.portfolio_bias,
+                             burn_in=args.bias_burn_in)
+    with open(os.path.join(args.out, "portfolio_bias.json"), "w") as fh:
+        json.dump(rep, fh, indent=1)
+
+
+def _maybe_portfolio_risk(res, args) -> None:
+    """Predicted portfolio risk + per-factor Euler attribution for a
+    ``ts_code,weight`` csv, written to ``OUT/portfolio_risk.json`` when
+    ``--portfolio FILE`` was given.
+
+    Unknown ts_codes in the file are an error (a silent drop would change
+    the portfolio); universe stocks absent from the file get weight 0."""
+    if not args.portfolio:
+        return
+    import numpy as np
+
+    from mfm_tpu_torch.data.csvio import read_csv
+
+    pf = read_csv(args.portfolio)
+    missing = {"ts_code", "weight"} - set(pf)
+    if missing:
+        raise SystemExit(f"--portfolio file lacks columns {sorted(missing)}")
+    stocks = np.asarray(res.arrays.stocks).tolist()
+    codes = pf["ts_code"].tolist()
+    unknown = sorted(set(codes) - set(stocks))
+    if unknown:
+        raise SystemExit(f"--portfolio has ts_codes outside the panel: "
+                         f"{unknown[:5]}{'...' if len(unknown) > 5 else ''}")
+    seen, dup = set(), []
+    for c in codes:
+        if c in seen:
+            dup.append(c)
+        seen.add(c)
+    if dup:
+        # one weight per stock: collapsing repeated rows would compute
+        # risk for a different portfolio
+        raise SystemExit(f"--portfolio lists ts_codes more than once: "
+                         f"{sorted(set(dup))[:5]}")
+    pos = {s: i for i, s in enumerate(stocks)}
+    w = np.zeros(len(stocks))
+    w[[pos[c] for c in codes]] = np.asarray(pf["weight"], float)
+    rep = res._portfolio_risk(w, args.portfolio_date, None, 42.0, 10, 1.0,
+                              10)
+    names = res.arrays.factor_names()
+    rep = {k: ({n: float(x) for n, x in zip(names, v)}
+               if isinstance(v, np.ndarray)
+               else v if not isinstance(v, np.generic) else v.item())
+           for k, v in rep.items()}
+    rep["date"] = str(rep["date"])
+    with open(os.path.join(args.out, "portfolio_risk.json"), "w") as fh:
+        json.dump(rep, fh, indent=1)
+
+
+def _save_outputs_npz(res, out: str, source) -> None:
+    """Persist every stage output (incl. the full covariance series) as one
+    identity-stamped artifact, the reference's schema (load with
+    ``load_risk_outputs``)."""
+    from mfm_tpu_torch.data.artifacts import save_risk_outputs
+    from mfm_tpu_torch.pipeline import date_stamp
+
+    save_risk_outputs(
+        os.path.join(out, "risk_outputs.npz"), res.outputs,
+        meta={"source": source,
+              "dates": [date_stamp(res.arrays.dates[0]),
+                        date_stamp(res.arrays.dates[-1])],
+              "n_stocks": int(res.arrays.ret.shape[1])})
+
+
+def _write_result_tables(res, out: str, specific_risk: bool) -> None:
+    """The five demo.py result tables (``demo.py:60-94``) plus, when
+    asked, the USE4 specific-risk panel (EWMA vol, Bayes-shrunk), with the
+    csv module in ``DataFrame.to_csv``'s layout: the index column first,
+    floats as the ``repr`` of their float64 value, NaN empty."""
+    from mfm_tpu_torch.data.artifacts import _numpy
+    from mfm_tpu_torch.data.csvio import write_csv
+
+    os.makedirs(out, exist_ok=True)
+    a, o = res.arrays, res.outputs
+    names = a.factor_names()
+
+    def table(fname, values, index, columns):
+        values = _numpy(values).reshape(len(index), -1)
+        write_csv(os.path.join(out, fname),
+                  {str(c): values[:, j] for j, c in enumerate(columns)},
+                  index=index)
+
+    table("factor_returns.csv", o.factor_ret, a.dates, names)
+    table("r_squared.csv", o.r2, a.dates, ["R2"])
+    table("specific_returns.csv", o.specific_ret, a.dates, a.stocks)
+    table("final_covariance.csv", o.vr_cov[-1], names, names)
+    table("lambda.csv", o.lamb, a.dates, ["lambda"])
+    if specific_risk:
+        table("specific_risk.csv",
+              res._specific_panels(42.0, 10, 1.0, 10)[1], a.dates, a.stocks)
+
+
+def _report_json(res) -> dict:
+    """JSON-ready quarantine summary of an append result's GuardReport."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.artifacts import _numpy
+    from mfm_tpu_torch.pipeline import date_stamp
+    from mfm_tpu_torch.serve.guard import reason_names
+
+    rep = res.report
+    q = _numpy(rep.quarantined).astype(bool)
+    reasons = _numpy(rep.reasons)
+    stale = _numpy(rep.staleness)
+    dates = [date_stamp(d) for d in res.arrays.dates[-len(q):]]
+    return {
+        "quarantined": [
+            {"date": dates[i], "reasons": reason_names(int(reasons[i])),
+             "staleness": int(stale[i])}
+            for i in np.nonzero(q)[0]
+        ],
+        "quarantine_count_total": int(_numpy(
+            res.state.quarantine_count)) if res.state is not None else None,
+    }
+
+
+def _write_manifest_beside(state_path: str, res, device,
+                           trace_id=None) -> dict:
+    """After a checkpoint save: the run manifest next to it (atomic),
+    carrying the checkpoint's identity stamp, the guard verdict summary,
+    the live metrics snapshot, the model-health verdict and this
+    process's kernel launches.  Returns the health dict.  The health
+    monitors launch kernels of their own, so they run here, at the CLI
+    layer, never inside an update."""
+    from mfm_tpu_torch.data.artifacts import _stamp_to_json
+    from mfm_tpu_torch.obs.health import evaluate_health
+    from mfm_tpu_torch.obs.instrument import guard_summary_from_registry
+    from mfm_tpu_torch.obs.manifest import (
+        build_run_manifest,
+        manifest_path_for,
+        write_run_manifest,
+    )
+    from mfm_tpu_torch.obs.metrics import REGISTRY
+
+    guard = guard_summary_from_registry()
+    health = evaluate_health(res.outputs, guard_summary=guard)
+    extra = {"kernels": _kernel_block()}
+    if trace_id:
+        extra["trace_id"] = trace_id
+    manifest = build_run_manifest(
+        stamp_json=(_stamp_to_json(res.state.stamp)
+                    if res.state is not None else None),
+        checkpoint=state_path,
+        backend=device.type,
+        metrics_snapshot=REGISTRY.snapshot(),
+        guard_summary=guard,
+        health=health,
+        extra=extra,
+    )
+    write_run_manifest(manifest_path_for(state_path), manifest)
+    return health
+
+
+# -- risk, demo, factors -------------------------------------------------------
+
+def _risk(args):
+    """The risk model over a barra-format csv (``demo.py``'s path): the
+    full run, optionally checkpointed (``--save-state``), or one update
+    step from a checkpoint over the table's new dates (``--update``)."""
+    import time
+
+    import numpy as np
+
+    from mfm_tpu_torch._device import resolve_device
+    from mfm_tpu_torch.config import (
+        PipelineConfig,
+        QuarantinePolicy,
+        RiskModelConfig,
+    )
+    from mfm_tpu_torch.data.artifacts import _numpy
+    from mfm_tpu_torch.data.barra import barra_frame_to_arrays
+    from mfm_tpu_torch.data.csvio import read_csv
+    from mfm_tpu_torch.obs.instrument import record_stage_seconds, time_stage
+    from mfm_tpu_torch.obs.trace import end_span
+    from mfm_tpu_torch.pipeline import run_risk_pipeline
+
+    if args.bias_plot:
+        _require_matplotlib("--bias-plot")  # before the pipeline runs
+    if args.update and args.save_state:
+        raise SystemExit("--update advances its checkpoint FILE in place; "
+                         "drop --save-state")
+    if (args.update or args.save_state) and args.nw_method != "scan":
+        raise SystemExit("the resumable state is the serial scan's carry; "
+                         "--save-state/--update need --nw-method scan")
+    if args.update and (args.bias_plot or args.portfolio_bias):
+        # bias statistics need history; an appended slab has none
+        raise SystemExit("--update serves new dates only — run the bias "
+                         "acceptance tests on a full-history run instead")
+    if args.barra_store:
+        _unported_flag("risk", "--barra-store", "§A 14")
+    if args.mesh:
+        _unported_flag("risk", "--mesh", "§A 16")
+    # the card unless the caller asked for the CPU; raises without a card
+    device = resolve_device(args.device)
+    _metrics_init(args)
+    root = _root_span(args)
+
+    cfg = PipelineConfig(
+        risk=RiskModelConfig(
+            nw_lags=args.nw_lags, nw_half_life=args.nw_half_life,
+            nw_method=args.nw_method,
+            eigen_n_sims=args.eigen_sims, eigen_scale_coef=args.eigen_scale,
+            eigen_chunk=args.eigen_chunk,
+            eigen_sim_length=args.eigen_sim_length,
+            eigen_mc_dtype=args.eigen_mc_dtype,
+            eigen_incremental=args.eigen_incremental,
+            vol_regime_half_life=args.vr_half_life, seed=args.seed,
+            quarantine=QuarantinePolicy(enabled=args.quarantine),
+        ),
+        dtype=args.dtype,
+    )
+    with time_stage("read_barra_csv"):
+        table = read_csv(args.barra)
+        codes = (read_csv(args.industry_info)["code"]
+                 if args.industry_info else None)
+
+    def mean_r2(res) -> float:
+        return float(np.nanmean(_numpy(res.outputs.r2)))
+
+    if args.update:
+        # incremental serving: one O(slab) update step from the checkpoint
+        # instead of the O(T) full-history rebuild — same outputs, bitwise
+        from mfm_tpu_torch.data.artifacts import (
+            ArtifactCorruptError,
+            ArtifactStaleError,
+        )
+        from mfm_tpu_torch.pipeline import (
+            append_risk_pipeline,
+            date_stamp,
+            save_pipeline_state,
+        )
+
+        t0 = time.perf_counter()
+        with _profile_ctx(args.profile or args.jax_profile, device):
+            try:
+                res = append_risk_pipeline(args.update, table, config=cfg,
+                                           force=args.force, device=device)
+            except (ValueError, ArtifactCorruptError,
+                    ArtifactStaleError) as err:
+                raise SystemExit(f"--update: {err}") from err
+        with time_stage("write_result_tables"):
+            _write_result_tables(res, args.out, args.specific_risk)
+        save_pipeline_state(args.update, res)  # advance the checkpoint
+        wall = time.perf_counter() - t0
+        record_stage_seconds("update_total", wall)
+        health = _write_manifest_beside(args.update, res, device,
+                                        trace_id=root.trace_id)
+        if args.save_outputs:
+            _save_outputs_npz(res, args.out, args.barra)
+        _maybe_portfolio_risk(res, args)
+        rec = {
+            "appended_dates": [date_stamp(d) for d in res.arrays.dates],
+            "stocks": int(res.arrays.ret.shape[1]),
+            "factors": len(res.arrays.factor_names()),
+            "update_wall_s": round(wall, 3),
+            "mean_r2": mean_r2(res),
+            "state": args.update,
+            "health": health["status"],
+            "trace_id": root.trace_id,
+        }
+        if res.report is not None:
+            rec.update(_report_json(res))
+        rec["kernels"] = _kernel_block()
+        end_span(root, wall_s=round(wall, 3))
+        _metrics_flush(args)
+        print(json.dumps(rec))
+        return
+
+    arrays = barra_frame_to_arrays(table, industry_codes=codes)
+    t0 = time.perf_counter()
+    # the reported wall_s includes the profiler overhead when --profile is on
+    with _profile_ctx(args.profile or args.jax_profile, device):
+        res = run_risk_pipeline(arrays=arrays, config=cfg,
+                                with_state=bool(args.save_state),
+                                device=device)
+    with time_stage("write_result_tables"):
+        _write_result_tables(res, args.out, args.specific_risk)
+    wall = time.perf_counter() - t0
+    record_stage_seconds("risk_full", wall)
+    if args.save_state:
+        # checkpoint the resumable state (outside the timed region, like
+        # the artifact and plot writes below); `risk --update FILE` serves
+        # the next dates from it
+        from mfm_tpu_torch.pipeline import save_pipeline_state
+
+        save_pipeline_state(args.save_state, res)
+        _write_manifest_beside(args.save_state, res, device,
+                               trace_id=root.trace_id)
+    if args.save_outputs:
+        # the full (T, K, K) covariance series + every stage output as one
+        # artifact (the csv tables carry only the last date's covariance)
+        _save_outputs_npz(res, args.out, args.barra)
+    if args.bias_plot:
+        from mfm_tpu_torch.models.bias import (
+            bias_stats_summary,
+            plot_bias_stats,
+        )
+
+        # the USE4 acceptance numbers + picture (utils.py:97-117): the eigen
+        # adjustment must pull the bias statistic toward 1, most visibly at
+        # the extreme eigenfactor ranks
+        o = res.outputs
+        summary = bias_stats_summary(o.nw_cov, o.nw_valid, o.eigen_cov,
+                                     o.eigen_valid, o.factor_ret,
+                                     burn_in=args.bias_burn_in)
+        plot_bias_stats(
+            {label: np.array([np.nan if v is None else v for v in d["bias"]])
+             for label, d in summary["all_valid_dates"].items()},
+            os.path.join(args.out, args.bias_plot),
+        )
+        summary["backend"] = device.type
+        with open(os.path.join(args.out, "bias_stats.json"), "w") as fh:
+            json.dump(summary, fh, indent=1)
+    # USE4's headline acceptance test (random test portfolios)
+    _maybe_portfolio_bias(res, args)
+    _maybe_portfolio_risk(res, args)
+    end_span(root, wall_s=round(wall, 3))
+    _metrics_flush(args)
+    print(json.dumps({
+        "dates": int(arrays.ret.shape[0]), "stocks": int(arrays.ret.shape[1]),
+        "factors": len(arrays.factor_names()), "wall_s": round(wall, 3),
+        "mean_r2": mean_r2(res), "trace_id": root.trace_id,
+        "kernels": _kernel_block(),
+    }))
+
+
+#: the three artifacts `prepare` writes and `factors --prepared` consumes
+PREPARED_PANEL = "panel.parquet"
+PREPARED_INDEX = "index_prices.csv"
+PREPARED_INDUSTRY = "industry_map.csv"
+
+
+def _reindex(keys, values, axis):
+    """``Series(values, index=keys).reindex(axis)`` on numpy: each axis
+    label's value, NaN where the label is absent (an int column then
+    becomes float, as pandas makes it)."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.barra import _index_of
+
+    keys, values, axis = np.asarray(keys), np.asarray(values), np.asarray(axis)
+    if keys.dtype.kind == "M" and axis.dtype.kind == "M":
+        keys = keys.astype(axis.dtype)
+    if len(np.unique(keys)) != len(keys):
+        raise ValueError("cannot reindex on an axis with duplicate labels")
+    at = _index_of(keys, axis)
+    if (at >= 0).all():
+        return values[at]
+    if values.dtype.kind in "iub":
+        values = values.astype(np.float64)
+    elif values.dtype.kind != "f":
+        values = values.astype(object)
+    out = values[np.maximum(at, 0)]
+    out[at < 0] = np.nan
+    return out
+
+
+def _factors(args):
+    """Style-factor production (``main.py``'s path): a raw long panel, the
+    index's prices and the industry map in, ``OUT/barra_data.csv`` out."""
+    import numpy as np
+
+    from mfm_tpu_torch._device import resolve_device
+    from mfm_tpu_torch.config import PipelineConfig
+    from mfm_tpu_torch.data.csvio import read_csv
+    from mfm_tpu_torch.data.csvio import write_csv
+    from mfm_tpu_torch.panel import Panel
+    from mfm_tpu_torch.pipeline import run_factor_pipeline
+
+    if args.prepared:
+        # consume a `prepare` output directory directly (its three
+        # artifacts have fixed names — no need to spell them out)
+        for flag, val in (("--panel", args.panel), ("--index", args.index),
+                          ("--industry", args.industry)):
+            if val:
+                raise SystemExit(f"--prepared already provides {flag}; "
+                                 "drop one of the two")
+        args.panel = os.path.join(args.prepared, PREPARED_PANEL)
+        args.index = os.path.join(args.prepared, PREPARED_INDEX)
+        args.industry = os.path.join(args.prepared, PREPARED_INDUSTRY)
+        missing = [p for p in (args.panel, args.index, args.industry)
+                   if not os.path.exists(p)]
+        if missing:
+            raise SystemExit(f"--prepared {args.prepared}: missing "
+                             f"artifact(s) {missing} (run `prepare` first)")
+    elif not (args.panel and args.index and args.industry):
+        raise SystemExit("pass either --prepared DIR or all of "
+                         "--panel/--index/--industry")
+    device = resolve_device(args.device)
+    panel = _read_long_table(args.panel)
+    index = _read_long_table(args.index)
+    ind = read_csv(args.industry)
+
+    p = Panel.from_long(panel)
+    idx_close = _reindex(index["trade_date"], index["close"], p.dates)
+    # the first row of each ts_code (drop_duplicates keeps the first)
+    _, first = np.unique(ind["ts_code"], return_index=True)
+    first = np.sort(first)
+    l1 = _reindex(ind["ts_code"][first], ind["l1_code"][first], p.stocks)
+    # report id for TTM: rank-encode end_date per cell if provided
+    if "end_date" in p.fields:
+        ed = np.asarray(p.fields["end_date"])
+        ok = np.isfinite(ed)
+        codes = np.unique(ed[ok])
+        rid = np.full(ed.shape, -1, np.int32)
+        rid[ok] = np.searchsorted(codes, ed[ok]).astype(np.int32)
+        p.fields["end_date_code"] = rid
+        del p.fields["end_date"]
+    barra, _ = run_factor_pipeline(
+        p.fields, idx_close, l1, p.dates, p.stocks,
+        PipelineConfig(dtype=args.dtype, block=args.block,
+                       rolling_impl=args.rolling_impl),
+        device=device,
+    )
+    os.makedirs(args.out, exist_ok=True)
+    out_path = os.path.join(args.out, "barra_data.csv")
+    write_csv(out_path, barra)
+    print(json.dumps({"rows": len(barra["date"]), "out": out_path}))
+
+
+def _demo(args):
+    """The synthetic end-to-end risk model: a seeded barra table through
+    the pipeline, the five result tables out."""
+    import time
+
+    from mfm_tpu_torch._device import resolve_device
+    from mfm_tpu_torch.config import PipelineConfig, RiskModelConfig
+    from mfm_tpu_torch.data.synthetic import synthetic_barra_table
+    from mfm_tpu_torch.pipeline import run_risk_pipeline
+
+    device = resolve_device(args.device)
+    table, _ = synthetic_barra_table(T=args.dates, N=args.stocks,
+                                     P=args.industries, Q=args.styles, seed=0)
+    cfg = PipelineConfig(risk=RiskModelConfig(eigen_n_sims=args.eigen_sims),
+                         dtype=args.dtype)
+    t0 = time.perf_counter()
+    res = run_risk_pipeline(table, config=cfg, device=device)
+    # all five demo.py result tables, like the risk subcommand
+    _write_result_tables(res, args.out, specific_risk=False)
+    rec = {"wall_s": round(time.perf_counter() - t0, 3), "out": args.out}
+    if args.check_determinism:
+        # the framework's sanitizer: same seed, same inputs -> bitwise-equal
+        # outputs, twice over
+        from mfm_tpu_torch.utils.obs import determinism_check
+
+        rec["deterministic"] = determinism_check(
+            lambda: run_risk_pipeline(table, config=cfg,
+                                      device=device).outputs)
+    print(json.dumps(rec))
+
+
+# -- scenario, grad ------------------------------------------------------------
+
+def _load_state_or_exit(args, cmd: str, device):
+    """The guarded checkpoint of a scenario/grad run, or the reference's
+    refusal."""
+    from mfm_tpu_torch.data.artifacts import (
+        ArtifactCorruptError,
+        ArtifactStaleError,
+        load_risk_state,
+    )
+
+    try:
+        return load_risk_state(args.state, device=device)
+    except (ArtifactCorruptError, ArtifactStaleError) as e:
+        # same refusal as `serve`: a checkpoint past its fence audit is
+        # not a world worth stressing (post-crash triage is `doctor`)
+        raise SystemExit(f"{cmd}: checkpoint failed its fence audit: {e}")
+    except OSError as e:
+        raise SystemExit(f"{cmd}: cannot load {args.state}: {e}")
+
+
+def _spec_list(args, cmd: str) -> list:
+    """ScenarioSpecs off ``--preset`` names and ``--spec`` files, in that
+    order (the ``scenario run`` and ``grad sensitivity`` assembly)."""
+    from mfm_tpu_torch.scenario import ScenarioSpec, preset
+
+    specs = []
+    try:
+        for name in args.preset:
+            specs.append(preset(name))
+    except KeyError as e:
+        raise SystemExit(f"{cmd}: {e.args[0]}")
+    for path in args.spec:
+        try:
+            with open(path, encoding="utf-8") as fh:
+                obj = json.load(fh)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"{cmd}: cannot read spec file {path}: {e}")
+        try:
+            for d in (obj if isinstance(obj, list) else [obj]):
+                specs.append(ScenarioSpec.from_dict(d))
+        except (TypeError, ValueError, KeyError) as e:
+            raise SystemExit(f"{cmd}: bad spec in {path}: {e}")
+    return specs
+
+
+def _scenario(args):
+    """Batched stress tests over a guarded risk-state checkpoint: factor
+    shocks, vol-regime multipliers, correlation stress, historical replay
+    and quarantine counterfactuals, one batched call per S-bucket on
+    ``--device``.  ``run`` writes an atomic ``scenario_manifest.json``
+    beside the checkpoint, which ``doctor --scenarios`` audits; ``list``
+    prints the preset catalog; ``sweep`` streams a sampled sweep."""
+    import sys
+
+    from mfm_tpu_torch.scenario import (
+        PRESET_NOTES,
+        PRESETS,
+        ScenarioEngine,
+        build_scenario_manifest,
+        write_scenario_manifest,
+    )
+
+    if args.scmd == "list":
+        catalog = [{"name": n, "note": PRESET_NOTES.get(n, ""),
+                    "kinds": list(PRESETS[n].kinds),
+                    "spec": PRESETS[n].to_dict()}
+                   for n in sorted(PRESETS)]
+        print(json.dumps({"presets": catalog}, indent=1))
+        return
+    if args.scmd == "sweep":
+        _scenario_sweep(args)
+        return
+
+    from mfm_tpu_torch._device import resolve_device
+    from mfm_tpu_torch.obs.instrument import scenario_summary_from_registry
+    from mfm_tpu_torch.obs.trace import end_span
+
+    device = resolve_device(args.device)
+    _metrics_init(args)
+    root = _root_span(args)
+    state, meta = _load_state_or_exit(args, "scenario", device)
+    specs = _spec_list(args, "scenario")
+    if not specs:
+        raise SystemExit("scenario run: no scenarios given — use --preset "
+                         "and/or --spec (`mfm-tpu scenario list` shows the "
+                         "catalog)")
+
+    try:
+        engine = ScenarioEngine.from_risk_state(state, meta, device=device)
+        results = engine.run(specs, bucket=args.bucket)
+    except ValueError as e:
+        raise SystemExit(f"scenario: {e}")
+
+    out_dir = args.out or (os.path.dirname(args.state) or ".")
+    # a fresh --out must exist as a DIRECTORY before the manifest write:
+    # write_scenario_manifest treats a non-dir path as the file itself
+    os.makedirs(out_dir, exist_ok=True)
+    # the root trace id rides in the summary block, the one volatile
+    # manifest field
+    summary = scenario_summary_from_registry()
+    summary["trace_id"] = root.trace_id
+    manifest = build_scenario_manifest(
+        results, engine.factor_names, stamp_json=meta.get("stamp"),
+        backend=device.type, summary=summary, staleness=engine.staleness)
+    mpath = write_scenario_manifest(out_dir, manifest)
+    for r in results:
+        line = {"scenario": r.spec.name, "status": r.status,
+                "problems": list(r.problems),
+                "psd_projected": bool(r.psd_projected)}
+        if r.ok:
+            line["min_eig_stressed"] = float(r.min_eig_stressed)
+        print(json.dumps(line, sort_keys=True))
+    end_span(root)
+    _metrics_flush(args)
+    print(json.dumps({"manifest": mpath, "n_scenarios": len(results),
+                      "n_ok": manifest["n_ok"],
+                      "n_rejected": manifest["n_rejected"],
+                      "n_psd_projected": manifest["n_psd_projected"],
+                      "trace_id": root.trace_id},
+                     indent=1), file=sys.stderr)
+    if manifest["n_ok"] == 0:
+        raise SystemExit(1)
+
+
+def _scenario_sweep(args):
+    """Streaming scenario sweep over a guarded checkpoint: a sampler
+    generates shock lanes host-side, chunks stream through the aggregate
+    carry on ``--device``, the coarse top-k seeds a reverse-stress
+    refinement, and the fixed-size answer lands in an atomic
+    ``sweep_manifest.json`` audited by ``doctor --scenarios``."""
+    import sys
+
+    import numpy as np
+
+    from mfm_tpu_torch._device import resolve_device
+    from mfm_tpu_torch.grad.engine import ShockBall
+    from mfm_tpu_torch.obs.instrument import sweep_summary_from_registry
+    from mfm_tpu_torch.obs.trace import end_span
+    from mfm_tpu_torch.scenario import (
+        GridSampler,
+        SobolSampler,
+        SweepEngine,
+        UniformSampler,
+        build_sweep_manifest,
+        write_sweep_manifest,
+    )
+
+    device = resolve_device(args.device)
+    _metrics_init(args)
+    root = _root_span(args)
+    state, meta = _load_state_or_exit(args, "scenario", device)
+    try:
+        engine = SweepEngine.from_risk_state(state, meta, device=device)
+    except ValueError as e:
+        raise SystemExit(f"scenario: {e}")
+    W = _grad_portfolios(args, engine)
+
+    if not (args.n >= 1):
+        raise SystemExit("scenario sweep: --n must be >= 1")
+    ball = ShockBall(shift_max=args.shift_max,
+                     scale_range=args.scale_range,
+                     vol_mult_hi=args.vol_mult_max,
+                     corr_beta_hi=args.corr_beta_max)
+    try:
+        if args.sampler == "grid":
+            side = max(int(np.sqrt(args.n)), 1)
+            sampler = GridSampler(ball, engine.K, n_vol=side, n_corr=side)
+        elif args.sampler == "sobol":
+            sampler = SobolSampler(ball, engine.K, args.n, seed=args.seed)
+        else:
+            sampler = UniformSampler(ball, engine.K, args.n,
+                                     seed=args.seed)
+        refine = None if args.no_refine else {"seed": args.seed}
+        result = engine.sweep(W, sampler, chunk=args.chunk,
+                              top_k=args.top_k, bins=args.bins,
+                              hist_span=args.hist_span, ball=ball,
+                              refine=refine)
+    except ValueError as e:
+        raise SystemExit(f"scenario sweep: {e}")
+    dominance = engine.preset_dominance(result, W)
+
+    out_dir = args.out or (os.path.dirname(args.state) or ".")
+    os.makedirs(out_dir, exist_ok=True)
+    # the trace id rides in the summary block, the one volatile manifest
+    # field, so seeded re-runs stay byte-equal modulo summary
+    summary = sweep_summary_from_registry()
+    summary["trace_id"] = root.trace_id
+    manifest = build_sweep_manifest(
+        result, stamp_json=meta.get("stamp"), backend=device.type,
+        staleness=engine.staleness, dominance=dominance, summary=summary)
+    mpath = write_sweep_manifest(out_dir, manifest)
+    for book, dom in zip(result.books, dominance):
+        top = book["top"][0] if book["top"] else None
+        line = {"book": book["label"], "vol_base": book["vol_base"],
+                "vol_worst": top["vol"] if top else None,
+                "worst_spec_hash": top["spec_hash"] if top else None,
+                "dominates_presets": dom["dominates_all"]}
+        print(json.dumps(line, sort_keys=True))
+    end_span(root)
+    _metrics_flush(args)
+    print(json.dumps({"manifest": mpath, "counts": result.counts,
+                      "sampler": result.sampler,
+                      "trace_id": root.trace_id},
+                     indent=1), file=sys.stderr)
+    if result.counts["n_ok"] == 0:
+        raise SystemExit(1)
+
+
+def _grad_portfolios(args, engine):
+    """(P, K) portfolio rows off ``--portfolio`` JSON — one K-vector, a
+    list of them, or factor-name-keyed dicts; default is ONE equal-weight
+    portfolio over the engine's factors."""
+    import numpy as np
+
+    path = getattr(args, "portfolio", None)
+    if path is None:
+        return np.full((1, engine.K), 1.0 / engine.K)
+    try:
+        with open(path, encoding="utf-8") as fh:
+            obj = json.load(fh)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"grad: cannot read portfolio file {path}: {e}")
+    rows = obj if isinstance(obj, list) else [obj]
+    if rows and isinstance(rows[0], (int, float)):
+        rows = [rows]
+    W = np.zeros((len(rows), engine.K))
+    for i, row in enumerate(rows):
+        if isinstance(row, dict):
+            for k, v in row.items():
+                if str(k) not in engine.factor_index:
+                    raise SystemExit(f"grad: portfolio row {i} names "
+                                     f"unknown factor {k!r}")
+                try:
+                    W[i, engine.factor_index[str(k)]] = float(v)
+                except (TypeError, ValueError) as e:
+                    raise SystemExit(f"grad: bad weight in row {i}: {e}")
+        else:
+            try:
+                r = np.asarray(row, np.float64)
+            except (TypeError, ValueError) as e:
+                raise SystemExit(f"grad: bad portfolio row {i}: {e}")
+            if r.shape != (engine.K,):
+                raise SystemExit(f"grad: portfolio row {i} is {r.shape}, "
+                                 f"need ({engine.K},)")
+            W[i] = r
+    if not np.isfinite(W).all():
+        raise SystemExit(f"grad: non-finite weights in {path}")
+    return W
+
+
+def _grad(args):
+    """Differentiable risk over a guarded checkpoint: ``reverse`` finds the
+    worst admissible shock per portfolio, ``sensitivity`` stamps exact
+    d vol/d shock + d vol/d exposure rows into the scenario manifest,
+    ``construct`` runs the min-vol / risk-parity / hedge solvers.  Every
+    subcommand writes an atomic ``grad_report.json`` beside the
+    checkpoint."""
+    import sys
+
+    import numpy as np
+
+    from mfm_tpu_torch._device import resolve_device
+    from mfm_tpu_torch.grad import GradEngine, ShockBall, write_grad_report
+    from mfm_tpu_torch.grad.report import build_grad_report
+    from mfm_tpu_torch.obs.trace import end_span
+
+    device = resolve_device(args.device)
+    _metrics_init(args)
+    root = _root_span(args)
+    state, meta = _load_state_or_exit(args, "grad", device)
+    try:
+        engine = GradEngine.from_risk_state(state, meta, device=device)
+    except ValueError as e:
+        raise SystemExit(f"grad: {e}")
+    W = _grad_portfolios(args, engine)
+    out_dir = args.out or (os.path.dirname(args.state) or ".")
+    os.makedirs(out_dir, exist_ok=True)
+
+    if args.gcmd == "reverse":
+        from mfm_tpu_torch.grad.engine import REVERSE_STEPS
+
+        ball = ShockBall(vol_mult_hi=args.vol_mult_max,
+                         corr_beta_hi=args.corr_beta_max)
+        steps = REVERSE_STEPS if args.steps is None else args.steps
+        try:
+            entries = engine.reverse_stress(W, ball=ball, steps=steps,
+                                            bucket=args.bucket)
+        except ValueError as e:
+            raise SystemExit(f"grad: {e}")
+        kind = "reverse_stress"
+        params = {"ball": ball.to_dict(), "steps": int(steps)}
+        failed = sum(1 for e in entries if not e["admissible"])
+    elif args.gcmd == "sensitivity":
+        from mfm_tpu_torch.scenario import PRESETS, ScenarioSpec
+
+        specs = _spec_list(args, "grad") or (
+            [ScenarioSpec.identity()] + [PRESETS[n] for n in sorted(PRESETS)])
+        try:
+            entries = engine.sensitivities(specs, W[0], bucket=args.bucket)
+        except ValueError as e:
+            raise SystemExit(f"grad: {e}")
+        # stamp the rows into the scenario manifest too: the forward batch
+        # runs first (same specs, same bucket) and each ok entry gains a
+        # "sensitivity" block
+        from mfm_tpu_torch.obs.instrument import (
+            scenario_summary_from_registry,
+        )
+        from mfm_tpu_torch.scenario import (
+            ScenarioEngine,
+            build_scenario_manifest,
+            write_scenario_manifest,
+        )
+        scen = ScenarioEngine.from_risk_state(state, meta, device=device)
+        try:
+            results = scen.run(specs, bucket=args.bucket)
+        except ValueError as e:
+            raise SystemExit(f"grad: {e}")
+        summary = scenario_summary_from_registry()
+        summary["trace_id"] = root.trace_id
+        manifest = build_scenario_manifest(
+            results, scen.factor_names, stamp_json=meta.get("stamp"),
+            backend=device.type, summary=summary, staleness=scen.staleness,
+            sensitivities={e["name"]: e for e in entries})
+        write_scenario_manifest(out_dir, manifest)
+        kind = "sensitivity"
+        params = {"portfolio": np.asarray(W[0], np.float64).tolist()}
+        failed = sum(1 for e in entries if e["status"] != "ok")
+    else:
+        try:
+            res = engine.construct_solve(args.solver, W, bucket=args.bucket)
+        except ValueError as e:
+            raise SystemExit(f"grad: {e}")
+        entries = []
+        for i in range(W.shape[0]):
+            diag = np.asarray(res["diag"][i])
+            entries.append({
+                "label": f"p{i}",
+                "solver": args.solver,
+                "weights": {str(n): float(v) for n, v in
+                            zip(engine.factor_names, res["weights"][i])},
+                "total_vol": float(res["vols"][i]),
+                "diag": diag.tolist() if diag.ndim else float(diag),
+            })
+        kind = "construct"
+        params = {"solver": args.solver}
+        failed = 0
+
+    report = build_grad_report(kind, entries, stamp_json=meta.get("stamp"),
+                               backend=device.type,
+                               staleness=engine.staleness, params=params)
+    rpath = write_grad_report(out_dir, report)
+    for e in entries:
+        print(json.dumps(e, sort_keys=True, default=str))
+    end_span(root)
+    _metrics_flush(args)
+    print(json.dumps({"report": rpath, "grad_kind": kind,
+                      "n_entries": len(entries), "n_failed": failed,
+                      "trace_id": root.trace_id},
+                     indent=1), file=sys.stderr)
+    if entries and failed == len(entries):
+        raise SystemExit(1)
+
+
 # -- metrics --------------------------------------------------------------------
 
 def _metrics_paths(path: str, filename: str) -> str:
@@ -1018,32 +1993,20 @@ _METRICS_DIR_HELP = (
 
 def _read_long_table(path):
     """A csv/parquet long table as a dict of numpy columns, ``trade_date``
-    as datetime64 where it parses.  A csv needs no pandas (the card's
+    as datetime64 where it parses (the reference's
+    ``parse_dates=["trade_date"]``).  A csv needs no pandas (the card's
     machine has none); parquet reads through pandas."""
-    import csv
-
-    import numpy as np
-
     if path.endswith(".parquet"):
         import pandas as pd
 
         df = pd.read_parquet(path)
         return {c: df[c].to_numpy() for c in df.columns}
-    with open(path, newline="") as fh:
-        rows = list(csv.reader(fh))
-    if not rows:
-        raise SystemExit(f"{path}: empty table")
-    header, body = rows[0], rows[1:]
-    cols = {name: np.array([r[j] for r in body], dtype=str)
-            for j, name in enumerate(header)}
-    if "trade_date" in cols:
-        try:
-            cols["trade_date"] = np.array(
-                [d.replace(" ", "T") for d in cols["trade_date"]],
-                dtype="datetime64[ns]")
-        except ValueError:
-            pass  # not ISO dates: the strings keep their order
-    return cols
+    from mfm_tpu_torch.data.csvio import read_csv
+
+    try:
+        return read_csv(path, parse_dates=("trade_date",))
+    except ValueError as err:
+        raise SystemExit(str(err)) from err
 
 
 def _extract_llm_sources(text, path, known_fields=None):
@@ -1247,6 +2210,310 @@ def _alpha_parser(sub) -> None:
     al.set_defaults(fn=_alpha)
 
 
+def _device_arg(p) -> None:
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where to compute: the CUDA card (default; raises "
+                        "without one) or the CPU")
+
+
+def _eigen_chunk(v):
+    if v == "auto":
+        return "auto"
+    if v in ("none", "full"):
+        return None
+    return _positive_int(v)
+
+
+def _risk_parser(sub) -> None:
+    r = sub.add_parser("risk", help="risk model over a barra-format CSV "
+                                    "(demo.py path)")
+    rsrc = r.add_mutually_exclusive_group(required=True)
+    rsrc.add_argument("--barra", help="barra-format CSV (demo.py:22)")
+    rsrc.add_argument("--barra-store", metavar="STORE",
+                      help="not ported yet (ROADMAP.md §A 14)")
+    _device_arg(r)
+    r.add_argument("--industry-info", default=None)
+    r.add_argument("--out", default="results")
+    r.add_argument("--nw-lags", type=int, default=2)
+    r.add_argument("--nw-half-life", type=float, default=252.0)
+    r.add_argument("--nw-method", choices=["scan", "associative"],
+                   default="scan",
+                   help="expanding Newey-West evaluation: the serial scan "
+                        "(the default) or the associative form (not ported "
+                        "yet, ROADMAP.md §A 16)")
+    r.add_argument("--eigen-sims", type=int, default=100)
+    r.add_argument("--eigen-scale", type=float, default=1.4)
+    r.add_argument("--vr-half-life", type=float, default=42.0)
+    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--dtype", default="float32")
+    r.add_argument("--bias-plot", default=None, metavar="FILE.png",
+                   help="also render the USE4 bias-statistic plot into OUT "
+                        "(needs matplotlib) and write the numbers to "
+                        "OUT/bias_stats.json")
+    r.add_argument("--bias-burn-in", type=int, default=252,
+                   help="dates excluded from the burn-in-free bias variant")
+    r.add_argument("--specific-risk", action="store_true",
+                   help="also write specific_risk.csv (shrunk EWMA "
+                        "specific vol per stock x date)")
+    r.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the pipeline "
+                        "run into DIR (trace.json, Perfetto-viewable; the "
+                        "device's activity on the card) with "
+                        "profile_summary.json (wall, device time, busy "
+                        "share, peak memory)")
+    r.add_argument("--jax-profile", default=None, metavar="DIR",
+                   help="synonym of --profile (the reference's flag name)")
+    r.add_argument("--eigen-chunk", type=_eigen_chunk, default="auto",
+                   metavar="N|auto|none",
+                   help="date-chunk size for the eigen Monte-Carlo stream "
+                        "(bounds its (chunk, M, K, K) transient); 'auto' "
+                        "(default) sizes it from free device memory, "
+                        "'none' forces the single full batch, an int pins "
+                        "it.  Results are identical either way")
+    r.add_argument("--eigen-sim-length", type=_positive_int, default=None,
+                   metavar="L",
+                   help="draw length behind each simulated covariance "
+                        "(default: the panel length T).  Pin it when "
+                        "serving incrementally: a checkpoint freezes its "
+                        "Monte-Carlo draws, and only a pinned length keeps "
+                        "a from-scratch rerun on the same draws")
+    r.add_argument("--eigen-mc-dtype", choices=["bfloat16"], default=None,
+                   help="storage dtype for the eigen Monte-Carlo draws and "
+                        "the scaled-covariance assembly (eigh and "
+                        "accumulation stay float32); outputs change within "
+                        "tools/parity_budget.json's eigen_mc_bf16 budget, "
+                        "not bitwise")
+    r.add_argument("--eigen-incremental", action="store_true",
+                   help="causal incremental eigen: each date's Monte-Carlo "
+                        "bias uses exactly the draw prefix available at "
+                        "that date, and the raw draw moments ride the "
+                        "checkpoint, so `--update` appends a date with one "
+                        "simulated eigh batch.  Incompatible with "
+                        "--eigen-sim-length")
+    r.add_argument("--save-state", default=None, metavar="FILE.npz",
+                   help="also checkpoint the resumable state (Newey-West/"
+                        "vol-regime carries + frozen eigen draws) after the "
+                        "last date, with run_manifest.json beside it; "
+                        "`risk --update FILE.npz` then serves each new date "
+                        "without an O(T) rebuild")
+    r.add_argument("--update", default=None, metavar="FILE.npz",
+                   help="incremental serve: load this checkpoint, run ONE "
+                        "update step over the barra table's dates after the "
+                        "checkpoint's last date, write tables for those "
+                        "dates only, and advance FILE in place.  Outputs "
+                        "are bitwise the full-history run's")
+    r.add_argument("--save-outputs", action="store_true",
+                   help="also write OUT/risk_outputs.npz (every stage "
+                        "output incl. the full covariance series — the "
+                        "CSVs carry only the last date's)")
+    r.add_argument("--portfolio-bias", type=_positive_int, default=None,
+                   metavar="Q",
+                   help="also run the USE4 random-portfolio bias acceptance "
+                        "test with Q portfolios and write "
+                        "OUT/portfolio_bias.json")
+    r.add_argument("--portfolio", default=None, metavar="CSV",
+                   help="ts_code,weight table: write predicted portfolio "
+                        "risk + per-factor Euler attribution to "
+                        "OUT/portfolio_risk.json")
+    r.add_argument("--portfolio-date", type=int, default=-1,
+                   help="date index for --portfolio (default: last)")
+    r.add_argument("--mesh", default=None, metavar="DxS",
+                   help="not ported yet (ROADMAP.md §A 16)")
+    r.add_argument("--quarantine", action="store_true",
+                   help="guard appended dates (NaN density, universe "
+                        "collapse, MAD outliers, bad caps, date order) and "
+                        "serve quarantined dates in degraded mode: last "
+                        "healthy covariance + staleness, carries frozen")
+    r.add_argument("--force", action="store_true",
+                   help="with --update: accept a checkpoint whose "
+                        "generation is older than the latest.json pointer "
+                        "(deliberate rollback; never bypasses the checksum)")
+    r.add_argument("--metrics-dir", default=None, metavar="DIR",
+                   help=_METRICS_DIR_HELP)
+    r.set_defaults(fn=_risk)
+
+
+def _factors_demo_parsers(sub) -> None:
+    from mfm_tpu_torch.ops.rolling import ROLLING_IMPLS
+
+    f = sub.add_parser("factors",
+                       help="style-factor production (main.py path)")
+    f.add_argument("--prepared", default=None, metavar="DIR",
+                   help="a `prepare` output directory (provides --panel/"
+                        "--index/--industry in one flag; its panel is "
+                        "parquet, read through pandas)")
+    f.add_argument("--panel", default=None,
+                   help="long csv/parquet of raw fields")
+    f.add_argument("--index", default=None,
+                   help="index daily prices csv/parquet")
+    f.add_argument("--industry", default=None, help="ts_code -> l1_code csv")
+    _device_arg(f)
+    f.add_argument("--out", default="results")
+    f.add_argument("--dtype", default="float32")
+    f.add_argument("--block", type=int, default=None,
+                   help="rolling-kernel date-block size (memory = block x "
+                        "window x stocks floats per input); default: auto "
+                        "from the panel width")
+    f.add_argument("--rolling-impl", choices=ROLLING_IMPLS, default="scan",
+                   help="rolling-kernel implementation: O(T*N) two-level "
+                        "scans (default) or the windowed-gather form")
+    f.set_defaults(fn=_factors)
+
+    d = sub.add_parser("demo", help="synthetic end-to-end risk model")
+    d.add_argument("--dates", type=int, default=120)
+    d.add_argument("--stocks", type=int, default=60)
+    d.add_argument("--industries", type=int, default=6)
+    d.add_argument("--styles", type=int, default=4)
+    d.add_argument("--eigen-sims", type=int, default=16)
+    d.add_argument("--out", default="results")
+    d.add_argument("--dtype", default="float32")
+    _device_arg(d)
+    d.add_argument("--check-determinism", action="store_true",
+                   help="run the pipeline twice more and report whether "
+                        "outputs are bitwise identical (the same-seed "
+                        "sanitizer)")
+    d.set_defaults(fn=_demo)
+
+
+def _scenario_grad_parsers(sub) -> None:
+    sc = sub.add_parser(
+        "scenario",
+        help="batched stress tests over a guarded risk-state checkpoint: "
+             "factor shocks, vol regimes, correlation stress, historical "
+             "replay, quarantine counterfactuals — one batched call per "
+             "S-bucket, atomic scenario_manifest.json beside the "
+             "checkpoint")
+    scs = sc.add_subparsers(dest="scmd", required=True)
+    scs.add_parser("list", help="print the preset scenario catalog")
+    scr = scs.add_parser(
+        "run", help="run scenarios against a checkpoint and write "
+                    "scenario_manifest.json beside it")
+    scr.add_argument("state", help="risk-state .npz saved with quarantine "
+                                   "enabled (scenarios shock its "
+                                   "last_good_cov)")
+    _device_arg(scr)
+    scr.add_argument("--preset", action="append", default=[],
+                     help="preset scenario name, repeatable "
+                          "(`scenario list` shows the catalog)")
+    scr.add_argument("--spec", action="append", default=[],
+                     help="JSON ScenarioSpec file — one spec object or a "
+                          "list of them (repeatable)")
+    scr.add_argument("--out", default=None,
+                     help="directory for scenario_manifest.json (default: "
+                          "beside the checkpoint)")
+    scr.add_argument("--bucket", type=int, default=None,
+                     help="explicit pad bucket >= the number of scenarios "
+                          "(default: the geometric bucket for S)")
+    scr.add_argument("--metrics-dir", default=None, help=_METRICS_DIR_HELP)
+    scw = scs.add_parser(
+        "sweep", help="stream a sampler-generated scenario sweep through "
+                      "fixed-size aggregates (top-k worst, quantile "
+                      "sketch), refine with reverse-stress gradients, "
+                      "write sweep_manifest.json beside the checkpoint")
+    scw.add_argument("state", help="risk-state .npz saved with quarantine "
+                                   "enabled (the sweep stresses its "
+                                   "last_good_cov)")
+    _device_arg(scw)
+    scw.add_argument("--sampler", choices=("uniform", "sobol", "grid"),
+                     default="uniform",
+                     help="spec generator over the shock ball "
+                          "(default: uniform)")
+    scw.add_argument("--n", type=int, default=65536,
+                     help="scenarios to stream (default: 65536; grid "
+                          "rounds to a square)")
+    scw.add_argument("--seed", type=int, default=0,
+                     help="sampler + refinement seed (default: 0)")
+    scw.add_argument("--chunk", type=int, default=8192,
+                     help="scenarios per device call (default: 8192)")
+    scw.add_argument("--top-k", type=int, default=16,
+                     help="worst entries kept per book (default: 16)")
+    scw.add_argument("--bins", type=int, default=64,
+                     help="quantile-sketch histogram bins (default: 64)")
+    scw.add_argument("--hist-span", type=float, default=8.0,
+                     help="sketch upper edge as a multiple of each "
+                          "book's base vol (default: 8.0)")
+    scw.add_argument("--portfolio", default=None,
+                     help="JSON portfolio file: one K-vector, a list of "
+                          "them, or factor-name-keyed dicts (default: "
+                          "one equal-weight portfolio)")
+    scw.add_argument("--shift-max", type=float, default=0.01,
+                     help="shock-ball |vol shift| cap (default: 0.01)")
+    scw.add_argument("--scale-range", type=float, default=0.5,
+                     help="shock-ball vol-scale half-range "
+                          "(default: 0.5)")
+    scw.add_argument("--vol-mult-max", type=float, default=3.5,
+                     help="shock-ball vol_mult ceiling (default: 3.5)")
+    scw.add_argument("--corr-beta-max", type=float, default=0.95,
+                     help="shock-ball corr_beta ceiling (default: 0.95)")
+    scw.add_argument("--no-refine", action="store_true",
+                     help="skip the reverse-stress refinement loop")
+    scw.add_argument("--out", default=None,
+                     help="directory for sweep_manifest.json (default: "
+                          "beside the checkpoint)")
+    scw.add_argument("--metrics-dir", default=None, help=_METRICS_DIR_HELP)
+    sc.set_defaults(fn=_scenario)
+
+    gr = sub.add_parser(
+        "grad",
+        help="differentiable risk over a guarded checkpoint: reverse "
+             "stress (worst admissible shock per portfolio), exact "
+             "d vol/d shock sensitivity reports stamped into the scenario "
+             "manifest, and gradient-based construction solvers — atomic "
+             "grad_report.json beside the checkpoint")
+    grs = gr.add_subparsers(dest="gcmd", required=True)
+
+    def common(p):
+        p.add_argument("state", help="risk-state .npz saved with "
+                                     "quarantine enabled (grad runs "
+                                     "against its last_good_cov)")
+        _device_arg(p)
+        p.add_argument("--portfolio", default=None,
+                       help="JSON portfolio file: one K-vector of factor "
+                            "weights, a list of them, or factor-name-"
+                            "keyed dicts (default: one equal-weight "
+                            "portfolio)")
+        p.add_argument("--out", default=None,
+                       help="directory for grad_report.json (default: "
+                            "beside the checkpoint)")
+        p.add_argument("--bucket", type=int, default=None,
+                       help="explicit pad bucket >= the batch size "
+                            "(default: the geometric bucket)")
+        p.add_argument("--metrics-dir", default=None,
+                       help=_METRICS_DIR_HELP)
+
+    grr = grs.add_parser(
+        "reverse", help="projected gradient ascent over the admissible "
+                        "shock ball: the worst-case ScenarioSpec per "
+                        "portfolio")
+    common(grr)
+    grr.add_argument("--steps", type=int, default=None,
+                     help="ascent iterations (default: 200)")
+    grr.add_argument("--vol-mult-max", type=float, default=3.5,
+                     help="shock-ball vol_mult ceiling (default: 3.5)")
+    grr.add_argument("--corr-beta-max", type=float, default=0.95,
+                     help="shock-ball corr_beta ceiling (default: 0.95)")
+
+    grn = grs.add_parser(
+        "sensitivity", help="exact d vol/d shock and d vol/d exposure "
+                            "rows per scenario, stamped into the "
+                            "scenario manifest")
+    common(grn)
+    grn.add_argument("--preset", action="append", default=[],
+                     help="preset scenario name, repeatable (default: "
+                          "identity + the whole preset catalog)")
+    grn.add_argument("--spec", action="append", default=[],
+                     help="JSON ScenarioSpec file — one spec object or a "
+                          "list of them (repeatable)")
+
+    grc = grs.add_parser(
+        "construct", help="gradient-based portfolio construction "
+                          "against the served covariance")
+    common(grc)
+    grc.add_argument("solver", choices=("min_vol", "risk_parity", "hedge"),
+                     help="which solver to run over the portfolio rows")
+    gr.set_defaults(fn=_grad)
+
+
 def _serve_parser(sub) -> None:
     sv = sub.add_parser(
         "serve",
@@ -1409,13 +2676,19 @@ def main(argv=None):
                          "flight-recorder dump is torn; warn on load "
                          "shedding / degraded health")
     dr.add_argument("--scenarios", action="store_true",
-                    help="not ported yet (ROADMAP.md §A 15)")
+                    help="also audit scenario_manifest.json (and a "
+                         "sweep_manifest.json when present) beside the "
+                         "artifacts: exit non-zero on a torn write, a spec "
+                         "hash mismatch or inconsistent counts")
     dr.add_argument("--audit", nargs="?", const="latest", default=None,
                     metavar="FILE", help="not ported yet (ROADMAP.md §A 16)")
     dr.add_argument("--sync", action="store_true",
                     help="not ported yet (ROADMAP.md §A 16)")
     dr.set_defaults(fn=_doctor)
 
+    _risk_parser(sub)
+    _factors_demo_parsers(sub)
+    _scenario_grad_parsers(sub)
     _serve_parser(sub)
     _alpha_parser(sub)
 

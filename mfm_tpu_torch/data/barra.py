@@ -10,7 +10,7 @@ plus a validity mask, through the row-space :class:`BarraCOO`.
 
 The table is any column table: a pandas DataFrame, or a ``dict`` of 1-D
 numpy arrays under the reference's column names (the card's machine has
-no pandas).  pandas is imported only by :func:`load_barra_csv`.
+no pandas); :func:`load_barra_csv` reads one from a csv without pandas.
 """
 
 from __future__ import annotations
@@ -233,12 +233,12 @@ def barra_frame_to_arrays(
 
 
 def load_barra_csv(path, industry_info_path=None, **kw) -> BarraArrays:
-    """Load the reference's CSV schema directly (``demo.py:22-35``); the
-    one function here that needs pandas."""
-    import pandas as pd
+    """Load the reference's CSV schema directly (``demo.py:22-35``), each
+    column typed as ``pd.read_csv`` types it
+    (:func:`mfm_tpu_torch.data.csvio.read_csv`, no pandas)."""
+    from mfm_tpu_torch.data.csvio import read_csv
 
-    df = pd.read_csv(path)
     codes = None
     if industry_info_path is not None:
-        codes = pd.read_csv(industry_info_path)["code"].to_numpy()
-    return barra_frame_to_arrays(df, industry_codes=codes, **kw)
+        codes = read_csv(industry_info_path)["code"]
+    return barra_frame_to_arrays(read_csv(path), industry_codes=codes, **kw)

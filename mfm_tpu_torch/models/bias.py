@@ -11,8 +11,8 @@ statistics and Bayesian specific-vol shrinkage (counterpart of
 - :func:`bayes_shrink` — cap-group Bayesian shrinkage of specific
   volatility (``utils.py:133-168``), batched over any leading (date) dims.
 
-``plot_bias_stats`` needs matplotlib and waits for the CLI slice
-(ROADMAP.md §A 15).
+- :func:`plot_bias_stats` — the bias-by-rank picture (matplotlib,
+  imported only when called).
 """
 
 from __future__ import annotations
@@ -99,6 +99,31 @@ def bias_stats_summary(nw_cov, nw_valid, eigen_cov, eigen_valid, factor_ret,
                 "max_abs_dev_from_1": _num(np.max(dev)) if dev.size else None,
             }
     return out
+
+
+def plot_bias_stats(bias_by_label: dict, path: str) -> None:
+    """Plot eigenfactor bias statistics per eigen-portfolio rank.
+
+    Renders any number of labelled bias arrays (e.g. ``{"newey_west": b0,
+    "eigen_adjusted": b1}``) to ``path``, through an explicit Agg canvas so
+    the process-global matplotlib backend is left untouched.
+    """
+    from matplotlib.backends.backend_agg import FigureCanvasAgg
+    from matplotlib.figure import Figure
+
+    fig = Figure(figsize=(7, 4))
+    FigureCanvasAgg(fig)
+    ax = fig.add_subplot()
+    for label, b in bias_by_label.items():
+        b = np.asarray(b)
+        ax.plot(1 + np.arange(b.shape[0]), b, marker="o", ms=3, lw=1,
+                label=label)
+    ax.axhline(1.0, color="gray", lw=0.8, ls="--")
+    ax.set_xlabel("eigenfactor rank")
+    ax.set_ylabel("bias statistic")
+    ax.legend()
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
 
 
 @highest_matmul_precision

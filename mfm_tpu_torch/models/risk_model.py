@@ -27,7 +27,7 @@ plain PyTorch versions, for comparison only.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -151,6 +151,8 @@ class RiskModel:
       valid:    (T, N) bool universe mask.
       device:   None (the CUDA card) or an explicit device such as "cpu".
       kernels:  False runs the eigh kernels' plain versions on the card.
+      factor_names: optional (K,) labels, host-side sugar for
+                :meth:`names`.
     """
 
     ret: torch.Tensor
@@ -162,6 +164,7 @@ class RiskModel:
     config: RiskModelConfig = dataclasses.field(default_factory=RiskModelConfig)
     device: str | torch.device | None = None
     kernels: bool = True
+    factor_names: Sequence[str] | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -537,6 +540,20 @@ class RiskModel:
             guard_ring=ring, guard_ring_pos=ring_pos, eig_draws=eig_draws,
             **self._eig_fields(eig_carry))
         return outputs, report, new_state
+
+    def bias_stat(self, covs, valid, factor_ret, predlen: int = 1):
+        """Eigenfactor bias statistic (``MFM.py:203-204``)."""
+        from mfm_tpu_torch.models.bias import eigenfactor_bias_stat
+
+        return eigenfactor_bias_stat(covs, valid, factor_ret, predlen)
+
+    # -- host-side sugar ----------------------------------------------------
+    def names(self) -> list[str]:
+        if self.factor_names is not None:
+            return list(self.factor_names)
+        return (["country"]
+                + [f"industry_{i}" for i in range(self.n_industries)]
+                + [f"style_{i}" for i in range(self.Q)])
 
     @staticmethod
     def _eig_carry(state):

@@ -11,8 +11,11 @@
   Prometheus textfile
 - :mod:`~mfm_tpu_torch.obs.slo` — the SLO burn-rate engine
 - :mod:`~mfm_tpu_torch.obs.manifest` — run, serve and fleet manifests
+- :mod:`~mfm_tpu_torch.obs.health` — the model-health monitors and the
+  manifests' health verdict
 
-The health monitors and the profiler capture wait for ROADMAP.md §A 15.
+The XLA cost analysis of ``mfm_tpu/obs/profile.py`` waits for ROADMAP.md
+§A 16.
 """
 
 from mfm_tpu_torch.obs.metrics import (Counter, Gauge, Histogram,

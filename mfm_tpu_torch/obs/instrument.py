@@ -8,13 +8,16 @@ outcomes — never device tensors.  The catalog here covers what the query
 loop, the response cache, the coalescer, the serving fleet (front end,
 replicas, transport), the SLO engine, the span ring and its fleet-wire
 merge, the flight recorder, retries, the scenario engine and the
-streaming sweep record, and the guard counters the manifests' guard
-block reads; the reference's other model-side recorders (guard tallies,
-update latency, checkpoint and compile counters) wait for ROADMAP.md
-§A 15.
+streaming sweep record, the guard tallies of a guarded step, the update
+latency and the per-stage walls the manifests' guard block and the CLI
+read.  The reference's compile counters and compiled-memory gauges count
+XLA's compile events, which the port does not have (ROADMAP.md §A 16).
 """
 
 from __future__ import annotations
+
+import contextlib
+import time
 
 from mfm_tpu_torch.obs.metrics import REGISTRY
 
@@ -31,6 +34,14 @@ SERVED_DATES_TOTAL = REGISTRY.counter(
 SERVED_COV_STALENESS = REGISTRY.gauge(
     "mfm_served_cov_staleness",
     "dates since the most recently served covariance was fit (0 = fresh)")
+QUARANTINE_COUNT = REGISTRY.gauge(
+    "mfm_quarantine_count", "quarantined dates in the last guarded step")
+UPDATE_LATENCY = REGISTRY.histogram(
+    "mfm_update_latency_seconds", "guarded/unguarded update step wall time")
+
+STAGE_SECONDS = REGISTRY.gauge(
+    "mfm_stage_seconds", "last wall time of a pipeline/risk stage",
+    labelnames=("stage",))
 
 # -- retries (data/etl.py with_retry) -----------------------------------------
 
@@ -250,6 +261,51 @@ SWEEP_PSD_PROJECTIONS_TOTAL = REGISTRY.counter(
 
 
 # -- recording helpers ----------------------------------------------------------
+
+def record_guard_report(report) -> None:
+    """Tally one guarded step's verdicts (host-side, off the report the
+    update returned; one host copy of each per-date field)."""
+    from mfm_tpu_torch.data.artifacts import _numpy
+    from mfm_tpu_torch.serve import guard
+
+    q = _numpy(report.quarantined).astype(bool)
+    reasons = _numpy(report.reasons)
+    staleness = _numpy(report.staleness)
+    n_q = int(q.sum())
+    if n_q:
+        QUARANTINED_DATES_TOTAL.inc(n_q)
+    SERVED_DATES_TOTAL.inc(int(q.shape[0]))
+    QUARANTINE_COUNT.set_value(n_q)
+    if staleness.size:
+        SERVED_COV_STALENESS.set_value(int(staleness[-1]))
+    for bit, name in guard._REASON_NAMES:
+        n = int(((reasons & bit) != 0).sum())
+        if n:
+            GUARD_REASON_TOTAL.inc(n, reason=name)
+
+
+def record_update_latency(seconds: float) -> None:
+    UPDATE_LATENCY.observe(float(seconds))
+
+
+def record_stage_seconds(stage: str, seconds: float) -> None:
+    STAGE_SECONDS.set_value(float(seconds), stage=stage)
+
+
+@contextlib.contextmanager
+def time_stage(stage: str):
+    """Span a host-side stage; sets ``mfm_stage_seconds{stage=...}``.
+
+    The body must synchronize its device work before exiting
+    (:func:`mfm_tpu_torch.utils.obs.force`); this span only reads the
+    clock, it never waits for the card itself.
+    """
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        record_stage_seconds(stage, time.perf_counter() - t0)
+
 
 def record_foreign_spans(n: int, uncorrectable: int = 0) -> None:
     """Tally one fleet-wire span merge: spans ingested + how many were

@@ -24,8 +24,6 @@ are their numpy cores.
 
 Not ported here, raising ``NotImplementedError`` with its ROADMAP.md
 item: the sharded ``mesh=`` ingest (§A 16).
-The reference's telemetry around the append (update latency, guard
-tallies) waits for the observability slice (§A 15).
 """
 
 from __future__ import annotations
@@ -34,6 +32,7 @@ import dataclasses
 import datetime
 import os
 import re
+import time
 from typing import Dict, Mapping
 
 import numpy as np
@@ -54,6 +53,7 @@ from mfm_tpu_torch.models.risk_model import (
     RiskModelOutputs,
     RiskModelState,
 )
+from mfm_tpu_torch.obs import instrument as _telemetry
 
 
 def _not_ported(what: str, item: int):
@@ -449,7 +449,7 @@ def run_risk_pipeline(
         arrays = barra_frame_to_arrays(barra_df, industry_codes=industry_codes)
     rm = RiskModel(*_panels(arrays, _dtype(config), dev),
                    n_industries=arrays.n_industries, config=config.risk,
-                   device=dev)
+                   device=dev, factor_names=arrays.factor_names())
     if with_state:
         out, state = rm.init_state(
             sim_covs=sim_covs, sim_length=sim_length,
@@ -534,18 +534,26 @@ def _append_update_step(slab, state, config, last, device):
 
     rm = RiskModel(*_panels(slab, _dtype(config), device),
                    n_industries=slab.n_industries, config=config.risk,
-                   device=device)
+                   device=device, factor_names=slab.factor_names())
     last_date = date_stamp(slab.dates[-1])
     if config.risk.quarantine.enabled:
         # the host-side date-order pre-check feeds the guards: a
         # disordered date is quarantined, not folded into the carries
         pre = host_date_reasons([date_stamp(d) for d in slab.dates],
                                 last_date=last)
+        t0 = time.perf_counter()
         outputs, report, new_state = rm.update_guarded(
             state, last_date=last_date, pre_reasons=pre)
+        # host-side telemetry off the report (its read waits for the card)
+        _telemetry.record_guard_report(report)
+        _telemetry.record_update_latency(time.perf_counter() - t0)
         return RiskPipelineResult(outputs=outputs, arrays=slab, model=rm,
                                   state=new_state, report=report)
+    t0 = time.perf_counter()
     outputs, new_state = rm.update(state, last_date=last_date)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # time the work, not its enqueue
+    _telemetry.record_update_latency(time.perf_counter() - t0)
     return RiskPipelineResult(outputs=outputs, arrays=slab, model=rm,
                               state=new_state)
 
@@ -645,7 +653,7 @@ def load_risk_pipeline_result(out_dir: str,
     """Rehydrate a finished ``pipeline`` output directory (the barra table,
     the industry code list and ``risk_outputs.npz``) into a
     :class:`RiskPipelineResult`, outputs on ``device``, so the analytics
-    run without recomputing the model.  Reading the CSV needs pandas.
+    run without recomputing the model.  Reading the CSV needs no pandas.
     ``model`` is None on a rehydrated result.
     """
     from mfm_tpu_torch.data.artifacts import load_risk_outputs

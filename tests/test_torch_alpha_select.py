@@ -310,14 +310,20 @@ def test_alpha_cli_min_ic_fence(tmp_path, capsys):
 
 def test_read_long_table_needs_no_pandas(tmp_path):
     """The csv reader and Panel.from_long run on numpy alone, and give
-    the DataFrame's panel."""
+    the panel of the reference's ``pd.read_csv(parse_dates=["trade_date"])``
+    bit for bit: pandas' float parser, which reads a 17-digit float up to
+    ~1e-13 off the DataFrame that wrote it."""
     from mfm_tpu_torch.cli import _read_long_table
 
     path, long = _long_panel(tmp_path, 3, 12, 5)
     cols = _read_long_table(path)
     assert cols["trade_date"].dtype.kind == "M"
-    got, want = Panel.from_long(cols), Panel.from_long(long)
+    got = Panel.from_long(cols)
+    want = Panel.from_long(pd.read_csv(path, parse_dates=["trade_date"]))
+    written = Panel.from_long(long)
     np.testing.assert_array_equal(got.stocks, want.stocks)
     np.testing.assert_array_equal(got.dates, want.dates)
     for k in want.fields:
         np.testing.assert_array_equal(got[k], want[k])
+        # pandas keeps 17 digits, leading zeros included
+        np.testing.assert_allclose(got[k], written[k], rtol=1e-12, atol=0)

@@ -22,9 +22,9 @@ injected ``sim_covs``, each saving its own guarded checkpoint.  Then:
   reference's does on the same directory;
 - the socket/HTTP front end answers, shows its SLO block and workers, and
   writes its fleet manifest on SIGTERM;
-- ``--device cuda`` raises without a card; the reference's other
-  subcommands exit non-zero naming their ROADMAP.md item; every spawn
-  names ``mfm_tpu_torch.cli``.
+- ``--device cuda`` raises without a card; the reference's subcommands
+  and flags the port does not carry yet exit non-zero naming their
+  ROADMAP.md item; every spawn names ``mfm_tpu_torch.cli``.
 
 Every subprocess wait and socket read carries a timeout.
 """
@@ -331,13 +331,13 @@ def test_device_cuda_raises_without_a_card(ckpts):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["risk", "--barra", "x.csv", "--out", "o"], "§A 15"),
-    (["scenario", "run", "state.npz"], "§A 15"),
-    (["grad", "reverse", "state.npz"], "§A 15"),
+    (["risk", "--barra-store", "s"], "§A 14"),
+    (["risk", "--barra", "x.csv", "--mesh", "2x1"], "§A 16"),
+    (["report", "--results", "r"], "§A 14"),
     (["pipeline", "--store", "s", "--alphas", "a.txt"], "§A 15"),
     (["etl-update", "--store", "s"], "§A 14"),
     (["lint"], "§A 16"),
-    (["doctor", ".", "--scenarios"], "§A 15"),
+    (["crosscheck", "--ours", "a", "--external", "b"], "§A 14"),
     (["doctor", ".", "--audit"], "§A 16"),
 ])
 def test_unported_commands_name_their_roadmap_item(argv, item):
