@@ -58,7 +58,7 @@ every preset drill, batch == singles bitwise, the kernel at the ascent's
 (128, 42, 42) beside its bound and ``torch.linalg.eigh``),
 ``grad_sensitivity`` (a book against the presets and 4,096 specs; card
 vs the CPU at float64 outside the eigen-gap band, the CPU vs central
-differences), ``grad_served`` (bench config 9: 10,000 lines with
+differences), ``grad_served`` (bench config 9: 3,000 lines with
 construct solves through the coalescer, bitwise the sequential loop;
 a warm-started solve on the guarded checkpoint) and ``sweep_refine``
 (the sweep config's refined leg).  Then the serving fleet, bench config
@@ -95,7 +95,18 @@ same csv, within the ``factors`` budgets of float64), ``cli_scenario``
 checkpoint, bitwise the in-process engines; ``doctor --scenarios``) and
 ``cli_grad`` (``grad reverse`` on 64 books, ``sensitivity``, ``construct
 min_vol`` on 100 books, each report bitwise ``GradEngine``); all but the
-headline ``risk`` go through ``cli.main`` in this process.  Then the
+headline ``risk`` go through ``cli.main`` in this process.  Then the host
+data layer at CSI300 width, in three phases: ``store_build`` (the port's
+``synthetic_collections`` at T = 1390, N = 300 + 1, 31 industries, about
+403,000 price rows; each collection's read, the prepare path's walls;
+``prepare``'s ``panel.npz`` bitwise the master table, densified bitwise
+``PreparedData.fields``), ``store_etl`` (``etl-verify``, ``--diagnose``,
+``etl-missing``, ``etl-update --dry-run``, each record checked) and
+``store_pipeline`` (four subprocesses: ``pipeline --to-store`` on the
+store cut 40 dates before its end, ``IncrementalUpdater`` bringing it up
+to date a part a day, ``pipeline --append`` bitwise ``pipeline`` from
+scratch, ``risk --barra-store`` bitwise the cut run; ``factors
+--prepared`` bitwise ``run_factor_pipeline``; each process's launches).  Then the
 all-A universe (T=2500, N=5000, K=42, M=100), in two phases:
 ``alla_risk`` (bench config 1 at ``--universe alla``: ``run_fused``, its
 walls, busy share, peak
@@ -2741,9 +2752,11 @@ GRAD_TOL = {"construct_weights_abs": 1e-5, "construct_vol_rel": 1e-5,
 GRAD_GAP_BAND = 1e-4
 #: config 9 as the bench runs it (bench.py:1283-1480)
 FLEET_MIX = (0.45, 0.20, 0.15, 0.20, 0.0)
-FLEET_LINES, FLEET_RATE, FLEET_LINGER = 10_000, 2400.0, 0.1
+#: (cut from the bench's 10,000 lines to 3,000, and the closed loop's from
+#: 2,000 to 1,000, to make room for the store section; PERF.md §5)
+FLEET_LINES, FLEET_RATE, FLEET_LINGER = 3_000, 2400.0, 0.1
 #: the one-at-a-time baseline's lines and the closed loop's
-FLEET_BASELINE_LINES, FLEET_CLOSED_LINES = 400, 2000
+FLEET_BASELINE_LINES, FLEET_CLOSED_LINES = 400, 1000
 #: the sweep config's refined leg (bench.py:1116-1130): 50 coarse chunks
 SWEEP_REFINE_CHUNKS = 50
 
@@ -3241,7 +3254,8 @@ def grad_sensitivity_phase(ctx) -> dict:
 def grad_served_phase(ctx) -> dict:
     """Phase grad_served: bench config 9 as the bench runs it — K = 42, a
     stressed table (x1.21), ``batch_max`` 256, mix (0.45, 0.20, 0.15,
-    0.20, 0.0): 10,000 lines open loop at 2,400 req/s through the
+    0.20, 0.0): 3,000 lines (the bench's 10,000 cut) open loop at
+    2,400 req/s through the
     ``Coalescer`` (linger 0.1 s), every response bitwise the sequential
     loop's per request id; the 400-line one-at-a-time baseline; the
     32-client closed loop.  p50 / p99 and ``p99_within_linger_plus_batch``
@@ -4696,6 +4710,394 @@ def cli_grad_phase(ctx) -> dict:
     return res
 
 
+# -- the host data layer: the store path at CSI300 width -----------------------
+
+#: the CSI300 store: T dates x N constituents (+ the outsider), K = 42;
+#: the generator's defaults but ``missing`` (see PERF.md §4)
+STORE_SHAPE = dict(T=1390, N=300, n_industries=31, missing=0.001)
+STORE_COLLECTIONS = ("stock_info", "daily_prices", "balancesheet",
+                     "cashflow", "financial_indicators",
+                     "index_daily_prices", "index_components",
+                     "sw_industries")
+#: dates the append serves: the cut is the last full-universe date at
+#: least this many dates before the end
+STORE_APPEND_DATES = 40
+#: the pinned Monte-Carlo draw length of every store run (below the cut
+#: run's date count, so runs of different lengths draw the same sims)
+STORE_SIM_LENGTH = 1000
+RESULT_TABLES = ("factor_returns", "r_squared", "specific_returns",
+                 "final_covariance", "lambda")
+
+
+def same_column(a, b) -> bool:
+    """Two table columns hold the same cells bit for bit (NaN/NaT equal)."""
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != b.dtype:
+        return False
+    if a.dtype.kind in "fM":
+        return np.array_equal(a, b, equal_nan=True)
+    return a.tolist() == b.tolist()
+
+
+def store_build_phase(ctx) -> dict:
+    """Phase store_build: the CSI300 store built with the port's
+    ``synthetic_collections`` (T = 1390, N = 300 + 1, 31 industries,
+    ``missing`` 0.001), each collection read, ``load_and_prepare_data``
+    and the densify step timed; ``prepare`` through ``cli.main``: its
+    ``panel.npz`` is bitwise the master table (dates encoded as the
+    reference's yyyymmdd numbers), and densified with ``Panel.from_long``
+    it gives ``PreparedData.fields`` bitwise."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.columns import nrows, yyyymmdd_numbers
+    from mfm_tpu_torch.data.etl import PanelStore, read_table
+    from mfm_tpu_torch.data.prepare import (
+        DAILY_FIELDS,
+        FILL_DATE_COLS,
+        FILL_FIELDS,
+        densify,
+        load_and_prepare_data,
+    )
+    from mfm_tpu_torch.data.synthetic import synthetic_collections
+    from mfm_tpu_torch.panel import Panel
+
+    d = os.path.join(ctx["tmp"], "store")
+    truth = os.path.join(d, "truth")
+    meta, build_s = timed(lambda: synthetic_collections(PanelStore(truth),
+                                                        **STORE_SHAPE))
+    st = PanelStore(truth)
+    read_s, rows = {}, {}
+    for name in STORE_COLLECTIONS:
+        t, read_s[name] = timed(lambda: st.read(name))
+        rows[name] = nrows(t)
+    (master, index_px, sw), load_s = timed(lambda: load_and_prepare_data(st))
+    prep, densify_s = timed(lambda: densify(master, index_px, sw))
+    prep_dir = os.path.join(d, "prepared")
+    (code, txt), prepare_s = timed(lambda: cli_call(
+        ["prepare", "--store", truth, "--out", prep_dir]))
+    require(code == 0, f"store_build: prepare exited {code}")
+    rec = json.loads(txt.splitlines()[-1])
+    panel = read_table(rec["panel"])
+    want = {k: (yyyymmdd_numbers(v) if k in FILL_DATE_COLS else v)
+            for k, v in master.items()}
+    panel_bitwise = list(panel) == list(want) and all(
+        same_column(panel[k], want[k]) for k in want)
+    p = Panel.from_long(panel, value_cols=[*dict.fromkeys(
+        DAILY_FIELDS + FILL_FIELDS), "end_date"])
+    ed = p.fields.pop("end_date")
+    ok = np.isfinite(ed)
+    rid = np.full(ed.shape, -1, np.int32)
+    rid[ok] = np.searchsorted(np.unique(ed[ok]), ed[ok])
+    fields_bitwise = (set(p.fields) | {"end_date_code"}) == set(prep.fields) \
+        and all(np.array_equal(p.fields[k], prep.fields[k], equal_nan=True)
+                for k in p.fields) \
+        and np.array_equal(rid, prep.fields["end_date_code"])
+    res = {"shape": STORE_SHAPE, "rows": rows, "build_s": build_s,
+           "read_s": read_s, "load_and_prepare_s": load_s,
+           "densify_s": densify_s, "prepare_cli_s": prepare_s,
+           "prepare_rows": rec["rows"], "prepared_T": len(prep.dates),
+           "prepared_N": len(prep.stocks),
+           "panel_bitwise": panel_bitwise, "fields_bitwise": fields_bitwise}
+    emit("store_build", **res)
+    T, N = STORE_SHAPE["T"], STORE_SHAPE["N"]
+    require(rows["daily_prices"] > 0.9 * T * (N + 1)
+            and len(prep.stocks) == N and len(prep.dates) == T,
+            f"store_build: the store is not CSI300-sized: {rows}")
+    require(panel_bitwise and fields_bitwise,
+            f"store_build: prepare's panel.npz is not the master table "
+            f"({panel_bitwise}) or its densified fields "
+            f"PreparedData's ({fields_bitwise})")
+    ctx["store"] = {"dir": d, "truth": truth, "prep_dir": prep_dir,
+                    "prep": prep, "meta": meta, "rows": rows}
+    return res
+
+
+def store_etl_phase(ctx) -> dict:
+    """Phase store_etl: ``etl-verify``, ``etl-verify --diagnose --name
+    balancesheet``, ``etl-missing`` and ``etl-update --dry-run`` through
+    ``cli.main`` on the CSI300 store, each record checked."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.etl import PanelStore
+
+    s = ctx["store"]
+    truth, dates = s["truth"], list(s["meta"]["dates"])
+    recs, walls = {}, {}
+    for key, argv in (
+            ("verify", ["etl-verify", "--store", truth]),
+            ("diagnose", ["etl-verify", "--store", truth, "--diagnose",
+                          "--name", "balancesheet"]),
+            ("missing", ["etl-missing", "--store", truth]),
+            ("plan", ["etl-update", "--store", truth, "--start", dates[0],
+                      "--end", dates[-1], "--dry-run",
+                      "--index-codes", s["meta"]["index_code"]])):
+        (code, txt), walls[key] = timed(lambda: cli_call(argv))
+        require(code == 0, f"store_etl: {argv[0]} exited {code}")
+        recs[key] = json.loads(txt.splitlines()[-1])
+    v, dg, m, pl = (recs[k] for k in ("verify", "diagnose", "missing",
+                                      "plan"))
+    # the revised statements: every row of a (stock, period end) pair
+    # announced more than once, counted here from the rows themselves
+    bs = PanelStore(truth).read("balancesheet")
+    _, inv, cnt = np.unique(np.char.add(bs["ts_code"], bs["end_date"]),
+                            return_inverse=True, return_counts=True)
+    revised = int((cnt[inv] > 1).sum())
+    checks = {
+        "verify": v == {"rows": s["rows"]["daily_prices"],
+                        "stocks": STORE_SHAPE["N"] + 1,
+                        "first_date": dates[0], "last_date": dates[-1]},
+        # revisions share their period end (and two announcements can
+        # fall on one day); no date is missing or before its period end
+        "diagnose": dg["n_rows"] == s["rows"]["balancesheet"]
+        and dg["issue_counts"].get("dup_end") == revised
+        and set(dg["issue_counts"]) <= {"dup_end", "dup_ann"}
+        and dg["collection"] == "balancesheet",
+        "missing": m == {"n_missing": 0, "missing": []},
+        "plan": pl["daily_prices"]["watermark"] == dates[-1]
+        and pl["daily_prices"]["up_to_date"] is True
+        and pl["stock_info"]["rows"] == STORE_SHAPE["N"] + 1
+        and pl["index_daily_prices"][s["meta"]["index_code"]]["up_to_date"],
+    }
+    res = {"walls_s": walls, "checks": checks,
+           "diagnose_issue_counts": dg["issue_counts"],
+           "revised_rows": revised}
+    emit("store_etl", **res)
+    require(all(checks.values()), f"store_etl: a record is wrong: "
+            f"{checks} {recs}")
+    return res
+
+
+class TruthSource:
+    """The truth store through the fetch surface the daily ETL calls: a
+    day's prices, an index's prices over a range."""
+
+    def __init__(self, store):
+        import numpy as np
+
+        self.px = store.read("daily_prices")
+        self.ix = store.read("index_daily_prices")
+        days, inv = np.unique(self.px["trade_date"], return_inverse=True)
+        order = np.argsort(inv, kind="stable")
+        bounds = np.searchsorted(inv[order], np.arange(len(days) + 1))
+        self.by_day = {d: order[bounds[i]:bounds[i + 1]]
+                       for i, d in enumerate(days.tolist())}
+
+    def fetch_daily_prices(self, trade_date):
+        from mfm_tpu_torch.data.columns import take
+
+        return take(self.px, self.by_day.get(trade_date, []))
+
+    def fetch_daily_index_prices(self, ts_code, start_date=None,
+                                 end_date=None):
+        import numpy as np
+
+        from mfm_tpu_torch.data.columns import take
+
+        d = self.ix["trade_date"]
+        keep = self.ix["ts_code"] == ts_code
+        if start_date is not None:
+            keep &= d >= start_date
+        if end_date is not None:
+            keep &= d <= end_date
+        return take(self.ix, np.asarray(keep))
+
+
+def store_pipeline_phase(ctx) -> dict:
+    """Phase store_pipeline: four subprocesses on the card.  (a)
+    ``pipeline --store W --to-store F`` on a copy W of the store cut at
+    CUT (the last full-universe date at least 40 before the end; prices
+    and index prices past it removed); W brought up to date by
+    ``IncrementalUpdater`` from the truth store, one part a day; (b)
+    ``pipeline --append``: bitwise (c) ``pipeline`` from scratch on W (the
+    tables, ``risk_outputs.npz``, ``risk_state.npz``); (d) ``risk
+    --barra-store F``: bitwise (a).  In this process: ``factors
+    --prepared`` over store_build's directory, bitwise
+    ``run_factor_pipeline`` on the inputs it read; the factor and risk
+    stages under the profiler for the busy share, bitwise (c)."""
+    import shutil
+
+    import numpy as np
+
+    from mfm_tpu_torch import PipelineConfig, RiskModelConfig
+    from mfm_tpu_torch import run_factor_pipeline, run_risk_pipeline
+    from mfm_tpu_torch.cli import _read_long_table, _reindex
+    from mfm_tpu_torch.data.artifacts import _numpy, load_artifact
+    from mfm_tpu_torch.data.columns import take
+    from mfm_tpu_torch.data.csvio import read_csv, write_csv
+    from mfm_tpu_torch.data.etl import IncrementalUpdater, PanelStore
+    from mfm_tpu_torch.panel import Panel
+
+    s, dev = ctx["store"], ctx["device"]
+    d, truth = s["dir"], s["truth"]
+    st = PanelStore(truth)
+    px = st.read("daily_prices")
+    days, counts = np.unique(px["trade_date"], return_counts=True)
+    n_all = len(np.unique(px["ts_code"]))
+    full = np.nonzero(counts == n_all)[0]
+    full = full[full <= len(days) - 1 - STORE_APPEND_DATES]
+    require(len(full) > 0, "store_pipeline: no full-universe date to cut at")
+    cut = str(days[full[-1]])
+    W = os.path.join(d, "W")
+    shutil.copytree(truth, W)
+    ws = PanelStore(W)
+    for name in ("daily_prices", "index_daily_prices"):
+        t = st.read(name)
+        ws.replace(name, take(t, t["trade_date"] <= cut))
+    L = ["--eigen-sim-length", str(STORE_SIM_LENGTH)]
+    out = {k: os.path.join(d, k) for k in ("A", "A0", "C", "D", "F")}
+    mdirs = {k: os.path.join(d, f"metrics_{k}") for k in "abc"}
+
+    def cli_proc(*argv):
+        cmd = [sys.executable, "-m", "mfm_tpu_torch.cli", *argv]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True,
+                              text=True, timeout=600)
+        require(proc.returncode == 0, f"store_pipeline: {argv[:2]} exit "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        return (json.loads(proc.stdout.strip().splitlines()[-1]),
+                time.perf_counter() - t0)
+
+    rec_a, wall_a = cli_proc("pipeline", "--store", W, "--out", out["A"],
+                             "--to-store", out["F"], *L,
+                             "--metrics-dir", mdirs["a"])
+    shutil.copytree(out["A"], out["A0"])
+    # the daily ETL's shape: one part a day past the cut
+    src = TruthSource(st)
+    up = IncrementalUpdater(store=ws, source=src, sleep=lambda s: None)
+    (n_px, n_ix), refresh_s = timed(lambda: (
+        up.update_daily_prices(days.tolist()),
+        up.update_daily_index_prices([s["meta"]["index_code"]],
+                                     end_date=str(days[-1]))))
+    want_px = int((px["trade_date"] > cut).sum())
+    parts = len(ws._parts("daily_prices"))
+    rec_b, wall_b = cli_proc("pipeline", "--store", W, "--out", out["A"],
+                             "--append", *L, "--metrics-dir", mdirs["b"])
+    rec_c, wall_c = cli_proc("pipeline", "--store", W, "--out", out["C"],
+                             *L, "--metrics-dir", mdirs["c"])
+    rec_d, wall_d = cli_proc("risk", "--barra-store", out["F"], "--out",
+                             out["D"], *L, "--save-outputs", "--save-state",
+                             os.path.join(out["D"], "ck", "state.npz"))
+
+    def tables_same(x, y):
+        return {n: open(os.path.join(x, f"{n}.csv"), "rb").read()
+                == open(os.path.join(y, f"{n}.csv"), "rb").read()
+                for n in RESULT_TABLES}
+
+    def artifact_same(x, y, name):
+        a, ma = load_artifact(os.path.join(x, name))
+        b, mb = load_artifact(os.path.join(y, name))
+        return set(a) == set(b) and all(
+            np.array_equal(a[k], b[k], equal_nan=True) for k in b) and (
+            ma.get("last_date") == mb.get("last_date"))
+
+    append_eq = {**tables_same(out["A"], out["C"]),
+                 "risk_outputs": artifact_same(out["A"], out["C"],
+                                               "risk_outputs.npz"),
+                 "risk_state": artifact_same(out["A"], out["C"],
+                                             "risk_state.npz")}
+    barra_store_eq = {**tables_same(out["D"], out["A0"]),
+                      "risk_outputs": artifact_same(out["D"], out["A0"],
+                                                    "risk_outputs.npz")}
+
+    # factors --prepared, and run_factor_pipeline on the inputs it read
+    fdir = os.path.join(d, "factors")
+    (code, txt), factors_cli_s = timed(lambda: cli_call(
+        ["factors", "--prepared", s["prep_dir"], "--out", fdir]))
+    require(code == 0, f"store_pipeline: factors --prepared exited {code}")
+    p = Panel.from_long(_read_long_table(os.path.join(s["prep_dir"],
+                                                      "panel.npz")))
+    e = p.fields.pop("end_date")
+    ok = np.isfinite(e)
+    rid = np.full(e.shape, -1, np.int32)
+    rid[ok] = np.searchsorted(np.unique(e[ok]), e[ok])
+    p.fields["end_date_code"] = rid
+    index = read_csv(os.path.join(s["prep_dir"], "index_prices.csv"),
+                     parse_dates=("trade_date",))
+    ind = read_csv(os.path.join(s["prep_dir"], "industry_map.csv"))
+    table, _ = run_factor_pipeline(
+        p.fields, _reindex(index["trade_date"], index["close"], p.dates),
+        _reindex(ind["ts_code"], ind["l1_code"], p.stocks), p.dates,
+        p.stocks, PipelineConfig(), device=dev)
+    mine = os.path.join(d, "barra_in_process.csv")
+    write_csv(mine, table)
+    factors_bitwise = open(mine, "rb").read() == open(
+        os.path.join(fdir, "barra_data.csv"), "rb").read()
+
+    # the factor and risk stages of (c) in this process, profiled
+    prep = s["prep"]
+    cfg = PipelineConfig(risk=RiskModelConfig(
+        eigen_sim_length=STORE_SIM_LENGTH))
+    codes = read_csv(os.path.join(out["C"], "industry_info.csv"))["code"]
+    box = {}
+
+    def stages():
+        barra, _ = run_factor_pipeline(prep.fields, prep.index_close,
+                                       prep.industry_l1, prep.dates,
+                                       prep.stocks, cfg, device=dev)
+        box["res"] = run_risk_pipeline(barra, config=cfg,
+                                       industry_codes=codes,
+                                       with_state=True, device=dev)
+
+    prof = profile_run(stages)
+    saved, _ = load_artifact(os.path.join(out["C"], "risk_outputs.npz"))
+    o = box["res"].outputs
+    in_process_eq = all(np.array_equal(saved[f], _numpy(getattr(o, f)),
+                                       equal_nan=True) for f in o._fields)
+    finite = outputs_finite(o, torch.as_tensor(box["res"].arrays.valid,
+                                               device=o.factor_ret.device))
+
+    launches = {k: r["kernels"]["launches"] for k, r in
+                (("pipeline_cut", rec_a), ("pipeline_append", rec_b),
+                 ("pipeline_scratch", rec_c), ("risk_barra_store", rec_d))}
+    res = {"cut": cut, "L": STORE_SIM_LENGTH,
+           "process_s": {"a": wall_a, "b": wall_b, "c": wall_c, "d": wall_d},
+           "wall_s": {"a": rec_a["wall_s"], "b": rec_b["wall_s"],
+                      "c": rec_c["wall_s"], "d": rec_d["wall_s"]},
+           "factor_stage_wall_s": {"a": rec_a["factor_stage_wall_s"],
+                                   "b": rec_b["factor_stage_wall_s"],
+                                   "c": rec_c["factor_stage_wall_s"]},
+           "update_wall_s": rec_b.get("update_wall_s"),
+           "appended_dates": len(rec_b.get("appended_dates", [])),
+           "dates": {"a": rec_a["dates"], "c": rec_c["dates"],
+                     "d": rec_d["dates"]},
+           "rows": rec_c["rows"], "factors": rec_c["factors"],
+           "stages_s": {k: stage_seconds(v) for k, v in mdirs.items()},
+           "refresh": {"s": refresh_s, "price_rows": n_px,
+                       "index_rows": n_ix, "daily_parts": parts},
+           "append_bitwise": append_eq, "barra_store_bitwise":
+           barra_store_eq, "factors_prepared_cli_s": factors_cli_s,
+           "factors_prepared_bitwise": factors_bitwise,
+           "in_process": {"profile": prof, "bitwise_c": in_process_eq,
+                          "finite": finite},
+           "launches": launches}
+    emit("store_pipeline", **res)
+    require(n_px == want_px and parts == 1 + len(days) - 1 - full[-1],
+            f"store_pipeline: the refresh wrote {n_px} rows in {parts} parts "
+            f"(want {want_px})")
+    require(rec_a["dates"] > STORE_SIM_LENGTH and rec_c["factors"] == 42
+            and res["appended_dates"] >= STORE_APPEND_DATES - 1,
+            f"store_pipeline: shapes {res['dates']}, {rec_c['factors']} "
+            f"factors, {res['appended_dates']} appended")
+    require(all(append_eq.values()), f"store_pipeline: --append is not "
+            f"the from-scratch run: {append_eq}")
+    require(all(barra_store_eq.values()), f"store_pipeline: risk "
+            f"--barra-store is not pipeline --to-store's run: "
+            f"{barra_store_eq}")
+    require(factors_bitwise, "store_pipeline: factors --prepared is not "
+            "run_factor_pipeline on the inputs it read")
+    require(in_process_eq and all(finite.values()),
+            f"store_pipeline: the in-process stages differ from (c) "
+            f"({in_process_eq}) or are not finite ({finite})")
+    for key in ("pipeline_cut", "pipeline_scratch", "pipeline_append",
+                "risk_barra_store"):
+        require_launches(launches[key], f"store_pipeline {key}", 1, 2)
+    require(prof["busy_share"] is not None,
+            "store_pipeline: the profiler saw no device time")
+    return res
+
+
 # -- alpha ---------------------------------------------------------------------
 
 #: bench config 5's expression templates (bench.py:842-849)
@@ -4790,8 +5192,9 @@ def alla_kernel_times(out, sim_covs, T, K, M) -> dict:
     eigen stage gave them: the weighted kernel at (T*M, K, K), the full
     kernel at (T, K, K); each held against its plain version there first
     (:func:`hold_kernels`), then timed beside its plain version, its bound
-    and, for the full kernel, ``torch.linalg.eigh`` (at T*M matrices that
-    call takes minutes, so the weighted kernel's has none)."""
+    and ``torch.linalg.eigh`` — for the weighted kernel on the first
+    8,192 matrices of G, beside the kernel on the same 8,192 (one library
+    call on all T*M matrices takes minutes)."""
     from mfm_tpu_torch.ops import eigh as E
     from mfm_tpu_torch.ops.eigh_cuda import (
         jacobi_eigh_cuda,
@@ -4800,13 +5203,6 @@ def alla_kernel_times(out, sim_covs, T, K, M) -> dict:
 
     F0, G, d0, sw, sf = kernel_inputs(out, sim_covs, T, K, M)
     held = hold_kernels(F0, G, d0, sw, sf, "alla_kernel")
-    weighted = {
-        "shape": list(G.shape), "sweeps": sw,
-        "max_abs_err": held["weighted_err"],
-        "ms": time_ms(lambda: jacobi_eigh_weighted_diag_cuda(G, d0, sweeps=sw),
-                      3),
-        "plain_ms": held["weighted_plain_ms"],
-        "library_ms": None, **weighted_kernel_bound(G.shape[0], K, sw)}
     full = {
         "shape": list(F0.shape), "sweeps": sf, "max_abs_err": held["full_err"],
         "ms": time_ms(lambda: jacobi_eigh_cuda(F0, sweeps=sf, sort=False,
@@ -4814,6 +5210,26 @@ def alla_kernel_times(out, sim_covs, T, K, M) -> dict:
         "plain_ms": time_ms(lambda: E.jacobi_eigh_slots(F0, sf), 2),
         "library_ms": time_ms(lambda: torch.linalg.eigh(F0), 2),
         **full_kernel_bound(F0.shape[0], K, sf)}
+
+    def lib_weighted(A, d):
+        w, V = torch.linalg.eigh(A)
+        return w, torch.einsum("bki,bk->bi", V * V, d)
+
+    # the library was warmed up on the (T, K, K) batch just above
+    B8 = 8192
+    lib_8192 = time_ms(lambda: lib_weighted(G[:B8], d0[:B8]), 1,
+                       warmup=False)
+    ms_8192 = time_ms(lambda: jacobi_eigh_weighted_diag_cuda(
+        G[:B8], d0[:B8], sweeps=sw), 20)
+    weighted = {
+        "shape": list(G.shape), "sweeps": sw,
+        "max_abs_err": held["weighted_err"],
+        "ms": time_ms(lambda: jacobi_eigh_weighted_diag_cuda(G, d0, sweeps=sw),
+                      3),
+        "plain_ms": held["weighted_plain_ms"],
+        "library_ms": None, "library_ms_8192": lib_8192, "ms_8192": ms_8192,
+        "library_over_kernel_8192": lib_8192 / ms_8192,
+        **weighted_kernel_bound(G.shape[0], K, sw)}
     emit("alla_kernel_times", weighted=weighted, full=full)
     return {"weighted": weighted, "full": full}
 
@@ -5632,6 +6048,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("cli")
+    # -- phase 11c: the host data layer, the store path at CSI300 width -----
+    # the store's commands run as subprocesses on the card (each reports
+    # its own launches) or through cli.main here; the in-process runs
+    # compare and profile
+    scratch = tempfile.TemporaryDirectory()
+    sctx = {"device": "cuda", "tmp": scratch.name}
+    store_build_phase(sctx)
+    store_etl_phase(sctx)
+    store_launches = store_pipeline_phase(sctx)["launches"]
+    scratch.cleanup()
+    del sctx
+    torch.cuda.empty_cache()
+
+    mark("store")
     # -- phase 12: the all-A universe, bench configs 1 (--universe alla), 4 --
     # each path's launches are counted from 0 just before its run and read
     # just after; its comparisons with plain versions come after that
@@ -5759,6 +6189,8 @@ def main() -> int:
                 "alla_bound_ms": kt["bound_ms"],
                 "alla_bound_by": kt["bound_by"],
                 "alla_library_ms": kt["library_ms"],
+                "alla_library_ms_8192": kt.get("library_ms_8192"),
+                "alla_ms_8192": kt.get("ms_8192"),
                 "alla_max_abs_err": kt["max_abs_err"],
                 "alpha_launches": sum(n[f"{name}/warp"]
                                       for n in alpha_launches)}
@@ -5782,6 +6214,8 @@ def main() -> int:
                 "grad_launches": grad_launches[f"{name}/warp"],
                 "cli_launches": {k: v[f"{name}/warp"]
                                  for k, v in cli_launches.items()},
+                "store_launches": {k: v[f"{name}/warp"]
+                                   for k, v in store_launches.items()},
                 **serve[key], **alla_entry(name, key)}
 
     kernels = [

@@ -15,6 +15,12 @@
     python -m mfm_tpu_torch.cli metrics dump|snapshot|diff ...
     python -m mfm_tpu_torch.cli alpha --exprs FILE --panel LONG.csv \
         [--select K] [--llm] [--device cuda|cpu]
+    python -m mfm_tpu_torch.cli prepare --store STORE --out prepared/
+    python -m mfm_tpu_torch.cli pipeline --store STORE --out results/ \
+        [--append] [--to-store STORE2] [--alphas FILE]
+    python -m mfm_tpu_torch.cli risk --barra-store STORE2 --out results/
+    python -m mfm_tpu_torch.cli etl-update|etl-verify|etl-missing|etl-xlsx \
+        --store STORE ...
 
 ``risk`` runs the risk model over a barra-format csv, checkpoints it
 (``--save-state``, with the run manifest and its health verdict beside
@@ -31,16 +37,26 @@ run manifest, with ``--serve`` its serve and fleet manifests, their SLO
 blocks and flight-recorder dumps, and with ``--scenarios`` its scenario
 and sweep manifests.  ``metrics`` reads what ``--metrics-dir`` wrote.
 ``alpha`` evaluates a batch of alpha-DSL expressions over a long panel and
-writes their scorecard, optionally with a de-correlated selection.  The
-csv paths need no pandas.  The flags, outputs, manifests and exit codes
+writes their scorecard, optionally with a de-correlated selection.
+``prepare`` turns a store of raw tushare-shaped collections into the
+factor inputs (``panel.npz``, the index prices, the industry map);
+``pipeline`` runs the store through factors and risk in one command, with
+a resumable checkpoint that ``--append`` serves new dates from, and
+``--to-store`` keeps the factor table as collections that ``risk
+--barra-store`` reads.  ``etl-update`` refreshes the store from the
+vendor (``--dry-run`` plans it from the watermarks alone), ``etl-verify``
+and ``etl-missing`` check it, ``etl-xlsx`` loads the static workbooks.
+The csv and store paths need no pandas (a parquet file, from a store or
+a ``prepare`` directory the reference wrote, is read through it).  The flags, outputs, manifests and exit codes
 are the reference's; ``--device`` (default ``cuda``) takes the place of
 its ``JAX_PLATFORMS``: a command computes on the CUDA card unless asked
 for the CPU, and without a card ``--device cuda`` raises.  The serve path
 launches no CUDA kernel, and importing this module builds and loads none.
 
-The reference's other subcommands, ``risk --barra-store``, ``risk --mesh``
-and ``doctor --audit/--sync`` are not ported yet; each exits non-zero
-naming its ROADMAP.md item.
+The reference's other subcommands (``report``, ``crosscheck``, ``lint``,
+``sync``, ``audit``), ``--mesh``, ``--nw-method associative`` and
+``doctor --audit/--sync`` are not ported yet; each exits non-zero naming
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -50,14 +66,14 @@ import contextlib
 import json
 import os
 
+from mfm_tpu_torch.data.columns import reindex
+
 SERVE_MANIFEST_NAME = "serve_manifest.json"
 
 #: the reference's subcommands this port does not carry yet, by the
 #: ROADMAP.md item that ports them
 UNPORTED_COMMANDS = {
-    "pipeline": "§A 15", "crosscheck": "§A 14", "report": "§A 14",
-    "prepare": "§A 14", "etl-xlsx": "§A 14", "etl-update": "§A 14",
-    "etl-verify": "§A 14", "etl-missing": "§A 14",
+    "crosscheck": "§A 19", "report": "§A 19",
     "lint": "§A 16", "sync": "§A 16", "audit": "§A 16",
 }
 
@@ -67,7 +83,7 @@ def _unported(args):
         f"mfm_tpu_torch.cli: `{args.cmd}` is not ported yet (ROADMAP.md "
         f"{UNPORTED_COMMANDS[args.cmd]}); this package runs `risk`, "
         "`demo`, `factors`, `scenario`, `grad`, `serve`, `doctor`, "
-        "`metrics` and `alpha`")
+        "`metrics`, `alpha`, `prepare`, `pipeline` and `etl-*`")
 
 
 def _metrics_init(args) -> None:
@@ -1202,11 +1218,6 @@ def _risk(args):
     import numpy as np
 
     from mfm_tpu_torch._device import resolve_device
-    from mfm_tpu_torch.config import (
-        PipelineConfig,
-        QuarantinePolicy,
-        RiskModelConfig,
-    )
     from mfm_tpu_torch.data.artifacts import _numpy
     from mfm_tpu_torch.data.barra import barra_frame_to_arrays
     from mfm_tpu_torch.data.csvio import read_csv
@@ -1226,33 +1237,23 @@ def _risk(args):
         # bias statistics need history; an appended slab has none
         raise SystemExit("--update serves new dates only — run the bias "
                          "acceptance tests on a full-history run instead")
-    if args.barra_store:
-        _unported_flag("risk", "--barra-store", "§A 14")
     if args.mesh:
         _unported_flag("risk", "--mesh", "§A 16")
+    if args.nw_method == "associative":
+        _unported_flag("risk", "--nw-method associative", "§A 16")
     # the card unless the caller asked for the CPU; raises without a card
     device = resolve_device(args.device)
     _metrics_init(args)
     root = _root_span(args)
 
-    cfg = PipelineConfig(
-        risk=RiskModelConfig(
-            nw_lags=args.nw_lags, nw_half_life=args.nw_half_life,
-            nw_method=args.nw_method,
-            eigen_n_sims=args.eigen_sims, eigen_scale_coef=args.eigen_scale,
-            eigen_chunk=args.eigen_chunk,
-            eigen_sim_length=args.eigen_sim_length,
-            eigen_mc_dtype=args.eigen_mc_dtype,
-            eigen_incremental=args.eigen_incremental,
-            vol_regime_half_life=args.vr_half_life, seed=args.seed,
-            quarantine=QuarantinePolicy(enabled=args.quarantine),
-        ),
-        dtype=args.dtype,
-    )
-    with time_stage("read_barra_csv"):
-        table = read_csv(args.barra)
-        codes = (read_csv(args.industry_info)["code"]
-                 if args.industry_info else None)
+    cfg = _risk_config(args)
+    if args.barra_store:
+        table, codes = _read_barra_store(args)
+    else:
+        with time_stage("read_barra_csv"):
+            table = read_csv(args.barra)
+            codes = (read_csv(args.industry_info)["code"]
+                     if args.industry_info else None)
 
     def mean_r2(res) -> float:
         return float(np.nanmean(_numpy(res.outputs.r2)))
@@ -1286,7 +1287,7 @@ def _risk(args):
         health = _write_manifest_beside(args.update, res, device,
                                         trace_id=root.trace_id)
         if args.save_outputs:
-            _save_outputs_npz(res, args.out, args.barra)
+            _save_outputs_npz(res, args.out, args.barra or args.barra_store)
         _maybe_portfolio_risk(res, args)
         rec = {
             "appended_dates": [date_stamp(d) for d in res.arrays.dates],
@@ -1329,7 +1330,7 @@ def _risk(args):
     if args.save_outputs:
         # the full (T, K, K) covariance series + every stage output as one
         # artifact (the csv tables carry only the last date's covariance)
-        _save_outputs_npz(res, args.out, args.barra)
+        _save_outputs_npz(res, args.out, args.barra or args.barra_store)
     if args.bias_plot:
         from mfm_tpu_torch.models.bias import (
             bias_stats_summary,
@@ -1364,35 +1365,45 @@ def _risk(args):
     }))
 
 
-#: the three artifacts `prepare` writes and `factors --prepared` consumes
-PREPARED_PANEL = "panel.parquet"
+def _read_barra_store(args) -> tuple:
+    """``risk --barra-store``: the barra table from the store's
+    ``barra_factors`` collection (written by ``pipeline --to-store``) and
+    the one-hot code order from ``sw_industry_info_for_factors``, or from
+    ``--industry-info`` when given."""
+    from mfm_tpu_torch.data.columns import nrows
+    from mfm_tpu_torch.data.csvio import read_csv
+    from mfm_tpu_torch.data.etl import PanelStore
+
+    st = PanelStore(args.barra_store)
+    table = st.read("barra_factors")
+    if not nrows(table):
+        raise SystemExit(f"{args.barra_store}: no barra_factors "
+                         "collection (run `pipeline --to-store` first)")
+    if args.industry_info:
+        # an explicit file wins over the store's own collection (same
+        # role as on the CSV path: fix the one-hot code order)
+        return table, read_csv(args.industry_info)["code"]
+    info = st.read("sw_industry_info_for_factors")
+    if not nrows(info):
+        # as strict as the barra_factors check: a data-derived one-hot
+        # order would silently diverge from the pipeline's
+        raise SystemExit(
+            f"{args.barra_store}: no sw_industry_info_for_factors "
+            "collection — rerun `pipeline --to-store`, or pass the "
+            "code list explicitly with --industry-info")
+    return table, info["code"]
+
+
+#: the three artifacts `prepare` writes and `factors --prepared` consumes;
+#: a directory the reference's `prepare` wrote holds panel.parquet instead
+PREPARED_PANEL = "panel.npz"
+PREPARED_PANEL_PARQUET = "panel.parquet"
 PREPARED_INDEX = "index_prices.csv"
 PREPARED_INDUSTRY = "industry_map.csv"
 
 
-def _reindex(keys, values, axis):
-    """``Series(values, index=keys).reindex(axis)`` on numpy: each axis
-    label's value, NaN where the label is absent (an int column then
-    becomes float, as pandas makes it)."""
-    import numpy as np
-
-    from mfm_tpu_torch.data.barra import _index_of
-
-    keys, values, axis = np.asarray(keys), np.asarray(values), np.asarray(axis)
-    if keys.dtype.kind == "M" and axis.dtype.kind == "M":
-        keys = keys.astype(axis.dtype)
-    if len(np.unique(keys)) != len(keys):
-        raise ValueError("cannot reindex on an axis with duplicate labels")
-    at = _index_of(keys, axis)
-    if (at >= 0).all():
-        return values[at]
-    if values.dtype.kind in "iub":
-        values = values.astype(np.float64)
-    elif values.dtype.kind != "f":
-        values = values.astype(object)
-    out = values[np.maximum(at, 0)]
-    out[at < 0] = np.nan
-    return out
+#: ``Series(values, index=keys).reindex(axis)`` on numpy
+_reindex = reindex
 
 
 def _factors(args):
@@ -1416,6 +1427,8 @@ def _factors(args):
                 raise SystemExit(f"--prepared already provides {flag}; "
                                  "drop one of the two")
         args.panel = os.path.join(args.prepared, PREPARED_PANEL)
+        if not os.path.exists(args.panel):
+            args.panel = os.path.join(args.prepared, PREPARED_PANEL_PARQUET)
         args.index = os.path.join(args.prepared, PREPARED_INDEX)
         args.industry = os.path.join(args.prepared, PREPARED_INDUSTRY)
         missing = [p for p in (args.panel, args.index, args.industry)
@@ -1456,6 +1469,567 @@ def _factors(args):
     out_path = os.path.join(args.out, "barra_data.csv")
     write_csv(out_path, barra)
     print(json.dumps({"rows": len(barra["date"]), "out": out_path}))
+
+
+# -- the store path: prepare, pipeline, etl-* ----------------------------------
+
+def _prepare(args):
+    """Store -> factor-input artifacts (the ``load_and_prepare_data``
+    path): the master table as ``panel.npz`` (the store's part format,
+    report and announcement dates encoded as yyyymmdd numbers, NaN for
+    none — ``factors`` re-ranks end_date into the TTM report id), the
+    index prices csv and the per-stock industry map csv, consumable by
+    ``factors --prepared``."""
+    from mfm_tpu_torch.data.columns import yyyymmdd_numbers
+    from mfm_tpu_torch.data.csvio import write_csv
+    from mfm_tpu_torch.data.etl import PanelStore, write_table
+    from mfm_tpu_torch.data.prepare import load_and_prepare_data, sw_l1_map
+
+    master, index_px, sw = load_and_prepare_data(
+        PanelStore(args.store), index_code=args.index_code,
+        start_date=args.start, end_date=args.end,
+        fin_start_date=args.fin_start)
+    os.makedirs(args.out, exist_ok=True)
+    out = dict(master)
+    for c in ("balance_sheet_f_ann_date", "financial_indicators_ann_date",
+              "cashflow_f_ann_date", "end_date"):
+        if c in out:
+            out[c] = yyyymmdd_numbers(out[c])
+    panel_path = os.path.join(args.out, PREPARED_PANEL)
+    index_path = os.path.join(args.out, PREPARED_INDEX)
+    industry_path = os.path.join(args.out, PREPARED_INDUSTRY)
+    write_table(panel_path, out)
+    write_csv(index_path, index_px)
+    stocks = sorted(set(out["ts_code"].tolist()))
+    write_csv(industry_path, {"ts_code": stocks,
+                              "l1_code": sw_l1_map(sw, stocks)})
+    print(json.dumps({"rows": len(out["ts_code"]), "stocks": len(stocks),
+                      "panel": panel_path, "index": index_path,
+                      "industry": industry_path}))
+
+
+def _read_alpha_sources(path, llm=False):
+    """Read + syntax-validate an ``--alphas`` expression file, fail-fast
+    (before any expensive pipeline stage runs) with file:line context.
+    ``llm=True`` switches to tolerant extraction from raw LLM output."""
+    from mfm_tpu_torch.alpha.dsl import compile_alpha
+
+    try:
+        fh = open(path)
+    except OSError as err:
+        raise SystemExit(f"--alphas: {err}") from err
+    sources = []
+    with fh:
+        if llm:
+            sources, _ = _extract_llm_sources(fh.read(), path)
+        else:
+            for i, line in enumerate(fh, 1):
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                try:
+                    compile_alpha(line)
+                except (ValueError, SyntaxError) as err:
+                    raise SystemExit(f"{path}:{i}: {err}") from err
+                sources.append(line)
+    if not sources:
+        raise SystemExit(f"--alphas: {path} has no expressions")
+    return sources
+
+
+def _as_dates(col):
+    """A date column (datetime64, or strings as the csv gives them) as
+    datetime64[ns]."""
+    import numpy as np
+
+    from mfm_tpu_torch.pipeline import date_stamp
+
+    col = np.asarray(col)
+    if col.dtype.kind == "M":
+        return col.astype("datetime64[ns]")
+    uniq, inv = np.unique(col.astype(str), return_inverse=True)
+    days = np.array([date_stamp(s) for s in uniq.tolist()],
+                    "datetime64[ns]")
+    return days[inv.reshape(-1)]
+
+
+def _append_alpha_styles(args, sources, barra, prep, device):
+    """Evaluate/select the ``--alphas`` expressions on the prepared raw
+    panel and append the survivors as style columns of the barra table (in
+    memory only — the resumable stage artifact stays the classic factor
+    table)."""
+    import sys
+
+    import numpy as np
+
+    from mfm_tpu_torch.alpha.dsl import compile_alpha
+    from mfm_tpu_torch.alpha.integrate import alpha_style_columns
+    from mfm_tpu_torch.data.barra import _index_of
+
+    fields = {k: np.asarray(v, np.float32) for k, v in prep.fields.items()}
+    if getattr(args, "alphas_llm", False):
+        # llm mode is tolerant end to end: an extracted expression whose
+        # fields the prepared panel lacks (a hallucinated name) is dropped
+        # with a report, not a pipeline abort
+        kept = []
+        for s in sources:
+            missing = [f for f in compile_alpha(s).fields if f not in fields]
+            if missing:
+                print(f"--alphas (llm): dropped {s!r}: unknown panel "
+                      f"field(s) {missing}", file=sys.stderr)
+            else:
+                kept.append(s)
+        if not kept:
+            raise SystemExit("--alphas: no extracted expression references "
+                             f"known panel fields (have: {sorted(fields)})")
+        sources = kept
+
+    # forward returns = the barra table's own t+1 ``ret`` column, densified
+    # on the prepared (dates x stocks) grid
+    ti = _index_of(_as_dates(prep.dates), _as_dates(barra["date"]))
+    si = _index_of(np.asarray(prep.stocks).astype(str),
+                   np.asarray(barra["stocknames"]).astype(str))
+    if (ti < 0).any() or (si < 0).any():
+        raise SystemExit("--alphas: the resumed barra table's dates/stocks "
+                         "do not match the store's prepared panel — rerun "
+                         "without --resume")
+    T, N = len(prep.dates), len(prep.stocks)
+    fwd = np.full((T, N), np.nan, np.float32)
+    fwd[ti, si] = np.asarray(barra["ret"], np.float32)
+    try:
+        names, expo, report = alpha_style_columns(
+            sources, fields, fwd, k=args.alpha_top,
+            max_corr=args.alpha_max_corr, device=device)
+    except ValueError as err:
+        raise SystemExit(f"--alphas: {err}") from err
+    barra = {c: v for c, v in barra.items() if not c.startswith("alpha_")}
+    for j, name in enumerate(names):
+        barra[name] = expo[ti, si, j]
+    return barra, report
+
+
+def _check_append_prefix_unrevised(prev_barra, barra, last_date, dtype):
+    """Refuse an append whose refreshed factor table rewrote history.
+
+    Compares the rows at or before the checkpoint's last date between the
+    table the prior run persisted and the refreshed one, on the columns
+    both have, AT THE RISK COMPUTE DTYPE (only what survives the cast ever
+    reached the checkpointed scan).  Dates normalize to the checkpoint's
+    'YYYY-MM-DD' stamps so string ordering is chronological."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.columns import sort_order, take
+
+    fdtype = np.dtype(dtype)
+    if prev_barra is None:
+        raise SystemExit("--append: the prior run's barra_data.csv is "
+                         "missing — run the pipeline once without --append "
+                         "first")
+
+    def norm(t):
+        t = dict(t)
+        t["date"] = np.datetime_as_string(
+            _as_dates(t["date"]).astype("datetime64[D]"), unit="D")
+        t = take(t, t["date"] <= last_date)
+        return take(t, sort_order(t, ["date", "stocknames"]))
+
+    old, new = norm(prev_barra), norm(barra)
+    cols = [c for c in old if c in new]
+    bad = None
+    if len(old["date"]) != len(new["date"]) or \
+            not np.array_equal(old["date"], new["date"]) or \
+            old["stocknames"].astype(str).tolist() != \
+            new["stocknames"].astype(str).tolist():
+        bad = "row set"
+    else:
+        for c in cols:
+            oc, nc = np.asarray(old[c]), np.asarray(new[c])
+            if oc.dtype.kind == "f" and nc.dtype.kind == "f":
+                same = np.array_equal(oc.astype(fdtype), nc.astype(fdtype),
+                                      equal_nan=True)
+            else:
+                same = [str(x) for x in oc.tolist()] == \
+                    [str(x) for x in nc.tolist()]
+            if not same:
+                bad = f"column {c!r}"
+                break
+    if bad is not None:
+        raise SystemExit(
+            f"--append: the refreshed factor table revised history at or "
+            f"before the checkpoint (last_date={last_date}, {bad} changed) "
+            "— typically a next-traded-day return label filling in across "
+            "a suspension gap.  The incremental path cannot reproduce a "
+            "revised prefix; rerun without --append")
+
+
+def _pipeline_append_stage(args, barra, cfg, prev_barra, device):
+    """``--append``'s risk stage: prior outputs artifact + checkpoint + ONE
+    update step over the dates past the checkpoint -> a full-history
+    result, bitwise what a from-scratch rerun gives for the risk stage.
+
+    The factor stage's rolling windows are causal, but the t+1 return
+    label is the stock's *next traded day* return, so a suspension gap
+    straddling the checkpoint fills a prefix label in once the stock
+    trades again; ``prev_barra`` (the table the prior run wrote) detects
+    that revision, and the append refuses rather than silently diverge."""
+    import time
+
+    import torch
+
+    from mfm_tpu_torch.data.artifacts import (
+        ArtifactCorruptError,
+        ArtifactStaleError,
+        load_artifact,
+        load_risk_outputs,
+    )
+    from mfm_tpu_torch.data.barra import barra_frame_to_arrays
+    from mfm_tpu_torch.models.risk_model import RiskModelOutputs
+    from mfm_tpu_torch.pipeline import (
+        RiskPipelineResult,
+        append_risk_pipeline,
+        date_stamp,
+    )
+
+    state_path = os.path.join(args.out, "risk_state.npz")
+    prev_path = os.path.join(args.out, "risk_outputs.npz")
+    for p in (state_path, prev_path):
+        if not os.path.exists(p):
+            raise SystemExit(f"--append: {p} not found — run the pipeline "
+                             "once without --append first")
+    prev, _ = load_risk_outputs(prev_path, device)
+    _, smeta = load_artifact(state_path)
+    _check_append_prefix_unrevised(prev_barra, barra, smeta["last_date"],
+                                   cfg.dtype)
+    t0 = time.perf_counter()
+    try:
+        app = append_risk_pipeline(state_path, barra, config=cfg,
+                                   force=args.force, device=device)
+    except (ValueError, ArtifactCorruptError, ArtifactStaleError) as err:
+        raise SystemExit(f"--append: {err}") from err
+    update_wall = time.perf_counter() - t0
+    # full-history arrays pinned to the checkpoint's axes, so the
+    # concatenated outputs' rows/columns line up with the new table exactly
+    full = barra_frame_to_arrays(
+        barra, industry_codes=app.arrays.industry_codes,
+        style_names=app.arrays.style_names, stocks=app.arrays.stocks)
+    T_prev = int(prev.r2.shape[0])
+    if T_prev + len(app.arrays.dates) != len(full.dates):
+        raise SystemExit(
+            f"--append: {prev_path} covers {T_prev} dates but the refreshed "
+            f"table has {len(full.dates)} with {len(app.arrays.dates)} new "
+            "— the history itself changed; rerun without --append")
+    cat = RiskModelOutputs(*[torch.cat([p, n.to(p.device)], 0)
+                             for p, n in zip(prev, app.outputs)])
+    res = RiskPipelineResult(outputs=cat, arrays=full, state=app.state,
+                             report=app.report)
+    return res, [date_stamp(d) for d in app.arrays.dates], update_wall
+
+
+def _risk_config(args):
+    """The risk flags of ``risk`` and ``pipeline`` as a PipelineConfig."""
+    from mfm_tpu_torch.config import (
+        PipelineConfig,
+        QuarantinePolicy,
+        RiskModelConfig,
+    )
+
+    return PipelineConfig(
+        risk=RiskModelConfig(
+            nw_lags=args.nw_lags, nw_half_life=args.nw_half_life,
+            nw_method=args.nw_method,
+            eigen_n_sims=args.eigen_sims, eigen_scale_coef=args.eigen_scale,
+            eigen_chunk=args.eigen_chunk,
+            eigen_sim_length=args.eigen_sim_length,
+            eigen_mc_dtype=args.eigen_mc_dtype,
+            eigen_incremental=args.eigen_incremental,
+            vol_regime_half_life=args.vr_half_life, seed=args.seed,
+            quarantine=QuarantinePolicy(enabled=args.quarantine),
+        ),
+        dtype=args.dtype,
+        **({"block": args.block, "rolling_impl": args.rolling_impl}
+           if hasattr(args, "rolling_impl") else {}),
+    )
+
+
+def _industry_info(store, barra) -> dict:
+    """industry_info: the code list fixing the one-hot order, from the
+    store's SW table (first row per code), the codes the table uses, in
+    code order."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.columns import (
+        drop_duplicates,
+        isin,
+        nrows,
+        sort_order,
+        take,
+        unique,
+    )
+
+    sw = store.read("sw_industries")
+    if not nrows(sw):
+        return {"code": np.array([], str), "industry_names": np.array([], str)}
+    info = drop_duplicates(sw, ["l1_code"])
+    info = take(info, isin(info["l1_code"], set(unique(barra["industry"]))))
+    out = {"code": info["l1_code"],
+           "industry_names": info.get("l1_name", info["l1_code"])}
+    return take(out, sort_order(out, ["code"]))
+
+
+def _pipeline(args):
+    """One-command end-to-end: raw store -> master panel -> factor table ->
+    risk outputs (the reference's ``main.py`` + ``demo.py`` chain), with a
+    stage artifact between the factor and risk stages for resume, and a
+    risk-state checkpoint (``OUT/risk_state.npz``) for ``--append``'s
+    O(new-dates) daily refresh."""
+    import time
+
+    import numpy as np
+
+    from mfm_tpu_torch._device import resolve_device
+    from mfm_tpu_torch.data.artifacts import _numpy
+    from mfm_tpu_torch.data.csvio import read_csv, write_csv
+    from mfm_tpu_torch.data.etl import PanelStore
+    from mfm_tpu_torch.data.prepare import prepare_factor_inputs
+    from mfm_tpu_torch.obs.instrument import record_stage_seconds, time_stage
+    from mfm_tpu_torch.obs.trace import end_span
+    from mfm_tpu_torch.pipeline import run_factor_pipeline, run_risk_pipeline
+
+    if args.append and args.resume:
+        raise SystemExit("--append re-runs the factor stage over the "
+                         "refreshed store; drop --resume")
+    if args.append and args.nw_method != "scan":
+        raise SystemExit("the resumable state is the serial scan's carry; "
+                         "--append needs --nw-method scan")
+    if args.mesh:
+        _unported_flag("pipeline", "--mesh", "§A 16")
+    if args.nw_method == "associative":
+        _unported_flag("pipeline", "--nw-method associative", "§A 16")
+    # the card unless the caller asked for the CPU; raises without a card
+    device = resolve_device(args.device)
+    _metrics_init(args)
+    root = _root_span(args)
+    cfg = _risk_config(args)
+    os.makedirs(args.out, exist_ok=True)
+    barra_path = os.path.join(args.out, "barra_data.csv")
+    industry_info_path = os.path.join(args.out, "industry_info.csv")
+    t0 = time.perf_counter()
+
+    # fail-fast on a bad --alphas path/expression BEFORE the factor stage
+    alpha_sources = (_read_alpha_sources(args.alphas, llm=args.alphas_llm)
+                     if args.alphas else None)
+    prep = None
+    # the factor stage below overwrites barra_data.csv; --append's history-
+    # revision check needs the prior run's table, so read it first
+    prev_barra = None
+    if args.append and os.path.exists(barra_path):
+        with time_stage("read_barra_csv"):
+            prev_barra = read_csv(barra_path)
+    with _profile_ctx(args.profile or args.jax_profile, device):
+        if args.resume and os.path.exists(barra_path) \
+                and os.path.exists(industry_info_path):
+            with time_stage("read_barra_csv"):
+                barra = read_csv(barra_path)
+        else:
+            store = PanelStore(args.store)
+            prep = prepare_factor_inputs(
+                store, index_code=args.index_code, start_date=args.start,
+                end_date=args.end, fin_start_date=args.fin_start)
+            barra, _ = run_factor_pipeline(
+                prep.fields, prep.index_close, prep.industry_l1,
+                prep.dates, prep.stocks, cfg, device=device)
+            with time_stage("write_barra_csv"):
+                write_csv(barra_path, barra)   # the stage artifact
+            write_csv(industry_info_path, _industry_info(store, barra))
+        factor_wall = time.perf_counter() - t0
+
+        info = read_csv(industry_info_path)
+        if args.to_store:
+            # the factor table as the collections ``barra_factors`` +
+            # ``sw_industry_info_for_factors`` (full refresh), consumable
+            # by `risk --barra-store`
+            out_store = PanelStore(args.to_store)
+            out_store.replace("barra_factors", barra)
+            out_store.replace("sw_industry_info_for_factors", info)
+
+        n_alpha_styles = 0
+        if args.alphas:
+            # (LLM-)generated alpha expressions -> evaluate on the raw
+            # panel -> IC-score + de-correlate -> the survivors join the
+            # barra table as extra style columns
+            if prep is None:  # --resume skipped the prepare stage
+                prep = prepare_factor_inputs(
+                    PanelStore(args.store), index_code=args.index_code,
+                    start_date=args.start, end_date=args.end,
+                    fin_start_date=args.fin_start)
+            barra, report = _append_alpha_styles(args, alpha_sources,
+                                                 barra, prep, device)
+            n_alpha_styles = len(report)
+            with open(os.path.join(args.out, "alpha_styles.json"), "w") as fh:
+                json.dump(report, fh, indent=1)
+
+        codes = np.asarray(info["code"])
+        appended = update_wall = None
+        if args.append:
+            res, appended, update_wall = _pipeline_append_stage(
+                args, barra, cfg, prev_barra, device)
+        else:
+            res = run_risk_pipeline(barra_df=barra, config=cfg,
+                                    industry_codes=codes, with_state=True,
+                                    device=device)
+    with time_stage("write_result_tables"):
+        _write_result_tables(res, args.out, args.specific_risk)
+    wall = time.perf_counter() - t0
+    record_stage_seconds("factor", factor_wall)
+    record_stage_seconds("pipeline_total", wall)
+    _save_outputs_npz(res, args.out, args.store)  # outside the timed region
+    # the daily-serving checkpoint `pipeline --append` resumes from
+    from mfm_tpu_torch.pipeline import save_pipeline_state
+
+    state_path = os.path.join(args.out, "risk_state.npz")
+    save_pipeline_state(state_path, res)
+    health = _write_manifest_beside(state_path, res, device,
+                                    trace_id=root.trace_id)
+    # acceptance-test compute stays OUT of the reported wall
+    _maybe_portfolio_bias(res, args)
+    _maybe_portfolio_risk(res, args)
+    rec = {
+        "rows": int(len(barra["date"])),
+        "dates": int(res.arrays.ret.shape[0]),
+        "stocks": int(res.arrays.ret.shape[1]),
+        "factors": len(res.arrays.factor_names()),
+        "factor_stage_wall_s": round(factor_wall, 3),
+        "wall_s": round(wall, 3),
+        "mean_r2": float(np.nanmean(_numpy(res.outputs.r2))),
+        "alpha_styles": n_alpha_styles,
+        "out": args.out,
+        "trace_id": root.trace_id,
+        "health": health["status"],
+    }
+    if appended is not None:
+        rec["appended_dates"] = appended
+        rec["update_wall_s"] = round(update_wall, 3)
+    if res.report is not None:
+        rec.update(_report_json(res))
+    rec["kernels"] = _kernel_block()
+    end_span(root, wall_s=round(wall, 3))
+    _metrics_flush(args)
+    print(json.dumps(rec))
+
+
+def _etl_xlsx(args):
+    """Static-workbook ingestion: the index list and the Wind EDB
+    industry-index workbook into store collections, with the same
+    idempotent-insert discipline as the API collections."""
+    from mfm_tpu_torch.data.etl import PanelStore
+    from mfm_tpu_torch.data.xlsx import ingest_workbooks
+
+    counts = ingest_workbooks(
+        PanelStore(args.store), index_list=args.index_list,
+        industry_index=args.industry_index,
+        industry_sheets=tuple(int(s) for s in args.sheets.split(",")),
+    )
+    print(json.dumps(counts))
+
+
+def _etl_steps(args) -> dict:
+    return {"index_codes": [s.strip() for s in args.index_codes.split(",")],
+            "statements": ([s.strip() for s in args.statements.split(",")]
+                           if args.statements else ()),
+            "components_date": args.components_date, "sw": not args.no_sw}
+
+
+def _etl_update(args):
+    """Calendar-driven refresh of every collection, with the watermark,
+    rate-limit and retry behavior of the reference's daily job."""
+    import time
+
+    from mfm_tpu_torch.data.etl import (
+        IncrementalUpdater,
+        PanelStore,
+        RateLimiter,
+        plan_update,
+    )
+
+    end = args.end or time.strftime("%Y%m%d")
+    if args.dry_run:
+        # pre-flight plan from the store's watermarks alone: no token, no
+        # API call, no rate-limit budget spent
+        print(json.dumps(plan_update(PanelStore(args.store), args.start, end,
+                                     **_etl_steps(args))))
+        return
+    from mfm_tpu_torch.data.tushare_source import TushareSource
+
+    up = IncrementalUpdater(
+        store=PanelStore(args.store),
+        source=TushareSource(token=args.token),
+        limiter=RateLimiter(args.calls_per_min),
+    )
+    print(json.dumps(up.run_all(args.start, end, **_etl_steps(args),
+                                sw_csv=args.sw_csv)))
+
+
+def _etl_verify(args):
+    from mfm_tpu_torch.data.etl import PanelStore, verify_store
+
+    store = PanelStore(args.store)
+    if args.diagnose:
+        # per-stock statement QC (the notebooks' bad-group hunt, vectorized)
+        from mfm_tpu_torch.data.pit import diagnose_statements
+
+        try:
+            rep = diagnose_statements(store.read(args.name),
+                                      by=args.code_col,
+                                      ann_col=args.ann_col,
+                                      end_col=args.end_col)
+        except ValueError as err:
+            # wrong-schema / empty / typo'd collection: a clean error, not a
+            # KeyError traceback (--name defaults to daily_prices, which has
+            # no announcement columns)
+            raise SystemExit(f"--diagnose {args.name}: {err}") from err
+        rep["collection"] = args.name
+        print(json.dumps(rep))
+        return
+    print(json.dumps(verify_store(store, name=args.name,
+                                  code_col=args.code_col,
+                                  date_col=args.date_col)))
+
+
+def _etl_missing(args):
+    import time
+
+    from mfm_tpu_torch.data.etl import (
+        IncrementalUpdater,
+        PanelStore,
+        RateLimiter,
+        find_missing_stocks,
+    )
+
+    store = PanelStore(args.store)
+    if args.fix:
+        # detect AND refetch.  The refill fetches daily_basic rows, so it
+        # only makes sense for the default price collection — custom
+        # --name/--code-col would insert wrong-schema rows
+        if args.name != "daily_prices" or args.code_col != "ts_code":
+            raise SystemExit("--fix only repairs the daily_prices "
+                             "collection (it refetches daily_basic rows); "
+                             "drop --name/--code-col")
+        from mfm_tpu_torch.data.tushare_source import TushareSource
+
+        up = IncrementalUpdater(
+            store=store, source=TushareSource(token=args.token),
+            limiter=RateLimiter(args.calls_per_min))
+        rep = up.repair_missing_stocks(
+            args.start, args.end or time.strftime("%Y%m%d"),
+            universe_name=args.universe)
+        print(json.dumps({"n_missing": len(rep["missing"]),
+                          "missing": rep["missing"],
+                          "rows_inserted": rep["rows_inserted"]}))
+        return
+    missing = find_missing_stocks(store, universe_name=args.universe,
+                                  data_name=args.name,
+                                  code_col=args.code_col)
+    print(json.dumps({"n_missing": len(missing), "missing": missing}))
 
 
 def _demo(args):
@@ -1992,15 +2566,20 @@ _METRICS_DIR_HELP = (
 # -- alpha ----------------------------------------------------------------------
 
 def _read_long_table(path):
-    """A csv/parquet long table as a dict of numpy columns, ``trade_date``
-    as datetime64 where it parses (the reference's
-    ``parse_dates=["trade_date"]``).  A csv needs no pandas (the card's
-    machine has none); parquet reads through pandas."""
+    """A csv/npz/parquet long table as a dict of numpy columns,
+    ``trade_date`` as datetime64 where it parses (the reference's
+    ``parse_dates=["trade_date"]``).  A csv or an npz (``prepare``'s
+    panel) needs no pandas (the card's machine has none); parquet reads
+    through pandas."""
     if path.endswith(".parquet"):
         import pandas as pd
 
         df = pd.read_parquet(path)
         return {c: df[c].to_numpy() for c in df.columns}
+    if path.endswith(".npz"):
+        from mfm_tpu_torch.data.etl import read_table
+
+        return read_table(path)
     from mfm_tpu_torch.data.csvio import read_csv
 
     try:
@@ -2230,7 +2809,9 @@ def _risk_parser(sub) -> None:
     rsrc = r.add_mutually_exclusive_group(required=True)
     rsrc.add_argument("--barra", help="barra-format CSV (demo.py:22)")
     rsrc.add_argument("--barra-store", metavar="STORE",
-                      help="not ported yet (ROADMAP.md §A 14)")
+                      help="read the barra table from a store's "
+                           "barra_factors collection (written by `pipeline "
+                           "--to-store`) instead of a CSV")
     _device_arg(r)
     r.add_argument("--industry-info", default=None)
     r.add_argument("--out", default="results")
@@ -2333,6 +2914,199 @@ def _risk_parser(sub) -> None:
     r.set_defaults(fn=_risk)
 
 
+def _risk_flags(p) -> None:
+    """The risk-model flags ``pipeline`` shares with ``risk``."""
+    p.add_argument("--nw-lags", type=int, default=2)
+    p.add_argument("--nw-half-life", type=float, default=252.0)
+    p.add_argument("--nw-method", choices=["scan", "associative"],
+                   default="scan",
+                   help="expanding Newey-West evaluation: the serial scan "
+                        "(the default) or the associative form (not ported "
+                        "yet, ROADMAP.md §A 16)")
+    p.add_argument("--eigen-sims", type=int, default=100)
+    p.add_argument("--eigen-scale", type=float, default=1.4)
+    p.add_argument("--eigen-chunk", type=_eigen_chunk, default="auto",
+                   metavar="N|auto|none",
+                   help="date-chunk size for the eigen Monte-Carlo stream; "
+                        "results are identical either way")
+    p.add_argument("--eigen-sim-length", type=_positive_int, default=None,
+                   metavar="L",
+                   help="draw length behind each simulated covariance "
+                        "(default: the panel length T); pin it when "
+                        "appending, so a from-scratch rerun draws the same "
+                        "sims")
+    p.add_argument("--eigen-mc-dtype", choices=["bfloat16"], default=None,
+                   help="storage dtype for the eigen Monte-Carlo draws")
+    p.add_argument("--eigen-incremental", action="store_true",
+                   help="causal incremental eigen (see `risk --help`)")
+    p.add_argument("--vr-half-life", type=float, default=42.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dtype", default="float32")
+
+
+def _store_parsers(sub) -> None:
+    from mfm_tpu_torch.ops.rolling import ROLLING_IMPLS
+
+    pp = sub.add_parser("prepare",
+                        help="store -> master-panel artifacts "
+                             "(load_and_prepare_data path)")
+    pp.add_argument("--store", required=True)
+    pp.add_argument("--out", default="prepared")
+    pp.add_argument("--index-code", default="000300.SH")
+    pp.add_argument("--start", default="20200101")
+    pp.add_argument("--end", default=None)
+    pp.add_argument("--fin-start", default="20190101")
+    pp.set_defaults(fn=_prepare)
+
+    pl = sub.add_parser("pipeline",
+                        help="one command: raw store -> factors -> risk "
+                             "outputs (main.py + demo.py chain)")
+    pl.add_argument("--store", required=True)
+    pl.add_argument("--out", default="results")
+    pl.add_argument("--index-code", default="000300.SH")
+    pl.add_argument("--start", default="20200101")
+    pl.add_argument("--end", default=None)
+    pl.add_argument("--fin-start", default="20190101")
+    _device_arg(pl)
+    pl.add_argument("--resume", action="store_true",
+                    help="reuse the barra_data.csv stage artifact if present")
+    pl.add_argument("--append", action="store_true",
+                    help="daily refresh: re-run the factor stage over the "
+                         "(updated) store, then serve only the dates past "
+                         "OUT/risk_state.npz's checkpoint with ONE update "
+                         "step and splice them onto OUT's artifacts — OUT "
+                         "ends up bitwise identical to a from-scratch risk "
+                         "stage, in O(new dates) instead of O(history)")
+    pl.add_argument("--to-store", default=None, metavar="STORE",
+                    help="also save barra_factors + "
+                         "sw_industry_info_for_factors collections into this "
+                         "store, readable by `risk --barra-store`")
+    pl.add_argument("--mesh", default=None, metavar="DxS",
+                    help="not ported yet (ROADMAP.md §A 16)")
+    _risk_flags(pl)
+    pl.add_argument("--block", type=int, default=None,
+                    help="rolling-kernel date-block size; default: auto "
+                         "from the panel width")
+    pl.add_argument("--rolling-impl", choices=ROLLING_IMPLS, default="scan",
+                    help="rolling-kernel implementation: O(T*N) two-level "
+                         "scans (default) or the windowed-gather form")
+    pl.add_argument("--specific-risk", action="store_true",
+                    help="also write specific_risk.csv (shrunk EWMA "
+                         "specific vol per stock x date)")
+    pl.add_argument("--profile", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace spanning the "
+                         "factor and risk stages into DIR, with "
+                         "profile_summary.json (wall, device time, busy "
+                         "share, peak memory)")
+    pl.add_argument("--jax-profile", default=None, metavar="DIR",
+                    help="synonym of --profile (the reference's flag name)")
+    pl.add_argument("--portfolio-bias", type=_positive_int, default=None,
+                    metavar="Q",
+                    help="also run the USE4 random-portfolio bias acceptance "
+                         "test with Q portfolios and write "
+                         "OUT/portfolio_bias.json")
+    pl.add_argument("--bias-burn-in", type=int, default=252,
+                    help="dates excluded from the burn-in-free bias scope")
+    pl.add_argument("--portfolio", default=None, metavar="CSV",
+                    help="ts_code,weight table: write predicted portfolio "
+                         "risk + per-factor Euler attribution to "
+                         "OUT/portfolio_risk.json")
+    pl.add_argument("--portfolio-date", type=int, default=-1,
+                    help="date index for --portfolio (default: last)")
+    pl.add_argument("--alphas", default=None, metavar="FILE",
+                    help="alpha-DSL expressions (one per line): evaluate on "
+                         "the raw panel, select the best de-correlated "
+                         "--alpha-top, and price them as extra style "
+                         "factors (report: OUT/alpha_styles.json)")
+    pl.add_argument("--alphas-llm", action="store_true",
+                    help="treat --alphas as raw LLM output (tolerant "
+                         "extraction instead of one-expression-per-line)")
+    pl.add_argument("--alpha-top", type=_positive_int, default=5,
+                    help="max alpha styles to keep (default 5)")
+    pl.add_argument("--alpha-max-corr", type=float, default=0.7,
+                    help="pairwise PnL-correlation cap for alpha selection")
+    pl.add_argument("--quarantine", action="store_true",
+                    help="guard appended dates and serve quarantined ones "
+                         "in degraded mode (last healthy covariance + "
+                         "staleness, carries frozen)")
+    pl.add_argument("--force", action="store_true",
+                    help="with --append: accept a checkpoint whose "
+                         "generation is older than the latest.json pointer "
+                         "(deliberate rollback; never bypasses the checksum)")
+    pl.add_argument("--metrics-dir", default=None, metavar="DIR",
+                    help=_METRICS_DIR_HELP)
+    pl.set_defaults(fn=_pipeline)
+
+    ex = sub.add_parser("etl-xlsx",
+                        help="ingest the shipped static workbooks "
+                             "(index_list.xlsx / industry_index_data.xlsx "
+                             "Wind EDB export) into store collections")
+    ex.add_argument("--store", required=True)
+    ex.add_argument("--index-list", default=None, metavar="XLSX")
+    ex.add_argument("--industry-index", default=None, metavar="XLSX")
+    ex.add_argument("--sheets", default="0,1",
+                    help="industry workbook sheet indices (default: CITIC "
+                         "and SW L1)")
+    ex.set_defaults(fn=_etl_xlsx)
+
+    eu = sub.add_parser("etl-update",
+                        help="calendar-driven refresh of all collections "
+                             "(update_mongo_db.py __main__ path)")
+    eu.add_argument("--store", required=True)
+    eu.add_argument("--start", required=True, help="yyyymmdd")
+    eu.add_argument("--end", default=None, help="yyyymmdd (default: today)")
+    eu.add_argument("--index-codes",
+                    default="000300.SH,000016.SH,000903.SH",
+                    help="comma list (CSI300/SSE50/CSI100)")
+    eu.add_argument("--statements",
+                    default="balancesheet,cashflow,income,"
+                            "financial_indicators",
+                    help="comma list of statement kinds; empty to skip")
+    eu.add_argument("--components-date", default=None,
+                    help="refresh index components at this yyyymmdd date")
+    eu.add_argument("--no-sw", action="store_true",
+                    help="skip the SW industry refresh")
+    eu.add_argument("--sw-csv", default=None,
+                    help="load SW industries from this CSV instead of the "
+                         "per-stock API")
+    eu.add_argument("--calls-per-min", type=int, default=480)
+    eu.add_argument("--token", default=None,
+                    help="tushare token (default: TUSHARE_TOKEN env)")
+    eu.add_argument("--dry-run", action="store_true",
+                    help="print the per-collection fetch plan (watermarks, "
+                         "ranges, call counts) without touching the API")
+    eu.set_defaults(fn=_etl_update)
+
+    ev = sub.add_parser("etl-verify",
+                        help="store sanity counters (verify_data.py path)")
+    ev.add_argument("--store", required=True)
+    ev.add_argument("--name", default="daily_prices")
+    ev.add_argument("--code-col", default="ts_code")
+    ev.add_argument("--date-col", default="trade_date")
+    ev.add_argument("--diagnose", action="store_true",
+                    help="per-stock statement QC on --name (missing/dup "
+                         "announcement keys, ann-before-period-end)")
+    ev.add_argument("--ann-col", default="f_ann_date")
+    ev.add_argument("--end-col", default="end_date")
+    ev.set_defaults(fn=_etl_verify)
+
+    em = sub.add_parser("etl-missing",
+                        help="stocks in the universe with no price rows "
+                             "(fill_missing_data.py path)")
+    em.add_argument("--store", required=True)
+    em.add_argument("--universe", default="stock_info")
+    em.add_argument("--name", default="daily_prices")
+    em.add_argument("--code-col", default="ts_code")
+    em.add_argument("--fix", action="store_true",
+                    help="refetch the missing stocks' prices "
+                         "(fill_missing_data.py's repair step)")
+    em.add_argument("--start", default="20200101", help="repair range start")
+    em.add_argument("--end", default=None, help="repair range end (today)")
+    em.add_argument("--calls-per-min", type=int, default=480)
+    em.add_argument("--token", default=None)
+    em.set_defaults(fn=_etl_missing)
+
+
 def _factors_demo_parsers(sub) -> None:
     from mfm_tpu_torch.ops.rolling import ROLLING_IMPLS
 
@@ -2340,10 +3114,11 @@ def _factors_demo_parsers(sub) -> None:
                        help="style-factor production (main.py path)")
     f.add_argument("--prepared", default=None, metavar="DIR",
                    help="a `prepare` output directory (provides --panel/"
-                        "--index/--industry in one flag; its panel is "
-                        "parquet, read through pandas)")
+                        "--index/--industry in one flag; its panel.npz, or "
+                        "a reference-written panel.parquet read through "
+                        "pandas)")
     f.add_argument("--panel", default=None,
-                   help="long csv/parquet of raw fields")
+                   help="long csv/npz/parquet of raw fields")
     f.add_argument("--index", default=None,
                    help="index daily prices csv/parquet")
     f.add_argument("--industry", default=None, help="ts_code -> l1_code csv")
@@ -2691,6 +3466,7 @@ def main(argv=None):
     _scenario_grad_parsers(sub)
     _serve_parser(sub)
     _alpha_parser(sub)
+    _store_parsers(sub)
 
     mt = sub.add_parser(
         "metrics", help="read what --metrics-dir wrote: dump the "

@@ -222,6 +222,6 @@ def write_csv(path, columns: dict, index=None) -> None:
         names.insert(0, "")
         cols.insert(0, _cells(index))
     with open(path, "w", newline="") as fh:
-        w = csv.writer(fh)
+        w = csv.writer(fh, lineterminator="\n")
         w.writerow(names)
         w.writerows(zip(*cols))

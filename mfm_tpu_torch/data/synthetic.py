@@ -257,3 +257,163 @@ def synthetic_barra_table(T: int = 120, N: int = 60, P: int = 6, Q: int = 4,
     for q, name in enumerate(style_names):
         table[name] = styles[ti, si, q]
     return table, style_names
+
+
+def _quarter_ends(start: np.datetime64, last: np.datetime64) -> np.ndarray:
+    """``pd.date_range(start - QuarterEnd() * 6, last, freq="QE")``: the
+    quarter ends from the sixth before ``start`` (strictly before, counted
+    back one quarter at a time) to ``last``, datetime64[D]."""
+    month = start.astype("datetime64[M]")
+    m = int(month.astype(np.int64))          # months since 1970-01
+    prev_qe_month = m - (m % 3) - 1          # the quarter end before start
+    months = np.arange(prev_qe_month - 15, int(last.astype("datetime64[M]")
+                                                .astype(np.int64)) + 1, 3)
+    ends = (months + 1).astype("datetime64[M]").astype("datetime64[D]") - 1
+    return ends[ends <= last]
+
+
+def synthetic_collections(
+    store,
+    T: int = 120,
+    N: int = 20,
+    n_industries: int = 5,
+    index_code: str = "000300.SH",
+    seed: int = 0,
+    start: str = "2020-01-02",
+    missing: float = 0.02,
+    listing_gap: float = 0.2,
+    revision_rate: float = 0.3,
+):
+    """Fill a :class:`mfm_tpu_torch.data.etl.PanelStore` with raw
+    tushare-shaped collections (yyyymmdd string dates, the storage format
+    of the reference's Mongo collections): a copy of the reference's
+    generator, the same ``default_rng(seed)`` draws in the same order, so a
+    seed gives both packages the same store.
+
+    Produces the six collections ``load_and_prepare_data`` consumes plus
+    ``stock_info``: daily_prices, balancesheet, cashflow,
+    financial_indicators, index_daily_prices, index_components,
+    sw_industries.  ``revision_rate`` of statements get a second announcement
+    (same end_date, later f_ann_date, revised values) to exercise the
+    two-pass dedup; one extra stock exists outside the index to exercise
+    universe selection.
+    """
+    from mfm_tpu_torch.data.columns import day_strings
+
+    rng = np.random.default_rng(seed)
+    first = np.busday_offset(np.datetime64(start, "D"), 0, roll="forward")
+    dates = np.busday_offset(first, np.arange(T))
+    date_strs = day_strings(dates)
+    # N constituents + 1 non-member (must be excluded by universe selection)
+    all_stocks = [f"{600000 + i}.SH" for i in range(N + 1)]
+    members, outsider = all_stocks[:N], all_stocks[N]
+    l1_codes = [f"801{(i % n_industries):02d}0.SI" for i in range(N + 1)]
+
+    store.insert("stock_info", {
+        "ts_code": all_stocks,
+        "name": [f"stk{i}" for i in range(N + 1)],
+        "list_date": ["20100101"] * (N + 1),
+    }, unique=("ts_code",))
+
+    # --- daily prices (with listing gaps + random holes) -------------------
+    mkt = 0.0003 + 0.01 * rng.standard_normal(T)
+    cols = {k: [] for k in ("ts_code", "t", "close", "mv", "circ", "pb",
+                            "turnover_rate", "pe_ttm")}
+    for code in all_stocks:
+        beta = 0.5 + rng.random()
+        ret = beta * mkt + 0.015 * rng.standard_normal(T)
+        close = np.exp(2.0 + rng.standard_normal()) * np.cumprod(1 + ret)
+        mv0 = np.exp(rng.normal(11.0, 1.0))
+        start_i = (rng.integers(1, max(2, T // 3))
+                   if rng.random() < listing_gap else 0)
+        ts = []
+        for t in range(start_i, T):
+            if rng.random() < missing:
+                continue
+            ts.append(t)
+            cols["pb"].append(np.exp(rng.normal(0.8, 0.3)))
+            cols["turnover_rate"].append(np.exp(rng.normal(0.0, 0.6)))
+            cols["pe_ttm"].append(np.exp(rng.normal(3.0, 0.5)))
+        ts = np.asarray(ts, np.int64)
+        cols["ts_code"] += [code] * len(ts)
+        cols["t"].append(ts)
+        cols["close"].append(close[ts])
+        cols["mv"].append(mv0 * close[ts] / close[0])
+        cols["circ"].append(0.7 * mv0 * close[ts] / close[0])
+    t = np.concatenate(cols["t"])
+    close = np.concatenate(cols["close"])
+    mv = np.concatenate(cols["mv"])
+    store.insert("daily_prices", {
+        "ts_code": np.array(cols["ts_code"], str),
+        "trade_date": date_strs[t],
+        "close": close, "total_mv": mv,
+        "circ_mv": np.concatenate(cols["circ"]),
+        "pb": np.array(cols["pb"]),
+        "turnover_rate": np.array(cols["turnover_rate"]),
+        "pe_ttm": np.array(cols["pe_ttm"]),
+    }, unique=("ts_code", "trade_date"))
+
+    # --- quarterly statements (with revisions) -----------------------------
+    q_ends = _quarter_ends(np.datetime64(start, "D"), dates[-1])
+    q_strs = day_strings(q_ends)
+    bal, cf, fi = ([] for _ in range(3))
+    for code in all_stocks:
+        for qe, qs in zip(q_ends, q_strs):
+            ann = qe + np.timedelta64(int(rng.integers(20, 80)), "D")
+            a_s = day_strings([ann])[0]
+            bal.append((code, qs, a_s, np.exp(rng.normal(10.0, 0.5)),
+                        np.exp(rng.normal(10.5, 0.5))))
+            cf.append((code, qs, a_s, rng.normal(1e5, 5e4)))
+            fi.append((code, qs, a_s, rng.normal(10, 15), rng.normal(8, 12),
+                       80 * rng.random()))
+            if rng.random() < revision_rate:  # revised announcement
+                ann2 = ann + np.timedelta64(int(rng.integers(5, 40)), "D")
+                a2 = day_strings([ann2])[0]
+                bal.append((code, qs, a2, np.exp(rng.normal(10.0, 0.5)),
+                            np.exp(rng.normal(10.5, 0.5))))
+                cf.append((code, qs, a2, rng.normal(1e5, 5e4)))
+
+    def table(rows, names):
+        return {n: np.array([r[j] for r in rows],
+                            str if j < 3 else np.float64)
+                for j, n in enumerate(names)}
+
+    store.insert("balancesheet", table(
+        bal, ("ts_code", "end_date", "f_ann_date", "total_ncl",
+              "total_hldr_eqy_inc_min_int")),
+        unique=("ts_code", "end_date", "f_ann_date"))
+    store.insert("cashflow", table(
+        cf, ("ts_code", "end_date", "f_ann_date", "n_cashflow_act")),
+        unique=("ts_code", "end_date", "f_ann_date"))
+    store.insert("financial_indicators", table(
+        fi, ("ts_code", "end_date", "ann_date", "q_profit_yoy", "q_sales_yoy",
+             "debt_to_assets")),
+        unique=("ts_code", "end_date", "ann_date"))
+
+    # --- index prices + components + SW industries -------------------------
+    store.insert("index_daily_prices", {
+        "ts_code": np.full(T, index_code), "trade_date": date_strs,
+        "close": 3000.0 * np.cumprod(1 + mkt),
+    }, unique=("ts_code", "trade_date"))
+    # two snapshots; universe selection must use the latest one only
+    old_members = members[: max(1, N - 2)] + [outsider]
+    con = old_members + members
+    store.insert("index_components", {
+        "index_code": np.full(len(con), index_code),
+        "trade_date": np.array([date_strs[0]] * len(old_members)
+                               + [date_strs[-1]] * len(members)),
+        "con_code": np.array(con),
+    }, unique=("index_code", "trade_date", "con_code"))
+    # a stale membership row that must lose to is_new == 'Y'
+    codes = all_stocks[:2] + all_stocks
+    l1 = ["801990.SI"] * 2 + l1_codes
+    n_sw = len(codes)
+    out_date = np.empty(n_sw, object)
+    store.insert("sw_industries", {
+        "ts_code": np.array(codes), "l1_code": np.array(l1),
+        "l1_name": np.array([f"ind_{c[3:5]}" for c in l1_codes[:2]]
+                            + [f"ind_{c[3:5]}" for c in l1_codes]),
+        "in_date": np.full(n_sw, "20100101"), "out_date": out_date,
+        "is_new": np.array(["N"] * 2 + ["Y"] * (N + 1)),
+    })
+    return {"dates": date_strs, "stocks": members, "index_code": index_code}

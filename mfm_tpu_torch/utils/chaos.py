@@ -1,15 +1,20 @@
-"""Deterministic crash points (counterpart of the crash-point part of
-``mfm_tpu/utils/chaos.py``).
+"""Deterministic fault injection (counterpart of the crash-point and
+transport-fault parts of ``mfm_tpu/utils/chaos.py``).
 
-:func:`chaos_point` marks a named step of a write or serve protocol.
-Setting ``MFM_CHAOS_KILL=<point>`` in a process's environment SIGKILLs the
-process at exactly that step — a deterministic "kill -9 mid write", no
-racy timers; ``MFM_CHAOS_KILL_MATCH`` narrows the kill to paths containing
-a substring.  With the variable unset a point costs one dict lookup.
+- **Crash points** (:func:`chaos_point`) mark a named step of a write or
+  serve protocol.  Setting ``MFM_CHAOS_KILL=<point>`` in a process's
+  environment SIGKILLs the process at exactly that step — a deterministic
+  "kill -9 mid write", no racy timers; ``MFM_CHAOS_KILL_MATCH`` narrows
+  the kill to paths containing a substring.  With the variable unset a
+  point costs one dict lookup.
+- **Transport faults** (:class:`FlakyStore`, :func:`flaky`): wrappers that
+  fail the first N calls with a chosen exception — the retry-path drill
+  for :func:`mfm_tpu_torch.data.etl.with_retry`.
 
 The points here are the ones the ported serving, scenario and
-observability modules reach; the reference's byte-level and data faults,
-flaky stores and fault plans wait for ROADMAP.md §A 15.
+observability modules reach.  The byte faults (``truncate_file``,
+``corrupt_file``), the data faults (``poison_*``) and the fault plans
+(``FaultPlan``, ``plan_suite``) wait for ROADMAP.md §A 15.
 """
 
 from __future__ import annotations
@@ -53,3 +58,46 @@ def chaos_point(name: str, path: str = "") -> None:
     if match and match not in path:
         return
     os.kill(os.getpid(), signal.SIGKILL)
+
+
+# -- transport faults -----------------------------------------------------------
+
+def flaky(fn, n_failures: int, exc_factory=ConnectionError):
+    """Wrap ``fn`` to raise ``exc_factory(...)`` on its first ``n_failures``
+    calls, then behave normally — the deterministic transient-error source
+    for the ``with_retry`` drill."""
+    state = {"left": int(n_failures)}
+
+    def wrapped(*a, **kw):
+        if state["left"] > 0:
+            state["left"] -= 1
+            raise exc_factory(f"chaos: injected transient failure "
+                              f"({state['left']} more)")
+        return fn(*a, **kw)
+
+    return wrapped
+
+
+class FlakyStore:
+    """Store proxy whose chosen methods fail the first N calls each with a
+    transient error, then delegate — exercised against
+    ``IncrementalUpdater``-style retry loops."""
+
+    def __init__(self, inner, n_failures: int = 2,
+                 methods: tuple = ("insert",), exc_factory=ConnectionError):
+        self._inner = inner
+        self._left = {m: int(n_failures) for m in methods}
+        self._exc = exc_factory
+
+    def __getattr__(self, name):
+        attr = getattr(self._inner, name)
+        if name not in self._left or not callable(attr):
+            return attr
+
+        def wrapped(*a, **kw):
+            if self._left[name] > 0:
+                self._left[name] -= 1
+                raise self._exc(f"chaos: {name} transient failure")
+            return attr(*a, **kw)
+
+        return wrapped
