@@ -58,7 +58,7 @@ every preset drill, batch == singles bitwise, the kernel at the ascent's
 (128, 42, 42) beside its bound and ``torch.linalg.eigh``),
 ``grad_sensitivity`` (a book against the presets and 4,096 specs; card
 vs the CPU at float64 outside the eigen-gap band, the CPU vs central
-differences), ``grad_served`` (bench config 9: 3,000 lines with
+differences), ``grad_served`` (bench config 9: 500 lines with
 construct solves through the coalescer, bitwise the sequential loop;
 a warm-started solve on the guarded checkpoint) and ``sweep_refine``
 (the sweep config's refined leg).  Then the serving fleet, bench config
@@ -68,7 +68,7 @@ CSI300 pipeline on the card, saved with ``save_pipeline_state``),
 ``Replica.connect``: every envelope byte for byte the in-process
 ``run_worker`` loop's), ``fleet_mh`` (four ``python -m mfm_tpu_torch.cli
 serve --worker --listen`` processes on the card in two simulated hosts
-behind a ``FleetServer``: 800 lines at 300 req/s, then 320 at 200 req/s
+behind a ``FleetServer``: 200 lines at 300 req/s, then 320 at 200 req/s
 with one host SIGKILLed, every response the port CLI's ``--gulp``
 replay, the delivery audit and the merged Chrome trace) and
 ``fleet_frontend`` (``serve --listen --replicas 2``: four concurrent JSONL
@@ -107,7 +107,18 @@ store cut 40 dates before its end, ``IncrementalUpdater`` bringing it up
 to date a part a day, ``pipeline --append`` bitwise ``pipeline`` from
 scratch, ``risk --barra-store`` bitwise the cut run; ``factors
 --prepared`` bitwise ``run_factor_pipeline``; each process's launches).  Then the
-all-A universe (T=2500, N=5000, K=42, M=100), in two phases:
+faults, in two phases: ``fault_matrix`` (``python -m
+mfm_tpu_torch.tools.faultinject``'s matrix in this process at CSI300
+width: the fenced checkpoint's byte faults, ``risk --update``
+subprocesses SIGKILLed at the write protocol's crash points, poisoned
+slabs under the carry-freeze contract, the retry drill, the coalescer's
+and the cache's lock schedules, steady-state on the compile-contract
+counter; every plan bitwise, the launches of each guarded append) and
+``report_crosscheck`` (``report`` over cli_risk's results against a
+numpy recomputation, ``--plot``, ``crosscheck --gate 0`` over the store's
+from-scratch and appended barra tables, and a copy with one value
+moved).  Then the all-A universe (T=2500, N=5000, K=42, M=100), in two
+phases:
 ``alla_risk`` (bench config 1 at ``--universe alla``: ``run_fused``, its
 walls, busy share, peak
 memory and launches; both kernels at the run's own (250,000, 42, 42) and
@@ -2753,10 +2764,14 @@ GRAD_GAP_BAND = 1e-4
 #: config 9 as the bench runs it (bench.py:1283-1480)
 FLEET_MIX = (0.45, 0.20, 0.15, 0.20, 0.0)
 #: (cut from the bench's 10,000 lines to 3,000, and the closed loop's from
-#: 2,000 to 1,000, to make room for the store section; PERF.md §5)
-FLEET_LINES, FLEET_RATE, FLEET_LINGER = 3_000, 2400.0, 0.1
-#: the one-at-a-time baseline's lines and the closed loop's
-FLEET_BASELINE_LINES, FLEET_CLOSED_LINES = 400, 1000
+#: 2,000 to 1,000, to make room for the store section; then to 500, the
+#: closed loop to 128 and the one-at-a-time baseline from 400 to 50 lines
+#: for the faults section; PERF.md §4)
+FLEET_LINES, FLEET_RATE, FLEET_LINGER = 500, 2400.0, 0.1
+#: the one-at-a-time baseline's lines and the closed loop's: checks of the
+#: answers, too short for a request rate (start-up dominates their walls),
+#: so only their walls are reported
+FLEET_BASELINE_LINES, FLEET_CLOSED_LINES = 50, 128
 #: the sweep config's refined leg (bench.py:1116-1130): 50 coarse chunks
 SWEEP_REFINE_CHUNKS = 50
 
@@ -3254,11 +3269,13 @@ def grad_sensitivity_phase(ctx) -> dict:
 def grad_served_phase(ctx) -> dict:
     """Phase grad_served: bench config 9 as the bench runs it — K = 42, a
     stressed table (x1.21), ``batch_max`` 256, mix (0.45, 0.20, 0.15,
-    0.20, 0.0): 3,000 lines (the bench's 10,000 cut) open loop at
+    0.20, 0.0): 500 lines (the bench's 10,000 cut) open loop at
     2,400 req/s through the
     ``Coalescer`` (linger 0.1 s), every response bitwise the sequential
-    loop's per request id; the 400-line one-at-a-time baseline; the
-    32-client closed loop.  p50 / p99 and ``p99_within_linger_plus_batch``
+    loop's per request id; the 50-line one-at-a-time baseline; the
+    32-client closed loop of 128 lines, each answer bitwise the sequential
+    loop's (these two are too short for a request rate: their walls are
+    reported, no rate).  p50 / p99 and ``p99_within_linger_plus_batch``
     are reported, not gated.  Then one warm-started construct request on
     the serving split's guarded CSI300 checkpoint."""
     import io
@@ -3426,7 +3443,7 @@ def grad_served_phase(ctx) -> dict:
     res = {"K": K, "lines": n, "mix": FLEET_MIX, "construct_share":
            construct_share, "offered_rate_rps": FLEET_RATE,
            "linger_s": FLEET_LINGER, "batch_max": 256,
-           "baseline_qps": FLEET_BASELINE_LINES / base_wall,
+           "baseline_lines": FLEET_BASELINE_LINES,
            "baseline_wall_s": base_wall,
            "sequential_wall_s": seq_wall,
            "open_loop_qps": len(delivered) / open_wall if open_wall else 0.0,
@@ -3436,7 +3453,7 @@ def grad_served_phase(ctx) -> dict:
                lat.get("p99_s", float("inf")) <= FLEET_LINGER + max_batch),
            "bitwise_mismatches": len(mismatched),
            "unanswered": lat.get("unanswered"),
-           "closed_loop_qps": closed["qps"], "closed_loop_wall_s":
+           "closed_loop_lines": FLEET_CLOSED_LINES, "closed_loop_wall_s":
            closed["wall_s"], "closed_loop_mismatches": closed_mismatched,
            "warm_start_on_checkpoint": warm_entry}
     emit("grad_served", **res)
@@ -3502,7 +3519,9 @@ FLEET_BATCH_MAX, FLEET_MH_LINGER = 32, 0.02
 FLEET_MH_MIX = (0.55, 0.25, 0.0, 0.20, 0.0)
 #: (lines, seed, offered req/s) of the warm-up, phase A and phase B
 FLEET_WARM = (8 * FLEET_BATCH_MAX, 1, 4000.0)
-FLEET_A = (800, 7, 300.0)
+#: (phase A cut from the bench's 800 lines to 200 for the faults section;
+#: PERF.md §4)
+FLEET_A = (200, 7, 300.0)
 FLEET_B = (320, 8, 200.0)
 #: how long a worker may take to announce its port, a phase to finish and
 #: a per-I/O wait on a worker (generous: the card is shared by 4 workers)
@@ -3738,7 +3757,7 @@ def fleet_mh_phase(ctx) -> dict:
     127.0.0.1:0`` processes on the card, grouped into 2 simulated hosts,
     behind an in-process ``FleetServer`` (batch_max 32, linger 0.02 s,
     heartbeat off, tracing on, a 65,536-span ring).  A warm-up of 256
-    lines at 4,000 req/s; phase A, 800 lines at 300 req/s open loop;
+    lines at 4,000 req/s; phase A, 200 lines at 300 req/s open loop;
     phase B, 320 lines at 200 req/s with both workers of host1 SIGKILLed
     at half the stream.  Every response is held to the port CLI's
     ``--gulp`` replay on the card, byte for byte; the merged manifest's
@@ -4004,7 +4023,7 @@ def _http(addr, raw: bytes) -> tuple:
 def fleet_frontend_phase(ctx) -> dict:
     """Phase fleet_frontend: ``python -m mfm_tpu_torch.cli serve state.npz
     --listen 127.0.0.1:0 --replicas 2`` on the card.  Four concurrent raw
-    JSONL clients send phase A's 800 lines (200 each), every response
+    JSONL clients send phase A's 200 lines (50 each), every response
     byte for byte the ``--gulp`` replay's; then the same front end with
     ``--http``: a POST of 64 lines, ``GET /healthz`` (its SLO block) and
     ``GET /metrics`` (both workers' live shards); then SIGTERM, the fleet
@@ -4105,20 +4124,20 @@ def fleet_frontend_phase(ctx) -> dict:
 
 def cli_call(argv) -> tuple:
     """``mfm_tpu_torch.cli.main(argv)`` in this process: (exit code,
-    standard output).  The card is the CLI's default device."""
+    standard output, standard error).  The card is the CLI's default
+    device."""
     import contextlib
     import io
 
     from mfm_tpu_torch import cli
 
-    out, code = io.StringIO(), 0
-    with contextlib.redirect_stdout(out), \
-            contextlib.redirect_stderr(io.StringIO()):
+    out, err, code = io.StringIO(), io.StringIO(), 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         try:
             cli.main(list(map(str, argv)))
         except SystemExit as e:
             code = e.code
-    return code, out.getvalue()
+    return code, out.getvalue(), err.getvalue()
 
 
 def read_table_exact(path) -> tuple:
@@ -4182,7 +4201,9 @@ def cli_risk_phase(ctx) -> dict:
     on the same csv and seed; the subprocess's kernel launches (the warp
     design: one weighted launch, two or more full ones); the run manifest
     beside the checkpoint, and ``doctor`` on it; a second subprocess with
-    ``--profile`` for the busy share and peak memory."""
+    ``--profile`` for the busy share and peak memory.  The csv is read
+    here twice, by byte positions and through the ``csv`` module, each
+    timed, the two bit for bit the same."""
     import numpy as np
 
     from mfm_tpu_torch import PipelineConfig, RiskModelConfig
@@ -4221,6 +4242,18 @@ def cli_risk_phase(ctx) -> dict:
         prof = json.load(fh)
 
     parsed, read_s = timed(lambda: read_csv(path))
+    # the same file through the csv module's reading (the byte-position
+    # split declined), for the split's gain; every column the same bits
+    from mfm_tpu_torch.data import csvio
+    split = csvio._split_columns
+    csvio._split_columns = lambda p: None
+    try:
+        by_module, module_read_s = timed(lambda: read_csv(path))
+    finally:
+        csvio._split_columns = split
+    reads_bitwise = list(parsed) == list(by_module) and all(
+        same_column(parsed[k], by_module[k]) for k in parsed)
+    del by_module
     cfg = PipelineConfig(risk=RiskModelConfig(
         quarantine=QuarantinePolicy(enabled=True)))
     res, run_s = timed(lambda: run_risk_pipeline(parsed, config=cfg,
@@ -4235,12 +4268,14 @@ def cli_risk_phase(ctx) -> dict:
     mpath = os.path.join(os.path.dirname(ck), "run_manifest.json")
     with open(mpath) as fh:
         man = json.load(fh)
-    doctor_rc, _ = cli_call(["doctor", os.path.dirname(ck)])
+    doctor_rc, _, _ = cli_call(["doctor", os.path.dirname(ck)])
     launches = rec["kernels"]["launches"]
     result = {"rows": len(parsed["date"]), "dates": rec["dates"],
               "stocks": rec["stocks"], "factors": rec["factors"],
               "cli_wall_s": rec["wall_s"], "process_s": process_s,
               "csv_write_s": write_s, "csv_read_in_process_s": read_s,
+              "csv_read_csv_module_s": module_read_s,
+              "csv_reads_bitwise": reads_bitwise,
               "stages_s": stage_seconds(mdir),
               "in_process_run_s": run_s, "profile": prof,
               "profiled_cli_wall_s": prof_rec["wall_s"],
@@ -4257,6 +4292,8 @@ def cli_risk_phase(ctx) -> dict:
             f"cli_risk: the run covered the wrong shape: {rec}")
     require(all(equal.values()), f"cli_risk: a table is not the in-process "
             f"pipeline's: {equal}")
+    require(reads_bitwise, "cli_risk: the byte-position split and the csv "
+            "module read the csv differently")
     require(launches["jacobi_eigh_weighted/warp"] == 1
             and launches["jacobi_eigh/warp"] >= 2
             and launches["jacobi_eigh/block"] == 0
@@ -4270,7 +4307,7 @@ def cli_risk_phase(ctx) -> dict:
     require(prof["busy_share"] is not None,
             "cli_risk: the profiler saw no device time")
     ctx["cli"] = {"dir": d, "csv": path, "ck": ck, "result": res,
-                  "parsed": parsed}
+                  "parsed": parsed, "out": out}
     return result
 
 
@@ -4323,14 +4360,14 @@ def cli_update_phase(ctx) -> dict:
                               ("guarded", ["--quarantine"],
                                files["poisoned"])):
         ck = os.path.join(d, f"ck_{leg}", "state.npz")
-        (code, _), walls[f"{leg}_save_state_s"] = timed(lambda: cli_call(
+        (code, _, _), walls[f"{leg}_save_state_s"] = timed(lambda: cli_call(
             ["risk", "--barra", files["head"], "--out",
              os.path.join(d, f"head_{leg}"), "--save-state", ck, *flags,
              *pin]))
         require(code == 0, f"cli_update {leg}: --save-state exit {code}")
         before = guard_summary_from_registry()
         reset_launches()
-        (code, txt), walls[f"{leg}_update_s"] = timed(lambda: cli_call(
+        (code, txt, _), walls[f"{leg}_update_s"] = timed(lambda: cli_call(
             ["risk", "--barra", table, "--out", os.path.join(d, f"upd_{leg}"),
              "--update", ck, "--save-outputs", *flags, *pin]))
         launches = launch_counts()
@@ -4405,7 +4442,7 @@ def cli_demo_phase(ctx) -> dict:
     T, N, P, Q = ctx["shape"]
     out = os.path.join(ctx["cli"]["dir"], "demo")
     reset_launches()
-    (code, txt), wall = timed(lambda: cli_call(
+    (code, txt, _), wall = timed(lambda: cli_call(
         ["demo", "--dates", T, "--stocks", N, "--industries", P, "--styles",
          Q, "--eigen-sims", 100, "--check-determinism", "--out", out]))
     launches = launch_counts()
@@ -4464,7 +4501,7 @@ def cli_factors_phase(ctx) -> dict:
         "ts_code": data["stocks"],
         "l1_code": np.array([f"sw{c:02d}" for c in data["industry"]])})
     out = os.path.join(d, "out")
-    (code, txt), cli_s = timed(lambda: cli_call(
+    (code, txt, _), cli_s = timed(lambda: cli_call(
         ["factors", "--panel", paths["panel"], "--index", paths["index"],
          "--industry", paths["industry"], "--out", out]))
     require(code == 0, f"cli_factors: exit {code}")
@@ -4558,16 +4595,16 @@ def cli_scenario_phase(ctx) -> dict:
         json.dump(CLI_SPECS, fh)
     names = sorted(PRESETS)
     reset_launches()
-    (code, _), run_s = timed(lambda: cli_call(
+    (code, _, _), run_s = timed(lambda: cli_call(
         ["scenario", "run", ck, *(a for n in names for a in ("--preset", n)),
          "--spec", spec_path]))
     run_launches = launch_counts()
     require(code == 0, f"cli_scenario run: exit {code}")
     reset_launches()
-    (code, _), sweep_s = timed(lambda: cli_call(["scenario", "sweep", ck]))
+    (code, _, _), sweep_s = timed(lambda: cli_call(["scenario", "sweep", ck]))
     sweep_launches = launch_counts()
     require(code == 0, f"cli_scenario sweep: exit {code}")
-    doctor_rc, _ = cli_call(["doctor", ckdir, "--scenarios"])
+    doctor_rc, _, _ = cli_call(["doctor", ckdir, "--scenarios"])
 
     st, meta = load_risk_state(ck, dev)
     eng = ScenarioEngine.from_risk_state(st, meta, device=dev)
@@ -4686,7 +4723,7 @@ def cli_grad_phase(ctx) -> dict:
              want_construct)):
         out = os.path.join(d, f"grad_{name}")
         reset_launches()
-        (code, _), wall = timed(lambda: cli_call(["grad", argv[0], ck,
+        (code, _, _), wall = timed(lambda: cli_call(["grad", argv[0], ck,
                                                   *argv[1:], "--out", out]))
         launches[name] = launch_counts()
         require(code == 0, f"cli_grad {name}: exit {code}")
@@ -4775,7 +4812,7 @@ def store_build_phase(ctx) -> dict:
     (master, index_px, sw), load_s = timed(lambda: load_and_prepare_data(st))
     prep, densify_s = timed(lambda: densify(master, index_px, sw))
     prep_dir = os.path.join(d, "prepared")
-    (code, txt), prepare_s = timed(lambda: cli_call(
+    (code, txt, _), prepare_s = timed(lambda: cli_call(
         ["prepare", "--store", truth, "--out", prep_dir]))
     require(code == 0, f"store_build: prepare exited {code}")
     rec = json.loads(txt.splitlines()[-1])
@@ -4833,7 +4870,7 @@ def store_etl_phase(ctx) -> dict:
             ("plan", ["etl-update", "--store", truth, "--start", dates[0],
                       "--end", dates[-1], "--dry-run",
                       "--index-codes", s["meta"]["index_code"]])):
-        (code, txt), walls[key] = timed(lambda: cli_call(argv))
+        (code, txt, _), walls[key] = timed(lambda: cli_call(argv))
         require(code == 0, f"store_etl: {argv[0]} exited {code}")
         recs[key] = json.loads(txt.splitlines()[-1])
     v, dg, m, pl = (recs[k] for k in ("verify", "diagnose", "missing",
@@ -5003,7 +5040,7 @@ def store_pipeline_phase(ctx) -> dict:
 
     # factors --prepared, and run_factor_pipeline on the inputs it read
     fdir = os.path.join(d, "factors")
-    (code, txt), factors_cli_s = timed(lambda: cli_call(
+    (code, txt, _), factors_cli_s = timed(lambda: cli_call(
         ["factors", "--prepared", s["prep_dir"], "--out", fdir]))
     require(code == 0, f"store_pipeline: factors --prepared exited {code}")
     p = Panel.from_long(_read_long_table(os.path.join(s["prep_dir"],
@@ -5095,6 +5132,302 @@ def store_pipeline_phase(ctx) -> dict:
         require_launches(launches[key], f"store_pipeline {key}", 1, 2)
     require(prof["busy_share"] is not None,
             "store_pipeline: the profiler saw no device time")
+    ctx["store_out"] = out
+    return res
+
+
+# -- faults: the recovery matrix, report and crosscheck -------------------------
+
+#: the recovery matrix at CSI300 width: a 1378-date history, three 4-date
+#: slabs, the reference demo's 100 draws
+FAULT_GEOMETRY = dict(T=1390, hist=1378, slab=4, N=300, P=31, Q=10, sims=100)
+FAULT_PORTED = 13
+FAULT_NOT_PORTED = 16
+
+
+def fault_matrix_phase(ctx) -> dict:
+    """Phase fault_matrix: ``python -m mfm_tpu_torch.tools.faultinject``'s
+    ``main`` in this process on the card at CSI300 width (FAULT_GEOMETRY,
+    float32): every ported plan of ``plan_suite`` and steady-state must
+    pass — the byte faults refused and replayed bitwise, the ``risk
+    --update`` subprocesses SIGKILLed at their crash points and the fence's
+    recovery bitwise, the poisoned dates quarantined with the carry-freeze
+    contract bitwise, the retry schedule, the schedule drills over the
+    serving engine on the card at the reference's parameters, and no
+    compile-contract event after the warmup.  Each plan's record goes on a
+    line.  Launches: this process's, counted from 0 just before the run;
+    the full kernel in every guarded append and completed subprocess, the
+    weighted kernel in the baseline's rebuild and in the incremental-eigen
+    plan's rebuild and update."""
+    import contextlib
+    import io
+
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+    from mfm_tpu_torch.tools import faultinject as fi
+
+    path = os.path.join(ctx["tmp"], "faults.json")
+    argv = ["--device", "cuda", "--out", path]
+    for k, v in FAULT_GEOMETRY.items():
+        argv += [f"--{k}", str(v)]
+    sync()
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fi.main(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(path) as fh:
+        rep = json.load(fh)
+    summary, results = rep["summary"], rep["results"]
+    big = ("append_launches", "pointer", "error")
+    for r in results:
+        emit("fault_plan", **{k: v for k, v in r.items() if k not in big},
+             appends=len(r["append_launches"]),
+             append_full_min=min((a["jacobi_eigh/warp"]
+                                  for a in r["append_launches"]), default=None),
+             error=r.get("error", "")[:400])
+    by = {r["plan"]: r for r in results}
+    failed = [r["plan"] for r in results if r["status"] != "pass"]
+    killed = {n: by[n].get("killed_subprocesses") for n in
+              ("kill-after-tmp", "kill-after-rename", "kill-at-manifest",
+               "eigen-kill-mid-update")}
+    appends = summary["baseline_append_launches"] + [
+        a for r in results for a in r["append_launches"]]
+    subprocess_launches = [s for r in results
+                           for s in r.get("subprocess_launches", [])]
+    eigen = by["eigen-kill-mid-update"]
+    res = {"wall_s": wall, "rc": rc, "geometry": summary["geometry"],
+           "plans": summary["plans"], "failed": failed,
+           "not_ported": len(summary["not_ported"]),
+           "baseline_wall_s": summary["baseline_wall_s"],
+           "plan_wall_s": {r["plan"]: r["wall_s"] for r in results},
+           "killed_by_sigkill": killed,
+           "steady_state_compiles": by["steady-state"].get("compiles"),
+           "steady_state_warmup_compiles":
+               by["steady-state"].get("warmup_compiles"),
+           "launches": launches,
+           "baseline_init_launches": summary["baseline_init_launches"],
+           "guarded_appends": len(appends),
+           "append_full_min": min(a["jacobi_eigh/warp"] for a in appends),
+           "eigen_init_launches": eigen.get("init_launches"),
+           "eigen_append_launches": eigen["append_launches"],
+           "subprocess_launches": subprocess_launches}
+    emit("fault_matrix", **res)
+    require(rc == 0 and not failed, f"fault_matrix: plans failed: {failed}")
+    require(summary["plans"] == FAULT_PORTED + 1
+            and res["not_ported"] == FAULT_NOT_PORTED
+            and summary["geometry"] == FAULT_GEOMETRY,
+            f"fault_matrix: ran {summary['plans']} plans, listed "
+            f"{res['not_ported']} as not ported, at {summary['geometry']}")
+    require(all(v == 1 for v in killed.values()),
+            f"fault_matrix: a kill plan's subprocess count: {killed}")
+    require(res["steady_state_compiles"] == 0,
+            f"fault_matrix: steady state added "
+            f"{res['steady_state_compiles']} compile-contract events")
+    require_launches(summary["baseline_init_launches"],
+                     "fault_matrix baseline rebuild", 1, 1)
+    require_launches(eigen["init_launches"],
+                     "fault_matrix eigen-kill rebuild", 1, 1)
+    for a in eigen["append_launches"]:
+        require_launches(a, "fault_matrix eigen-kill incremental update",
+                         1, 1)
+    for a in appends + subprocess_launches:
+        require_launches(a, "fault_matrix guarded append", 0, 1)
+    require(len(subprocess_launches) == 2,
+            f"fault_matrix: {len(subprocess_launches)} completed "
+            "subprocess updates (want 2)")
+    return res
+
+
+def _rounding_straddle(raw: float, reported: float) -> bool:
+    """``raw`` lies within 1e-9 of a 6-decimal rounding boundary and
+    ``reported`` is its neighbour there."""
+    frac = abs(raw) * 1e6 % 1.0
+    return abs(frac - 0.5) < 1e-3 and abs(raw - reported) <= 1e-6
+
+
+def report_numbers(rin: dict) -> dict:
+    """``report``'s summary numbers recomputed with numpy from the
+    in-process outputs, rounded as it rounds them (6 decimals)."""
+    import numpy as np
+
+    fr = rin["factor_ret"]
+    keep = ~np.isnan(fr).all(axis=1)
+    valid, dates = fr[keep], rin["dates"][keep]
+    cum = np.nansum(valid, axis=0)
+    vol = np.nanstd(valid, axis=0, ddof=1) * np.sqrt(252)
+    r2 = rin["r2"][~np.isnan(rin["r2"])]
+    lam = rin["lamb"][~np.isnan(rin["lamb"])]
+    sp = rin["specific_ret"]
+    n_obs = (~np.isnan(sp)).sum(axis=1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        disp = np.nanstd(np.where(n_obs[:, None] > 1, sp, np.nan), axis=1,
+                         ddof=1)
+    disp = disp[~np.isnan(disp)]
+    raw = {
+        "dates": {"first": str(dates[0]), "last": str(dates[-1]),
+                  "count": int(len(dates))},
+        "factors": {rin["names"][j]: {"cum_return": float(cum[j]),
+                                      "ann_vol": float(vol[j])}
+                    for j in np.argsort(-cum, kind="stable")},
+        "r2": {"mean": np.mean(r2), "median": np.median(r2),
+               "p10": np.percentile(r2, 10), "p90": np.percentile(r2, 90),
+               "last_63d_mean": np.mean(r2[-63:])},
+        "lambda": {"last": lam[-1], "mean": np.mean(lam),
+                   "min": np.min(lam), "max": np.max(lam)},
+        "specific_dispersion": {"mean_xsec_std": np.mean(disp),
+                                "last": disp[-1]},
+    }
+    return raw
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix.rstrip("/"): tree}
+
+
+def csv_finite_counts(path, names) -> tuple:
+    """(data rows, {name: finite cells}) of a csv the CLI wrote, each
+    cell parsed by numpy (the CLI writes NaN as an empty cell)."""
+    import numpy as np
+
+    with open(path) as fh:
+        header = fh.readline().rstrip("\n").split(",")
+        cols = list(zip(*(ln.rstrip("\n").split(",") for ln in fh
+                          if ln.strip())))
+    counts = {}
+    for f in names:
+        vals = np.array([c or "nan" for c in cols[header.index(f)]],
+                        dtype=np.float64)
+        counts[f] = int(np.isfinite(vals).sum())
+    return len(cols[0]) if cols else 0, counts
+
+
+def report_crosscheck_phase(ctx) -> dict:
+    """Phase report_crosscheck: ``report --json`` over cli_risk's results
+    directory, each number equal to the same statistic recomputed here with
+    numpy from the in-process outputs after the same 6-decimal rounding (a
+    value on the other side of a rounding boundary is listed with its raw
+    difference), the factor order too; ``report --plot`` (without
+    matplotlib: a non-zero exit naming the install; with it: a PNG);
+    ``crosscheck --gate 0`` of store_pipeline's from-scratch
+    ``barra_data.csv`` against the appended one, every factor passing with
+    its full overlap (``n_overlap`` equal to the factor's count of finite
+    cells in each table, both tables of the same row count); and again against a copy with one value of one
+    factor moved by 1e-3, which must fail the gate naming that factor."""
+    rin = ctx["report_inputs"]
+    t0 = time.perf_counter()
+    code, text, _ = cli_call(["report", "--results", rin["dir"], "--json",
+                           "health.json"])
+    report_s = time.perf_counter() - t0
+    require(code == 0, f"report_crosscheck: report exited {code}")
+    got = json.loads(text.strip().splitlines()[-1])
+    raw = report_numbers(rin)
+    g, w = _flat(got), _flat(raw)
+    mismatched, straddles = {}, {}
+    for key, want in w.items():
+        have = g.get(key)
+        if isinstance(want, str) or key.endswith("count"):
+            if have != want:
+                mismatched[key] = [have, want]
+            continue
+        if have == round(float(want), 6):
+            continue
+        if have is not None and _rounding_straddle(float(want), have):
+            straddles[key] = {"reported": have, "raw": float(want),
+                              "raw_minus_reported": float(want) - have}
+        else:
+            mismatched[key] = [have, float(want)]
+    order_ok = list(got["factors"]) == list(raw["factors"])
+    with open(os.path.join(rin["dir"], "portfolio_bias.json")) as fh:
+        pb = json.load(fh)
+    scope = next((k for k in pb if k.startswith("after_burn_in")),
+                 "all_valid_dates")
+    pb_ok = got["portfolio_bias"] == {
+        "scope": scope, "n_portfolios": pb["n_portfolios"],
+        **{k: pb[scope][k] for k in ("mean", "median",
+                                     "mean_abs_dev_from_1")}}
+
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    png = os.path.join(rin["dir"], "health.png")
+    pcode, _, _ = cli_call(["report", "--results", rin["dir"], "--plot",
+                               "health.png"])
+    plot = {"matplotlib": have_mpl, "exit": pcode if isinstance(pcode, int)
+            else str(pcode), "png_bytes": (os.path.getsize(png)
+                                           if os.path.exists(png) else 0)}
+    plot_ok = (pcode == 0 and plot["png_bytes"] > 1000 if have_mpl else
+               isinstance(pcode, str) and "needs matplotlib" in pcode
+               and "pip install" in pcode and not plot["png_bytes"])
+
+    out = ctx["store_out"]
+    scratch_csv = os.path.join(out["C"], "barra_data.csv")
+    append_csv = os.path.join(out["A"], "barra_data.csv")
+    flags = ["--date-col", "date", "--code-col", "stocknames", "--gate", "0"]
+    t0 = time.perf_counter()
+    ccode, ctext, cerr = cli_call(["crosscheck", "--ours", scratch_csv,
+                                   "--external", append_csv, *flags])
+    cross_s = time.perf_counter() - t0
+    cc = json.loads(ctext.strip().splitlines()[-1])
+    # full overlap: each factor's overlap is every finite value of either
+    # table, counted here from the text (a factor's warm-up rows are NaN)
+    rows, finite = csv_finite_counts(scratch_csv, list(cc))
+    rows_ext, finite_ext = csv_finite_counts(append_csv, list(cc))
+    full_overlap = {f: rows == rows_ext
+                    and cc[f]["n_overlap"] == finite[f] == finite_ext[f]
+                    for f in cc}
+    # a copy with one value of one factor moved by 1e-3, edited in the
+    # text so every other cell keeps its bytes
+    with open(append_csv) as fh:
+        lines = fh.read().split("\n")
+    header = lines[0].split(",")
+    factor = next(f for f in header[5:] if f in cc)
+    col = header.index(factor)
+    row = next(i for i in range(len(lines) // 2, len(lines))
+               if lines[i] and lines[i].split(",")[col])
+    cells = lines[row].split(",")
+    cells[col] = repr(float(cells[col]) + 1e-3)
+    lines[row] = ",".join(cells)
+    moved_csv = os.path.join(ctx["tmp"], "barra_moved.csv")
+    with open(moved_csv, "w") as fh:
+        fh.write("\n".join(lines))
+    mcode, _, merr = cli_call(["crosscheck", "--ours", scratch_csv,
+                               "--external", moved_csv, *flags])
+    failing = sorted(ln.split()[2].rstrip(":") for ln in merr.splitlines()
+                     if ln.startswith("GATE FAIL "))
+    res = {"report_s": report_s, "report_numbers": len(w),
+           "mismatched": mismatched, "rounding_straddles": straddles,
+           "factor_order_reference": order_ok, "portfolio_bias": pb_ok,
+           "plot": plot, "crosscheck_s": cross_s, "rows": rows,
+           "crosscheck_exit": ccode, "factors": len(cc),
+           "n_overlap": {f: cc[f]["n_overlap"] for f in cc},
+           "finite": finite, "rows_ext": rows_ext,
+           "max_abs_diff": max(cc[f]["max_abs_diff"] for f in cc),
+           "moved": {"factor": factor, "row": row, "exit": mcode,
+                     "gate_fail": failing}}
+    emit("report_crosscheck", **res)
+    require(not mismatched and order_ok and pb_ok,
+            f"report_crosscheck: report's numbers differ from the numpy "
+            f"recomputation: {mismatched}, order {order_ok}, "
+            f"portfolio_bias {pb_ok}")
+    require(plot_ok, f"report_crosscheck: report --plot: {plot}")
+    require(ccode == 0 and cc and all(full_overlap.values())
+            and res["max_abs_diff"] == 0.0,
+            f"report_crosscheck: crosscheck --gate 0 of the appended table "
+            f"against the from-scratch one: exit {ccode}, {full_overlap}, "
+            f"{cerr[-500:]}")
+    require(mcode == 1 and failing == [factor],
+            f"report_crosscheck: the moved copy must fail the gate naming "
+            f"{factor} alone: exit {mcode}, {failing}")
     return res
 
 
@@ -6043,8 +6376,23 @@ def main() -> int:
                     "risk_update_guarded": cli_update["guarded"]["launches"],
                     "demo": cli_demo["launches"], **ctx["cli_launches"]}
     emit("cli_launches", **cli_launches)
-    scratch.cleanup()
-    del ctx
+    # the faults section reads cli_risk's results directory against these
+    # host copies of the in-process outputs, so that scratch stays until then
+    import numpy as np
+
+    from mfm_tpu_torch.data.artifacts import _numpy
+
+    cres = ctx["cli"]["result"]
+    report_inputs = {
+        "dir": ctx["cli"]["out"],
+        "dates": np.asarray(cres.arrays.dates).astype("datetime64[D]"),
+        "names": cres.arrays.factor_names(),
+        **{k: _numpy(getattr(cres.outputs, f)).astype(np.float64)
+           for k, f in (("factor_ret", "factor_ret"), ("r2", "r2"),
+                        ("specific_ret", "specific_ret"),
+                        ("lamb", "lamb"))}}
+    cli_scratch = scratch
+    del ctx, cres
     torch.cuda.empty_cache()
 
     mark("cli")
@@ -6057,11 +6405,20 @@ def main() -> int:
     store_build_phase(sctx)
     store_etl_phase(sctx)
     store_launches = store_pipeline_phase(sctx)["launches"]
-    scratch.cleanup()
-    del sctx
-    torch.cuda.empty_cache()
 
     mark("store")
+    # -- phase 11d: faults — the recovery matrix at CSI300 width, report and
+    # crosscheck over the results the CLI and store sections left ------------
+    sctx["report_inputs"] = report_inputs
+    fault = fault_matrix_phase(sctx)
+    torch.cuda.empty_cache()
+    report_crosscheck_phase(sctx)
+    scratch.cleanup()
+    cli_scratch.cleanup()
+    del sctx, report_inputs
+    torch.cuda.empty_cache()
+
+    mark("faults")
     # -- phase 12: the all-A universe, bench configs 1 (--universe alla), 4 --
     # each path's launches are counted from 0 just before its run and read
     # just after; its comparisons with plain versions come after that
@@ -6216,6 +6573,11 @@ def main() -> int:
                                  for k, v in cli_launches.items()},
                 "store_launches": {k: v[f"{name}/warp"]
                                    for k, v in store_launches.items()},
+                "fault_launches": {
+                    "harness_in_process": fault["launches"][f"{name}/warp"],
+                    "completed_update_subprocesses": [
+                        s[f"{name}/warp"]
+                        for s in fault["subprocess_launches"]]},
                 **serve[key], **alla_entry(name, key)}
 
     kernels = [

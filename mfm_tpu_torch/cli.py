@@ -21,6 +21,9 @@
     python -m mfm_tpu_torch.cli risk --barra-store STORE2 --out results/
     python -m mfm_tpu_torch.cli etl-update|etl-verify|etl-missing|etl-xlsx \
         --store STORE ...
+    python -m mfm_tpu_torch.cli report --results results/ [--plot F.png]
+    python -m mfm_tpu_torch.cli crosscheck --ours A.csv --external B.csv \
+        [--gate TOL]
 
 ``risk`` runs the risk model over a barra-format csv, checkpoints it
 (``--save-state``, with the run manifest and its health verdict beside
@@ -46,6 +49,9 @@ a resumable checkpoint that ``--append`` serves new dates from, and
 --barra-store`` reads.  ``etl-update`` refreshes the store from the
 vendor (``--dry-run`` plans it from the watermarks alone), ``etl-verify``
 and ``etl-missing`` check it, ``etl-xlsx`` loads the static workbooks.
+``report`` summarizes a results directory's model health (and plots it
+with matplotlib); ``crosscheck`` compares two factor tables and, with
+``--gate``, fails on disagreement.
 The csv and store paths need no pandas (a parquet file, from a store or
 a ``prepare`` directory the reference wrote, is read through it).  The flags, outputs, manifests and exit codes
 are the reference's; ``--device`` (default ``cuda``) takes the place of
@@ -53,8 +59,8 @@ its ``JAX_PLATFORMS``: a command computes on the CUDA card unless asked
 for the CPU, and without a card ``--device cuda`` raises.  The serve path
 launches no CUDA kernel, and importing this module builds and loads none.
 
-The reference's other subcommands (``report``, ``crosscheck``, ``lint``,
-``sync``, ``audit``), ``--mesh``, ``--nw-method associative`` and
+The reference's other subcommands (``lint``, ``sync``, ``audit``),
+``--mesh``, ``--nw-method associative`` and
 ``doctor --audit/--sync`` are not ported yet; each exits non-zero naming
 its ROADMAP.md item.
 """
@@ -72,10 +78,7 @@ SERVE_MANIFEST_NAME = "serve_manifest.json"
 
 #: the reference's subcommands this port does not carry yet, by the
 #: ROADMAP.md item that ports them
-UNPORTED_COMMANDS = {
-    "crosscheck": "§A 19", "report": "§A 19",
-    "lint": "§A 16", "sync": "§A 16", "audit": "§A 16",
-}
+UNPORTED_COMMANDS = {"lint": "§A 16", "sync": "§A 16", "audit": "§A 16"}
 
 
 def _unported(args):
@@ -83,7 +86,8 @@ def _unported(args):
         f"mfm_tpu_torch.cli: `{args.cmd}` is not ported yet (ROADMAP.md "
         f"{UNPORTED_COMMANDS[args.cmd]}); this package runs `risk`, "
         "`demo`, `factors`, `scenario`, `grad`, `serve`, `doctor`, "
-        "`metrics`, `alpha`, `prepare`, `pipeline` and `etl-*`")
+        "`metrics`, `alpha`, `prepare`, `pipeline`, `etl-*`, `report` and "
+        "`crosscheck`")
 
 
 def _metrics_init(args) -> None:
@@ -1042,6 +1046,120 @@ def _require_matplotlib(flag: str):
     except ImportError as err:
         raise SystemExit(f"{flag} needs matplotlib "
                          "(pip install 'mfm-tpu[plot]')") from err
+
+
+def _read_factor_table(path: str, date_col: str) -> dict:
+    """``crosscheck``'s side: a csv (pandas-free) or a parquet file
+    (through pandas), with the date column as datetime64 whatever it was
+    stored as — int yyyymmdd, ISO strings or datetimes — so a csv side
+    and a parquet side align."""
+    if path.endswith(".parquet"):
+        import pandas as pd
+
+        from mfm_tpu_torch.data.columns import as_table
+
+        table = as_table(pd.read_parquet(path))
+    else:
+        from mfm_tpu_torch.data.csvio import read_csv
+
+        table = read_csv(path)
+    if date_col in table:
+        table[date_col] = _as_dates(table[date_col])
+    return table
+
+
+def _crosscheck(args):
+    import sys
+
+    from mfm_tpu_torch.utils.crosscheck import crosscheck_factors
+
+    rep = crosscheck_factors(
+        _read_factor_table(args.ours, args.date_col),
+        _read_factor_table(args.external, args.date_col),
+        factors=([f.strip() for f in args.factors.split(",")]
+                 if args.factors else None),
+        date_col=args.date_col, code_col=args.code_col,
+    )
+    if args.out:
+        rep.to_csv(args.out)
+    print(rep.to_json())
+    if args.gate is not None:
+        # CI-style agreement gate: a factor whose max |diff| over the
+        # overlap exceeds the gate, or that has no overlap at all, fails the
+        # run with a named verdict on stderr; so does a comparison of
+        # nothing (no shared numeric factor column)
+        if not len(rep):
+            print("GATE FAIL: no shared numeric factor columns to compare",
+                  file=sys.stderr)
+            raise SystemExit(1)
+        bad = [(name, row) for name, row in rep.rows.items()
+               if row["n_overlap"] == 0
+               or not row["max_abs_diff"] <= args.gate]
+        if bad:
+            for name, row in bad:
+                print(f"GATE FAIL {name}: n_overlap={int(row['n_overlap'])} "
+                      f"max_abs_diff={row['max_abs_diff']!r} > {args.gate}",
+                      file=sys.stderr)
+            raise SystemExit(1)
+
+
+def _report(args):
+    """Model-health report over a risk run's results directory: a JSON
+    summary and, with --plot, a small-multiples PNG."""
+    from mfm_tpu_torch.utils.report import (
+        load_results,
+        model_health_summary,
+        plot_model_health,
+    )
+
+    if args.plot:
+        _require_matplotlib("--plot")  # before any loading/summary work
+    res = load_results(args.results)
+    summary = model_health_summary(args.results, roll_window=args.roll_window,
+                                   res=res)
+    if args.plot:
+        plot_model_health(args.results, os.path.join(args.results, args.plot),
+                          top_k=args.top_k, roll_window=args.roll_window,
+                          res=res)
+        summary["plot"] = os.path.join(args.results, args.plot)
+    if args.json:
+        with open(os.path.join(args.results, args.json), "w") as fh:
+            json.dump(summary, fh, indent=1)
+    print(json.dumps(summary))
+
+
+def _report_parsers(sub) -> None:
+    c = sub.add_parser("crosscheck",
+                       help="compare factor tables vs an external source "
+                            "(beta.ipynb jqdatasdk check, generalized)")
+    c.add_argument("--ours", required=True)
+    c.add_argument("--external", required=True)
+    c.add_argument("--factors", default=None, help="comma list; default: "
+                   "all shared numeric columns")
+    c.add_argument("--date-col", default="trade_date")
+    c.add_argument("--code-col", default="ts_code")
+    c.add_argument("--out", default=None, help="write report CSV here")
+    c.add_argument("--gate", type=float, default=None, metavar="TOL",
+                   help="exit 1 if any factor's max |diff| over the overlap "
+                        "exceeds TOL or has no overlap (CI parity gate)")
+    c.set_defaults(fn=_crosscheck)
+
+    rp = sub.add_parser("report",
+                        help="model-health summary + plots over a risk-run "
+                             "results dir (the notebooks' QC eyeballing, "
+                             "as one command)")
+    rp.add_argument("--results", required=True,
+                    help="directory a risk/pipeline run wrote its tables to")
+    rp.add_argument("--plot", default=None, metavar="FILE.png",
+                    help="render the 2x2 health plot into RESULTS "
+                         "(needs matplotlib)")
+    rp.add_argument("--json", default=None, metavar="FILE.json",
+                    help="also write the summary JSON into RESULTS")
+    rp.add_argument("--top-k", type=int, default=6,
+                    help="factors direct-labelled in the cumulative panel")
+    rp.add_argument("--roll-window", type=int, default=63,
+                    help="rolling window (days) for the R² mean")
+    rp.set_defaults(fn=_report)
 
 
 def _maybe_portfolio_bias(res, args) -> None:
@@ -3467,6 +3585,7 @@ def main(argv=None):
     _serve_parser(sub)
     _alpha_parser(sub)
     _store_parsers(sub)
+    _report_parsers(sub)
 
     mt = sub.add_parser(
         "metrics", help="read what --metrics-dir wrote: dump the "

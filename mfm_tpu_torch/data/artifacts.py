@@ -16,8 +16,10 @@ carry as ``nw_*`` (per-lag tuples stacked to ``(q, ...)``), ``vr_num`` /
 mode, the ``guard_*`` leaves of a guarded state, and the stamp and counts
 in the JSON meta.  A state saved by either package loads in the other.
 
-The reference's telemetry counters and chaos-injection points on these
-paths are not ported here (ROADMAP.md §A 15).
+The write path carries two crash points (``save_artifact.after_tmp``,
+``save_artifact.after_rename``; :mod:`mfm_tpu_torch.utils.chaos`), and
+saves, loads and refusals feed the ``mfm_checkpoint_*`` metrics
+(:mod:`mfm_tpu_torch.obs.instrument`) on the reference's events.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import time
 import zipfile
 import zlib
 from typing import Mapping
@@ -33,6 +36,8 @@ import numpy as np
 import torch
 
 from mfm_tpu_torch._device import resolve_device
+from mfm_tpu_torch.obs import instrument as _telemetry
+from mfm_tpu_torch.utils.chaos import chaos_point
 
 FORMAT_VERSION = 1
 
@@ -128,6 +133,7 @@ def save_artifact(path: str, arrays: Mapping[str, object],
                   meta: dict | None = None, *, fenced: bool = False):
     """Persist a flat dict of arrays (+ JSON-able metadata) atomically;
     ``fenced`` stamps the next generation and swaps ``latest.json``."""
+    t0 = time.perf_counter()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {k: np.asarray(v) for k, v in arrays.items()}
     meta = dict(meta or {})
@@ -152,10 +158,15 @@ def save_artifact(path: str, arrays: Mapping[str, object],
             pass
         raise
     file_sha = _file_sha256(tmp)
+    chaos_point("save_artifact.after_tmp", path)
     os.replace(tmp, path)
     _fsync_dir(os.path.dirname(path))
+    chaos_point("save_artifact.after_rename", path)
     if fenced:
         _swap_pointer(path, generation, file_sha)
+        _telemetry.CHECKPOINT_GENERATION.set_value(generation)
+    _telemetry.CHECKPOINT_SAVES_TOTAL.inc()
+    _telemetry.CHECKPOINT_SAVE_SECONDS.observe(time.perf_counter() - t0)
 
 
 def load_artifact(path: str, *, fenced: bool = False, force: bool = False):
@@ -167,18 +178,21 @@ def load_artifact(path: str, *, fenced: bool = False, force: bool = False):
     :class:`ArtifactStaleError` unless ``force``; one newer heals the
     pointer forward and loads.
     """
+    t0 = time.perf_counter()
     try:
         with np.load(path, allow_pickle=False) as z:
             arrays = {k: z[k] for k in z.files if k != "__meta__"}
             meta = (json.loads(bytes(z["__meta__"]).decode())
                     if "__meta__" in z.files else {})
     except (zipfile.BadZipFile, zlib.error, EOFError) as e:
+        _telemetry.CHECKPOINT_CORRUPT_TOTAL.inc()
         raise ArtifactCorruptError(
             f"{path}: truncated or corrupt npz ({e}) — suspected torn "
             f"write; recover from the previous generation or re-run the "
             f"producing stage") from e
     except ValueError as e:
         # np.load raises a bare ValueError on non-zip magic / header damage
+        _telemetry.CHECKPOINT_CORRUPT_TOTAL.inc()
         raise ArtifactCorruptError(
             f"{path}: unreadable artifact ({e}) — suspected torn write or "
             f"foreign file") from e
@@ -186,6 +200,7 @@ def load_artifact(path: str, *, fenced: bool = False, force: bool = False):
     if want is not None:
         got = _payload_sha256(arrays)
         if got != want:
+            _telemetry.CHECKPOINT_CORRUPT_TOTAL.inc()
             raise ArtifactCorruptError(
                 f"{path}: payload sha256 mismatch (stored {want[:12]}…, "
                 f"recomputed {got[:12]}…) — corrupt or tampered artifact")
@@ -195,6 +210,7 @@ def load_artifact(path: str, *, fenced: bool = False, force: bool = False):
         ptr_gen = entry.get("generation") if entry is not None else None
         if isinstance(gen, int) and isinstance(ptr_gen, int):
             if gen < ptr_gen:
+                _telemetry.CHECKPOINT_STALE_TOTAL.inc()
                 raise ArtifactStaleError(
                     f"{path}: generation {gen} is older than the "
                     f"latest.json pointer ({ptr_gen}) — stale state "
@@ -203,6 +219,11 @@ def load_artifact(path: str, *, fenced: bool = False, force: bool = False):
             if gen > ptr_gen:
                 # crash between rename and pointer swap: heal forward
                 _swap_pointer(path, gen, _file_sha256(path))
+                _telemetry.CHECKPOINT_HEAL_FORWARD_TOTAL.inc()
+    if fenced and isinstance(meta.get("generation"), int):
+        _telemetry.CHECKPOINT_GENERATION.set_value(meta["generation"])
+    _telemetry.CHECKPOINT_LOADS_TOTAL.inc()
+    _telemetry.CHECKPOINT_LOAD_SECONDS.observe(time.perf_counter() - t0)
     return arrays, meta
 
 

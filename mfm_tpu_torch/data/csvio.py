@@ -18,6 +18,11 @@ a time and scales the result by one power of ten, so ``0.0044963...``
 written with 17 significant digits reads an ulp or more away from
 Python's ``float``.  :func:`_parse_floats` does the same arithmetic on
 whole columns at once.
+
+A file of ASCII without quotes or carriage returns, whose rows all have
+the header's field count, is split into columns by byte positions in
+numpy (:func:`_split_columns`); any other file goes through the ``csv``
+module.  Both give each column's cells to the same inference.
 """
 
 from __future__ import annotations
@@ -83,7 +88,11 @@ def _parse_floats(cells) -> np.ndarray:
     """float64 of each cell of a column, as pandas' default C parser
     reads it; ValueError when a cell is not a number.  A state machine
     over the characters' positions, each step on the whole column."""
-    S = np.array(cells, dtype="S")
+    return _parse_bytes(np.array(cells, dtype="S"))
+
+
+def _parse_bytes(S: np.ndarray) -> np.ndarray:
+    """:func:`_parse_floats` of a column already as bytes (numpy ``S``)."""
     n = len(S)
     B = (np.ascontiguousarray(S.view(np.uint8).reshape(n, -1).T)
          if S.dtype.itemsize else np.zeros((1, n), np.uint8))
@@ -131,40 +140,99 @@ def _parse_floats(cells) -> np.ndarray:
     out = _scale(np.where(neg, -number, number),
                  np.where(eneg, -ev, ev) + extra - dec)
     for i in np.nonzero(bad)[0]:
-        out[i] = _parse_float(cells[i])
+        out[i] = _parse_float(S[i].decode())
     return out
+
+
+_NA_BYTES = np.array(sorted(v.encode() for v in NA_VALUES), dtype="S")
+_NA_TEXT = np.array(sorted(NA_VALUES))
+_BOOL_BYTES = np.array(sorted(v.encode() for v in _BOOL), dtype="S")
+_TRUE_BYTES = np.array(sorted(v.encode() for v in _TRUE), dtype="S")
+
+
+def _infer_column(S: np.ndarray) -> np.ndarray:
+    """A column typed as pandas would type it (see the module doc): its
+    cells as numpy ``S`` bytes, or as ``U`` text where a cell is not
+    ASCII (such a column is text)."""
+    n = len(S)
+    na = np.isin(S, _NA_BYTES if S.dtype.kind == "S" else _NA_TEXT)
+    if na.all():
+        return np.full(n, np.nan)
+    if S.dtype.kind == "S":
+        first = S[int(np.argmin(na))].decode()
+        if not na.any():
+            if first in _BOOL and np.isin(S, _BOOL_BYTES).all():
+                return np.isin(S, _TRUE_BYTES)
+            if first.strip().lstrip("+-").isdigit():
+                try:
+                    return S.astype(str).astype(np.int64)
+                except (ValueError, OverflowError):
+                    pass
+        try:
+            _parse_float(first)   # a text column fails here, cheaply
+            out = _parse_bytes(np.where(na, b"0", S) if na.any() else S)
+        except ValueError:
+            pass
+        else:
+            out[na] = np.nan
+            return out
+    text = S.astype(str)
+    if not na.any():
+        return text
+    out = text.astype(object)
+    out[na] = np.nan
+    return out
+
+
+def _split_columns(path):
+    """``(header, columns)`` of a csv by byte positions, each column's
+    cells as numpy ``S`` bytes; None where the file needs the ``csv``
+    module (quotes, carriage returns or non-ASCII bytes, a blank line, a
+    row whose field count is not the header's, no header)."""
+    buf = np.fromfile(path, np.uint8)
+    if not buf.size:
+        return None
+    if buf[-1] != 10:
+        buf = np.append(buf, np.uint8(10))
+    if ((buf >= 128) | (buf == 34) | (buf == 13) | (buf == 0)).any():
+        return None
+    ends = np.flatnonzero(buf == 10)
+    starts = np.r_[0, ends[:-1] + 1]
+    if (ends == starts).any():
+        return None
+    header = bytes(buf[:ends[0]]).decode().split(",")
+    ncol, n = len(header), len(ends) - 1
+    comma = np.flatnonzero(buf == 44)
+    per_line = np.searchsorted(comma, ends) - np.searchsorted(comma, starts)
+    if (per_line != ncol - 1).any():
+        return None
+    inner = comma[ncol - 1:].reshape(n, ncol - 1)
+    first = np.column_stack([starts[1:], inner + 1])
+    length = np.column_stack([inner, ends[1:]]) - first
+    widest = int(length.max()) if n else 0
+    # a window of the widest field's bytes at every offset; a field is its
+    # window's first `length` bytes, the rest zeroed
+    windows = np.lib.stride_tricks.sliding_window_view(
+        np.concatenate([buf, np.zeros(widest, np.uint8)]), max(widest, 1))
+    columns = []
+    for j in range(ncol):
+        width = int(length[:, j].max()) if n else 0
+        if not width:
+            columns.append(np.zeros(n, "S1"))
+            continue
+        cells = windows[first[:, j], :width]
+        cells[np.arange(width) >= length[:, j, None]] = 0
+        columns.append(np.ascontiguousarray(cells).view(f"S{width}")
+                       .reshape(n))
+    return header, columns
 
 
 def _infer(cells: tuple) -> np.ndarray:
     """One column's cells (strings) as pandas would type them."""
-    n = len(cells)
-    na = (np.zeros(n, bool) if NA_VALUES.isdisjoint(cells)
-          else np.fromiter((c in NA_VALUES for c in cells), bool, n))
-    if na.all():
-        return np.full(n, np.nan)
-    first = cells[int(np.argmin(na))]
-    if not na.any():
-        if first in _BOOL and all(c in _BOOL for c in cells):
-            return np.fromiter((c in _TRUE for c in cells), bool, n)
-        if first.strip().lstrip("+-").isdigit():
-            try:
-                return np.array(cells).astype(np.int64)
-            except (ValueError, OverflowError):
-                pass
     try:
-        _parse_float(first)   # a text column fails here, cheaply
-        out = _parse_floats([c if not m else "0" for c, m in zip(cells, na)]
-                            if na.any() else cells)
-    except (ValueError, UnicodeEncodeError):
-        pass
-    else:
-        out[na] = np.nan
-        return out
-    if not na.any():
-        return np.array(cells)
-    out = np.array(cells, dtype=object)
-    out[na] = np.nan
-    return out
+        return _infer_column(np.array(cells, dtype="S"))
+    except UnicodeEncodeError:
+        return _infer_column(np.array(cells, dtype=str))
 
 
 def _dates(cells: tuple) -> np.ndarray:
@@ -184,6 +252,13 @@ def read_csv(path, parse_dates=()) -> dict:
     """``path`` as a dict of typed numpy columns (see the module doc); a
     column named in ``parse_dates`` is read as dates where it parses.  An
     empty header cell is named ``Unnamed: {j}``, as pandas names it."""
+    split = _split_columns(path)
+    if split is not None:
+        header, columns = split
+        names = [h or f"Unnamed: {j}" for j, h in enumerate(header)]
+        return {name: (_dates(tuple(col.astype(str).tolist()))
+                       if name in parse_dates else _infer_column(col))
+                for name, col in zip(names, columns)}
     with open(path, newline="") as fh:
         rows = csv.reader(fh)
         header = next(rows, None)

@@ -9,8 +9,9 @@ loop, the response cache, the coalescer, the serving fleet (front end,
 replicas, transport), the SLO engine, the span ring and its fleet-wire
 merge, the flight recorder, retries, the scenario engine and the
 streaming sweep record, the guard tallies of a guarded step, the update
-latency and the per-stage walls the manifests' guard block and the CLI
-read.  The reference's compile counters and compiled-memory gauges count
+latency, the per-stage walls the manifests' guard block and the CLI
+read, and the fenced checkpoint's saves, loads and refusals
+(data/artifacts.py).  The reference's compile counters and compiled-memory gauges count
 XLA's compile events, which the port does not have (ROADMAP.md §A 16).
 """
 
@@ -42,6 +43,27 @@ UPDATE_LATENCY = REGISTRY.histogram(
 STAGE_SECONDS = REGISTRY.gauge(
     "mfm_stage_seconds", "last wall time of a pipeline/risk stage",
     labelnames=("stage",))
+
+# -- fenced checkpoints (data/artifacts.py) -----------------------------------
+
+CHECKPOINT_SAVES_TOTAL = REGISTRY.counter(
+    "mfm_checkpoint_saves_total", "fenced artifact saves")
+CHECKPOINT_LOADS_TOTAL = REGISTRY.counter(
+    "mfm_checkpoint_loads_total", "fenced artifact loads")
+CHECKPOINT_CORRUPT_TOTAL = REGISTRY.counter(
+    "mfm_checkpoint_corrupt_total",
+    "checksum/fence verification failures on load")
+CHECKPOINT_STALE_TOTAL = REGISTRY.counter(
+    "mfm_checkpoint_stale_total", "generation-fence rejections on load")
+CHECKPOINT_HEAL_FORWARD_TOTAL = REGISTRY.counter(
+    "mfm_checkpoint_heal_forward_total",
+    "pointer heal-forwards after a crash between rename and pointer swap")
+CHECKPOINT_GENERATION = REGISTRY.gauge(
+    "mfm_checkpoint_generation", "generation fence of the last save/load")
+CHECKPOINT_SAVE_SECONDS = REGISTRY.histogram(
+    "mfm_checkpoint_save_seconds", "artifact save wall time")
+CHECKPOINT_LOAD_SECONDS = REGISTRY.histogram(
+    "mfm_checkpoint_load_seconds", "artifact load wall time")
 
 # -- retries (data/etl.py with_retry) -----------------------------------------
 

@@ -19,8 +19,8 @@ close around the device work, never inside it.
   ``{"traceEvents": [...]}``, complete "X" events),
   :func:`parse_chrome_trace` (the schema validator), the atomic
   :func:`write_chrome_trace` (tmp -> fsync -> chaos point -> rename -> dir
-  fsync).  The reference's mirror of spans onto the JSONL event stream
-  has no caller in the port.
+  fsync), and :func:`export_spans_to_events`, the mirror of spans onto
+  the JSONL event stream (:mod:`mfm_tpu_torch.obs.exporters`).
 
 Ids follow W3C trace-context sizing: ``trace_id`` 16 random bytes hex,
 ``span_id`` 8.
@@ -411,3 +411,17 @@ def write_chrome_trace(path: str, span_list=None) -> str:
     except OSError:  # pragma: no cover - exotic filesystems
         pass
     return path
+
+
+def export_spans_to_events(span_list=None, level: str = "info") -> int:
+    """Mirror spans onto the JSONL event stream (one ``span`` event each,
+    routed wherever ``route_events_to`` points).  Returns the count."""
+    from mfm_tpu_torch.obs.exporters import emit_event
+
+    sl = spans() if span_list is None else span_list
+    for s in sl:
+        emit_event(level, "span", name=s.name, trace_id=s.trace_id,
+                   span_id=s.span_id, parent_id=s.parent_id,
+                   dur_s=round((s.dur_us or 0.0) / 1e6, 6),
+                   **{f"attr_{k}": v for k, v in sorted(s.attrs.items())})
+    return len(sl)

@@ -9,7 +9,8 @@ named by a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one is reused.  Beside each library lies nvcc's report
 (``-Xptxas -v``: each kernel's registers, stack frame and spill bytes),
 kept on success too; :func:`ptxas_report` parses it.  Nothing is built at
-import time.
+import time.  Each build and each load is an event of the compile-contract
+counter (:mod:`mfm_tpu_torch.utils.contracts`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+
+from mfm_tpu_torch.utils import contracts
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -76,6 +79,7 @@ def build_all() -> dict[str, Path]:
             if proc.returncode == 0:
                 _log(out).write_text(err)
                 os.replace(tmp, out)  # atomic: a reader never sees a torn file
+                contracts.notify(contracts.KERNEL_BUILD_EVENT, src.name)
             else:
                 tmp.unlink(missing_ok=True)
                 errors.append(f"{src.name}: nvcc exited {proc.returncode}\n{err}")
@@ -87,7 +91,9 @@ def build_all() -> dict[str, Path]:
 @functools.lru_cache(maxsize=None)
 def load(stem: str) -> ctypes.CDLL:
     """The built library of ``csrc/<stem>.cu``, building it at first use."""
-    return ctypes.CDLL(str(build_all()[stem]))
+    lib = ctypes.CDLL(str(build_all()[stem]))
+    contracts.notify(contracts.KERNEL_LOAD_EVENT, stem)
+    return lib
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)' for '(\w+)'")

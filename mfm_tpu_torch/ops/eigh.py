@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from mfm_tpu_torch.utils import contracts
 from mfm_tpu_torch.utils.prec import highest_matmul_precision
 
 #: largest n the Jacobi solvers take; bigger batches go to torch.linalg.eigh
@@ -259,6 +260,8 @@ def batched_eigh(A: torch.Tensor, *, canonical_signs: bool = True,
     the Jacobi sweep count; ``torch.linalg.eigh`` (n > 128) ignores it.
     ``kernels=False`` runs the plain versions even on a CUDA tensor.
     """
+    if contracts._LISTENERS:
+        contracts.note_signature("batched_eigh", A)
     if A.shape[-1] > JACOBI_MAX_N:
         w, V = torch.linalg.eigh(A)
         return sort_and_sign(w, V, False, canonical_signs)
@@ -280,6 +283,8 @@ def batched_eigh_weighted_diag(A: torch.Tensor, d0: torch.Tensor, *,
     ``torch.linalg.eigh``; (w_i, h_i) pairing is consistent either way and
     callers rank-pair by sorting the two outputs.
     """
+    if contracts._LISTENERS:
+        contracts.note_signature("batched_eigh_weighted_diag", A, d0)
     n0 = A.shape[-1]
     d0b = d0.expand(A.shape[:-1])
     if n0 > JACOBI_MAX_N:

@@ -229,6 +229,12 @@ class SocketFrontend:
         self._stopping = True
         if self._lsock is not None:
             try:
+                # close() alone leaves a blocked accept() waiting on Linux;
+                # shutdown() wakes it
+                self._lsock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
                 self._lsock.close()
             except OSError:
                 pass

@@ -1,0 +1,101 @@
+"""Runtime contracts: the compile-contract counter (counterpart of
+``mfm_tpu/utils/contracts.py``).
+
+The incremental serving loop is cheap only while its state keeps stable
+shapes and dtypes, so tests and the recovery matrix pin the steady state
+to a bounded number of "compiles":
+
+    with assert_max_compiles(0):
+        for day in days:
+            out, report, state = model.update_guarded(state)
+
+The reference counts JAX lowerings.  The port runs eager torch and has no
+lowering to count, so it counts the events that stand in a lowering's
+place:
+
+- a build or load of a kernel library (``ops/_build.py``);
+- the first call of a ``(shape, dtype, device)`` signature at the eigh
+  dispatchers (``ops/eigh.batched_eigh``, ``batched_eigh_weighted_diag``).
+
+A state that drifts in shape shows up as a new signature, as in JAX it
+shows up as a retrace.  Signatures are recorded only while a listener is
+registered — with none, a dispatch pays one empty-list test — so a warmup
+that should make the steady state free runs under :func:`count_compiles`
+too (as a JAX warmup compiles).  A signature recorded once stays
+recorded for the process, like a jit cache entry.
+
+The reference's ``no_tracer_leaks`` wraps ``jax.checking_leaks``; eager
+torch has no tracers to leak, so it has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+#: the event names a listener receives, in place of the reference's
+#: ``/jax/core/compile/jaxpr_to_mlir_module_duration``
+KERNEL_BUILD_EVENT = "/mfm_tpu_torch/ops/build"
+KERNEL_LOAD_EVENT = "/mfm_tpu_torch/ops/load"
+NEW_SIGNATURE_EVENT = "/mfm_tpu_torch/ops/eigh/new_signature"
+
+#: registered listeners; only :func:`count_compiles` adds to it
+_LISTENERS: list = []
+#: ``(dispatcher, shapes, dtype, device)`` signatures seen while listening
+_SEEN: set = set()
+
+
+def notify(event: str, detail: str = "") -> None:
+    """Tell every registered listener about ``event``."""
+    for fn in list(_LISTENERS):
+        fn(event, detail)
+
+
+def note_signature(where: str, *tensors) -> None:
+    """Record a dispatcher call's signature; the first of each is an
+    event.  Callers test ``_LISTENERS`` first, so an unobserved dispatch
+    costs one empty-list test."""
+    sig = (where, tuple(tuple(t.shape) for t in tensors),
+           str(tensors[0].dtype), str(tensors[0].device))
+    if sig not in _SEEN:
+        _SEEN.add(sig)
+        notify(NEW_SIGNATURE_EVENT, f"{where}{list(sig[1])} {sig[2]} {sig[3]}")
+
+
+class CompileCounter:
+    """Live count of compile-standing events observed while registered."""
+
+    def __init__(self):
+        self.count = 0
+        self.events: list[str] = []
+
+    def __call__(self, event: str, detail: str = "") -> None:
+        self.count += 1
+        self.events.append(f"{event} {detail}".rstrip())
+
+
+@contextlib.contextmanager
+def count_compiles():
+    """Yield a :class:`CompileCounter` tracking events inside the block;
+    the listener is unregistered on exit."""
+    counter = CompileCounter()
+    _LISTENERS.append(counter)
+    try:
+        yield counter
+    finally:
+        _LISTENERS.remove(counter)
+
+
+@contextlib.contextmanager
+def assert_max_compiles(n: int, what: str = ""):
+    """Fail if the block triggers more than ``n`` compile-standing events.
+
+    Use after a warmup call when asserting steady-state behaviour."""
+    with count_compiles() as counter:
+        yield counter
+    if counter.count > n:
+        label = f" in {what}" if what else ""
+        raise AssertionError(
+            f"expected at most {n} compilation(s){label}, observed "
+            f"{counter.count} — a traced step is being retraced "
+            "(shape/dtype drift in its inputs or state pytree?): "
+            f"{counter.events}")

@@ -22,6 +22,7 @@ from mfm_tpu.obs import trace as ref_trace
 from mfm_tpu_torch.obs import manifest
 from mfm_tpu_torch.obs.trace import (
     chrome_trace_events,
+    export_spans_to_events,
     clock_offset_from_probe,
     drain_spans,
     end_span,
@@ -386,3 +387,66 @@ def test_sigkill_mid_trace_flush_leaves_no_torn_file(tmp_path):
     with open(path, encoding="utf-8") as fh:
         events = parse_chrome_trace(fh.read())
     assert [e["name"] for e in events] == ["cli.serve", "serve.request"]
+
+
+# -- the JSONL mirror of spans ------------------------------------------------
+
+def _events(path):
+    return [json.loads(x) for x in open(path, encoding="utf-8")]
+
+
+def test_export_spans_to_jsonl_events(tmp_path):
+    from mfm_tpu_torch.obs.exporters import (
+        EVENT_REQUIRED_KEYS,
+        route_events_to,
+    )
+
+    log = str(tmp_path / "events.jsonl")
+    with span("run", cmd="scenario"):
+        pass
+    route_events_to(log)
+    try:
+        assert export_spans_to_events() == 1
+    finally:
+        route_events_to(None)
+    (ev,) = _events(log)
+    for k in EVENT_REQUIRED_KEYS:
+        assert k in ev
+    assert ev["event"] == "span" and ev["name"] == "run"
+    assert ev["attr_cmd"] == "scenario"
+    assert len(ev["trace_id"]) == 32 and ev["dur_s"] >= 0.0
+
+
+def test_export_spans_to_events_matches_the_reference(tmp_path):
+    """The same spans mirrored by both packages give the same event lines,
+    the wall-clock ``ts`` aside; an explicit list and the debug level
+    too."""
+    from mfm_tpu.obs import exporters as ref_exporters
+    from mfm_tpu_torch.obs import exporters
+
+    with span("cli.risk", trace_id="ab" * 16, cmd="risk"):
+        with span("stage", name_attr="newey_west", dates=42, ok=True):
+            pass
+    sp = start_span("serve.request", request_id="q7")
+    end_span(sp, outcome="ok", batch=3)
+    open_span = start_span("still.open")   # dur_us None: exported as 0
+    done = spans() + [open_span]
+    lines = {}
+    for name, ex, fn in (("port", exporters, export_spans_to_events),
+                         ("ref", ref_exporters,
+                          ref_trace.export_spans_to_events)):
+        for level in ("info", "debug"):
+            path = str(tmp_path / f"{name}_{level}.jsonl")
+            ex.route_events_to(path, min_level="debug")
+            try:
+                assert fn(done, level=level) == 4
+            finally:
+                ex.route_events_to(None)
+            lines[name, level] = [{k: v for k, v in e.items() if k != "ts"}
+                                  for e in _events(path)]
+    assert lines["port", "info"] == lines["ref", "info"]
+    assert lines["port", "debug"] == lines["ref", "debug"]
+    first = lines["port", "info"][0]
+    assert first["level"] == "info" and first["attr_name_attr"] == \
+        "newey_west" and first["attr_dates"] == 42
+    assert lines["port", "info"][-1]["dur_s"] == 0.0
