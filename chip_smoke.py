@@ -108,12 +108,18 @@ to date a part a day, ``pipeline --append`` bitwise ``pipeline`` from
 scratch, ``risk --barra-store`` bitwise the cut run; ``factors
 --prepared`` bitwise ``run_factor_pipeline``; each process's launches).  Then the
 faults, in two phases: ``fault_matrix`` (``python -m
-mfm_tpu_torch.tools.faultinject``'s matrix in this process at CSI300
-width: the fenced checkpoint's byte faults, ``risk --update``
-subprocesses SIGKILLed at the write protocol's crash points, poisoned
-slabs under the carry-freeze contract, the retry drill, the coalescer's
-and the cache's lock schedules, steady-state on the compile-contract
-counter; every plan bitwise, the launches of each guarded append) and
+mfm_tpu_torch.tools.faultinject``'s matrix at CSI300 width, all 28 ported
+plans and steady-state: the plans bound by CLI subprocesses in four
+concurrent harness processes — ``risk --update``, ``serve``, ``scenario
+run``, ``scenario sweep``, ``grad sensitivity``, trace and
+flight-recorder processes SIGKILLed at their crash points, the cache's
+generation fence across a torn publish — the rest in this process
+meanwhile: the fenced checkpoint's byte faults, poisoned slabs under the
+carry-freeze contract, the retry drill, the coalescer's and the cache's
+lock schedules, the query plans, the scenario poison, steady-state on the
+compile-contract counter for the update and per bucket for the query
+loop; then the three fleet drills; every plan bitwise, the launches of
+each guarded append and completed subprocess) and
 ``report_crosscheck`` (``report`` over cli_risk's results against a
 numpy recomputation, ``--plot``, ``crosscheck --gate 0`` over the store's
 from-scratch and appended barra tables, and a copy with one value
@@ -198,6 +204,18 @@ def emit(tag: str, **fields):
 
 def sync():
     torch.cuda.synchronize()
+
+
+def fill_bytecode_cache() -> subprocess.Popen:
+    """Point every process this run starts at one bytecode cache in the
+    checkout (``build/pycache``, with writing on) and start one process
+    that imports the CLI, which compiles torch's modules into it once;
+    the caller waits for it.  The outputs of no command change."""
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(ROOT / "build" / "pycache")
+    return subprocess.Popen([sys.executable, "-c", "import mfm_tpu_torch.cli"],
+                            cwd=ROOT, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
 
 
 def time_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -5141,103 +5159,293 @@ def store_pipeline_phase(ctx) -> dict:
 #: the recovery matrix at CSI300 width: a 1378-date history, three 4-date
 #: slabs, the reference demo's 100 draws
 FAULT_GEOMETRY = dict(T=1390, hist=1378, slab=4, N=300, P=31, Q=10, sims=100)
-FAULT_PORTED = 13
-FAULT_NOT_PORTED = 16
+FAULT_PORTED = 28
+FAULT_NOT_PORTED = 1
+#: the plans bound by CLI subprocesses, run as concurrent ``python -m
+#: mfm_tpu_torch.tools.faultinject --plans <group>`` processes, each group
+#: one plan after another inside, balanced by the plans' walls with four
+#: groups on the card; six groups took longer (the host's throughput
+#: bounds the sum of the walls, PERF.md §5)
+FAULT_GROUPS = (
+    ("eigen-kill-mid-update", "trace-kill-mid-flush", "kill-after-rename"),
+    ("cache-stale-generation", "grad-kill-mid-solve", "kill-after-tmp"),
+    ("sweep-kill-mid-stream", "flightrec-kill-mid-dump"),
+    ("scenario-kill-mid-batch", "kill-at-manifest", "query-kill-mid-batch"),
+)
+#: the fleet drills, one harness process: alongside the groups only on a
+#: host with the cores (their heartbeat timeout is 1 s, and a starved idle
+#: worker would be falsely wedged), else after them, one drill after
+#: another while this process runs ``meanwhile``
+FAULT_FLEET = ("fleet-kill-replica", "fleet-kill-host", "fleet-wedge-worker")
+#: processes of the fleet drills alive at once: the harness, the front
+#: end, its four workers at most (fleet-kill-host) and the replay
+FAULT_FLEET_PROCS = 7
+#: the subprocesses each plan's runner SIGKILLs at a crash point
+FAULT_KILLS = {
+    "kill-after-tmp": 1, "kill-after-rename": 1, "kill-at-manifest": 1,
+    "eigen-kill-mid-update": 1, "query-kill-mid-batch": 1,
+    "scenario-kill-mid-batch": 1, "sweep-kill-mid-stream": 1,
+    "grad-kill-mid-solve": 1, "trace-kill-mid-flush": 1,
+    "flightrec-kill-mid-dump": 1, "cache-stale-generation": 1,
+    "fleet-kill-replica": 1, "fleet-kill-host": 2, "fleet-wedge-worker": 0}
+#: the eigh launches each completed subprocess of a plan shows, in the
+#: runner's order: "both" (a ``risk --update``: the weighted kernel and
+#: the full one, for F0 and the pseudo-inverse), "full" (the PSD gate of
+#: ``scenario run`` / ``sweep``, ``eigh_diff``'s forward in ``grad
+#: sensitivity``), "none" (query serving, the flight-recorder driver); a
+#: fleet drill's processes (its front end, each worker that wrote its
+#: shard, the single-process replay) all "none"
+FAULT_SUBPROCESS_KERNELS = {
+    "kill-at-manifest": ["both"], "eigen-kill-mid-update": ["both"],
+    "query-kill-mid-batch": ["none"],
+    "scenario-kill-mid-batch": ["full", "full"],
+    "sweep-kill-mid-stream": ["full", "full"],
+    "grad-kill-mid-solve": ["full"], "trace-kill-mid-flush": ["both"],
+    "flightrec-kill-mid-dump": ["none", "both"],
+    "cache-stale-generation": ["both", "none", "none"]}
 
 
-def fault_matrix_phase(ctx) -> dict:
-    """Phase fault_matrix: ``python -m mfm_tpu_torch.tools.faultinject``'s
-    ``main`` in this process on the card at CSI300 width (FAULT_GEOMETRY,
-    float32): every ported plan of ``plan_suite`` and steady-state must
-    pass — the byte faults refused and replayed bitwise, the ``risk
-    --update`` subprocesses SIGKILLed at their crash points and the fence's
-    recovery bitwise, the poisoned dates quarantined with the carry-freeze
-    contract bitwise, the retry schedule, the schedule drills over the
-    serving engine on the card at the reference's parameters, and no
-    compile-contract event after the warmup.  Each plan's record goes on a
-    line.  Launches: this process's, counted from 0 just before the run;
-    the full kernel in every guarded append and completed subprocess, the
-    weighted kernel in the baseline's rebuild and in the incremental-eigen
-    plan's rebuild and update."""
+def _fault_argv(plans, out) -> list:
+    argv = ["--device", "cuda", "--plans", ",".join(plans), "--out", out]
+    for k, v in FAULT_GEOMETRY.items():
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+def _fault_in_process(plans, out) -> tuple:
+    """``faultinject.main`` over ``plans`` in this process: (rc, report,
+    wall)."""
     import contextlib
     import io
 
-    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
     from mfm_tpu_torch.tools import faultinject as fi
 
-    path = os.path.join(ctx["tmp"], "faults.json")
-    argv = ["--device", "cuda", "--out", path]
-    for k, v in FAULT_GEOMETRY.items():
-        argv += [f"--{k}", str(v)]
-    sync()
-    reset_launches()
-    buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = fi.main(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = fi.main(_fault_argv(plans, out))
     sync()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
-    with open(path) as fh:
-        rep = json.load(fh)
-    summary, results = rep["summary"], rep["results"]
-    big = ("append_launches", "pointer", "error")
+    with open(out) as fh:
+        return rc, json.load(fh), wall
+
+
+def _fault_subprocess_launch_check(name: str, launches: list) -> None:
+    want = FAULT_SUBPROCESS_KERNELS.get(name)
+    if want is None:   # a fleet drill: every process launches none
+        require(len(launches) >= 2, f"fault_matrix {name}: "
+                f"{len(launches)} completed processes reported launches")
+        want = ["none"] * len(launches)
+    require(len(launches) == len(want), f"fault_matrix {name}: "
+            f"{len(launches)} completed subprocesses (want {len(want)})")
+    for i, (got, kind) in enumerate(zip(launches, want)):
+        what = f"fault_matrix {name} subprocess {i}"
+        if kind == "both":
+            require_launches(got, what, 1, 1)
+        elif kind == "full":
+            require_launches(got, what, 0, 1)
+            require(got["jacobi_eigh_weighted/warp"] == 0,
+                    f"{what}: the weighted kernel launched: {got}")
+        else:
+            require(not any(got.values()), f"{what} launched a kernel: "
+                    f"{got}")
+
+
+def fault_matrix_phase(ctx, meanwhile=None) -> dict:
+    """Phase fault_matrix: ``python -m mfm_tpu_torch.tools.faultinject``
+    on the card at CSI300 width (FAULT_GEOMETRY, float32, guarded): every
+    ported plan of ``plan_suite`` (28, ``shard-kill-mid-append`` listed as
+    not ported) and steady-state must pass.  The plans bound by CLI
+    subprocesses run in FAULT_GROUPS, one harness process per group, all
+    at once: the ``risk --update`` processes SIGKILLed at the checkpoint's
+    and the manifest's crash points with the fence's recovery bitwise, the
+    ``serve``, ``scenario run``, ``scenario sweep``, ``grad sensitivity``,
+    trace and flight-recorder processes SIGKILLed at theirs with no torn
+    file and the replay bitwise, the cache's generation fence across a
+    torn publish.  Meanwhile this process runs the rest: the byte faults,
+    the poisoned slabs under the carry-freeze contract, the retry drill,
+    the schedule drills, both steady states, the query plans on the card
+    (dead letters, the shed order, the hot swap's breaker) and the
+    scenario poison's lane isolation.  Then the three fleet drills in one
+    more harness process, after the groups unless the host has the cores
+    to run them alongside, while this process runs ``meanwhile`` (phase
+    report_crosscheck): a replica SIGKILLed mid-drain, a simulated host
+    killed with a worker wedged, a worker wedged — every id bitwise the
+    single-process replay, the manifest's audit balanced.  Each plan's
+    record goes on a line, each group's wall on one.  ``query-steady-state`` must add no
+    compile-contract event after its warmup (printed) and one batch at a
+    bucket the process has not served exactly one.  Launches: each
+    harness process's own, counted from 0 (this process's just before its
+    runs); the full kernel in every guarded append and each completed
+    ``risk --update`` with the weighted one, the full kernel alone in each
+    completed ``scenario run`` / ``sweep`` / ``grad sensitivity``, none in
+    the query and fleet processes; each plan's go in the ``kernels``
+    line."""
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+    from mfm_tpu_torch.tools import faultinject as fi
+    from mfm_tpu_torch.utils.chaos import plan_suite
+
+    suite = plan_suite(0)
+    ported = [p.name for p in suite if p.kind not in fi.NOT_PORTED_KINDS]
+    not_ported = [p.name for p in suite if p.kind in fi.NOT_PORTED_KINDS]
+    grouped = {n for g in FAULT_GROUPS for n in g}
+    local = [n for n in ported
+             if n not in grouped and n not in FAULT_FLEET] + ["steady-state"]
+    alive_groups = 2 * len(FAULT_GROUPS) + 1
+    alive_with_fleet = alive_groups + FAULT_FLEET_PROCS
+    cores = os.cpu_count() or 1
+    fleet_alongside = cores >= 4 * alive_with_fleet
+
+    def start(plans, tag):
+        out = os.path.join(ctx["tmp"], f"faults_{tag}.json")
+        log = open(os.path.join(ctx["tmp"], f"faults_{tag}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mfm_tpu_torch.tools.faultinject",
+             *_fault_argv(plans, out)], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT, text=True)
+        rec = {"tag": tag, "plans": list(plans), "out": out, "log": log.name,
+               "proc": proc, "t0": time.perf_counter()}
+
+        def wait():
+            proc.wait()
+            rec["wall_s"] = time.perf_counter() - rec["t0"]
+            log.close()
+        rec["waiter"] = threading.Thread(target=wait, daemon=True)
+        rec["waiter"].start()
+        return rec
+
+    sync()
+    t0 = time.perf_counter()
+    groups = [start(g, f"g{i}") for i, g in enumerate(FAULT_GROUPS)]
+    if fleet_alongside:
+        groups.append(start(FAULT_FLEET, "fleet"))
+    reports = {}
+    group_s = meanwhile_s = None
+    try:
+        reset_launches()
+        rc, reports["in_process"], local_wall = _fault_in_process(
+            local, os.path.join(ctx["tmp"], "faults_local.json"))
+        launches = launch_counts()
+        require(rc == 0, "fault_matrix: in-process plans failed: "
+                f"{reports['in_process']['summary']['failed']}")
+
+        def join(gs):
+            for g in gs:
+                g["waiter"].join(timeout=900)
+                require(not g["waiter"].is_alive(),
+                        f"fault_matrix: group {g['tag']} ran past 900 s")
+        join(groups)
+        group_s = time.perf_counter() - t0
+        if not fleet_alongside:
+            groups.append(start(FAULT_FLEET, "fleet"))
+        if meanwhile is not None:
+            t1 = time.perf_counter()
+            meanwhile()
+            meanwhile_s = time.perf_counter() - t1
+        join(groups)
+    finally:
+        for g in groups:
+            if g["proc"].poll() is None:
+                g["proc"].kill()
+                g["proc"].wait()
+    for g in groups:
+        ok = g["proc"].returncode == 0 and os.path.exists(g["out"])
+        if not ok:
+            with open(g["log"]) as fh:
+                tail = fh.read()[-3000:]
+            require(False, f"fault_matrix: group {g['tag']} {g['plans']} "
+                    f"exited {g['proc'].returncode}:\n{tail}")
+        with open(g["out"]) as fh:
+            reports[g["tag"]] = json.load(fh)
+        emit("fault_group", group=g["tag"], plans=g["plans"],
+             wall_s=g["wall_s"], rc=g["proc"].returncode,
+             baseline_wall_s=reports[g["tag"]]["summary"]["baseline_wall_s"])
+    wall = time.perf_counter() - t0
+
+    results = [r for rep in reports.values() for r in rep["results"]]
+    big = ("append_launches", "pointer", "error", "subprocess_launches")
     for r in results:
         emit("fault_plan", **{k: v for k, v in r.items() if k not in big},
              appends=len(r["append_launches"]),
              append_full_min=min((a["jacobi_eigh/warp"]
                                   for a in r["append_launches"]), default=None),
+             subprocesses=len(r.get("subprocess_launches", [])),
              error=r.get("error", "")[:400])
     by = {r["plan"]: r for r in results}
     failed = [r["plan"] for r in results if r["status"] != "pass"]
-    killed = {n: by[n].get("killed_subprocesses") for n in
-              ("kill-after-tmp", "kill-after-rename", "kill-at-manifest",
-               "eigen-kill-mid-update")}
-    appends = summary["baseline_append_launches"] + [
+    killed = {n: by[n].get("killed_subprocesses") for n in FAULT_KILLS
+              if n in by}
+    appends = [a for rep in reports.values()
+               for a in rep["summary"]["baseline_append_launches"]] + [
         a for r in results for a in r["append_launches"]]
-    subprocess_launches = [s for r in results
-                           for s in r.get("subprocess_launches", [])]
+    subprocess_launches = {r["plan"]: r["subprocess_launches"]
+                           for r in results if "subprocess_launches" in r}
     eigen = by["eigen-kill-mid-update"]
-    res = {"wall_s": wall, "rc": rc, "geometry": summary["geometry"],
-           "plans": summary["plans"], "failed": failed,
-           "not_ported": len(summary["not_ported"]),
-           "baseline_wall_s": summary["baseline_wall_s"],
+    qs = by["query-steady-state"]
+    res = {"wall_s": wall, "groups_and_local_s": group_s,
+           "in_process_s": local_wall, "meanwhile_s": meanwhile_s,
+           "cpu_count": cores, "processes_alive_with_fleet": alive_with_fleet,
+           "fleet_alongside": fleet_alongside,
+           "group_wall_s": {g["tag"]: g["wall_s"] for g in groups},
+           "geometry": {t: rep["summary"]["geometry"]
+                        for t, rep in reports.items()},
+           "plans": len(results), "failed": failed,
+           "not_ported": not_ported,
+           "baseline_wall_s": {t: rep["summary"]["baseline_wall_s"]
+                               for t, rep in reports.items()},
            "plan_wall_s": {r["plan"]: r["wall_s"] for r in results},
            "killed_by_sigkill": killed,
            "steady_state_compiles": by["steady-state"].get("compiles"),
            "steady_state_warmup_compiles":
                by["steady-state"].get("warmup_compiles"),
+           "query_steady_compiles": qs.get("compiles"),
+           "query_steady_warmup_compiles": qs.get("warmup_compiles"),
+           "query_new_bucket": qs.get("new_bucket"),
+           "query_new_bucket_compiles": qs.get("new_bucket_compiles"),
            "launches": launches,
-           "baseline_init_launches": summary["baseline_init_launches"],
+           "baseline_init_launches": {
+               t: rep["summary"]["baseline_init_launches"]
+               for t, rep in reports.items()},
            "guarded_appends": len(appends),
            "append_full_min": min(a["jacobi_eigh/warp"] for a in appends),
            "eigen_init_launches": eigen.get("init_launches"),
            "eigen_append_launches": eigen["append_launches"],
+           "plan_launches": {r["plan"]: r["launches"] for r in results},
            "subprocess_launches": subprocess_launches}
     emit("fault_matrix", **res)
-    require(rc == 0 and not failed, f"fault_matrix: plans failed: {failed}")
-    require(summary["plans"] == FAULT_PORTED + 1
-            and res["not_ported"] == FAULT_NOT_PORTED
-            and summary["geometry"] == FAULT_GEOMETRY,
-            f"fault_matrix: ran {summary['plans']} plans, listed "
-            f"{res['not_ported']} as not ported, at {summary['geometry']}")
-    require(all(v == 1 for v in killed.values()),
-            f"fault_matrix: a kill plan's subprocess count: {killed}")
+    require(not failed, f"fault_matrix: plans failed: {failed}")
+    require(sorted(by) == sorted(ported + ["steady-state"])
+            and len(results) == FAULT_PORTED + 1
+            and len(not_ported) == FAULT_NOT_PORTED
+            and all(g == FAULT_GEOMETRY for g in res["geometry"].values()),
+            f"fault_matrix: ran {sorted(by)}, {len(not_ported)} not ported, "
+            f"at {res['geometry']}")
+    require(killed == FAULT_KILLS,
+            f"fault_matrix: the plans' SIGKILLed subprocesses: {killed}")
     require(res["steady_state_compiles"] == 0,
             f"fault_matrix: steady state added "
             f"{res['steady_state_compiles']} compile-contract events")
-    require_launches(summary["baseline_init_launches"],
-                     "fault_matrix baseline rebuild", 1, 1)
+    require(res["query_steady_compiles"] == 0
+            and res["query_new_bucket_compiles"] == 1,
+            f"fault_matrix: the query loop added "
+            f"{res['query_steady_compiles']} events after its warmup, the "
+            f"new bucket {res['query_new_bucket_compiles']} (want 0, 1)")
+    for t, init in res["baseline_init_launches"].items():
+        require_launches(init, f"fault_matrix {t} baseline rebuild", 1, 1)
     require_launches(eigen["init_launches"],
                      "fault_matrix eigen-kill rebuild", 1, 1)
     for a in eigen["append_launches"]:
         require_launches(a, "fault_matrix eigen-kill incremental update",
                          1, 1)
-    for a in appends + subprocess_launches:
+    for a in appends:
         require_launches(a, "fault_matrix guarded append", 0, 1)
-    require(len(subprocess_launches) == 2,
-            f"fault_matrix: {len(subprocess_launches)} completed "
-            "subprocess updates (want 2)")
+    for name, subs in subprocess_launches.items():
+        _fault_subprocess_launch_check(name, subs)
+    for n in ("query-kill-mid-batch", "query-poison-slab",
+              "query-overflow-storm", "query-ckpt-swap",
+              "query-steady-state", *FAULT_FLEET):
+        require(not any(by[n]["launches"].values()),
+                f"fault_matrix: {n}'s harness launched a kernel: "
+                f"{by[n]['launches']}")
     return res
 
 
@@ -6177,6 +6385,12 @@ def main() -> int:
         marks.append((name, time.perf_counter()))
 
     # -- phase 1: device and build --------------------------------------
+    # every Python process this run starts shares one bytecode cache under
+    # build/ (the card's host ships torch without bytecode and sets
+    # PYTHONDONTWRITEBYTECODE: each process would compile torch's ~1,100
+    # modules again, ~7 s, PERF.md §5); one process fills it while the
+    # kernels build
+    pycache = fill_bytecode_cache()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -6185,7 +6399,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
     libs = _build.build_all()
+    pycache.wait(timeout=600)
     emit("build", seconds=time.perf_counter() - t0,
+         bytecode_cache_rc=pycache.returncode,
          libraries=sorted(p.name for p in libs.values()),
          torch=torch.__version__, cuda=torch.version.cuda)
     ptxas = ptxas_table(_build)
@@ -6410,9 +6626,10 @@ def main() -> int:
     # -- phase 11d: faults — the recovery matrix at CSI300 width, report and
     # crosscheck over the results the CLI and store sections left ------------
     sctx["report_inputs"] = report_inputs
-    fault = fault_matrix_phase(sctx)
+    # report_crosscheck runs in this process while the fleet drills run
+    fault = fault_matrix_phase(
+        sctx, meanwhile=lambda: report_crosscheck_phase(sctx))
     torch.cuda.empty_cache()
-    report_crosscheck_phase(sctx)
     scratch.cleanup()
     cli_scratch.cleanup()
     del sctx, report_inputs
@@ -6575,9 +6792,12 @@ def main() -> int:
                                    for k, v in store_launches.items()},
                 "fault_launches": {
                     "harness_in_process": fault["launches"][f"{name}/warp"],
-                    "completed_update_subprocesses": [
-                        s[f"{name}/warp"]
-                        for s in fault["subprocess_launches"]]},
+                    "per_plan": {
+                        p: {"harness": n[f"{name}/warp"],
+                            "subprocesses": [
+                                s[f"{name}/warp"] for s in
+                                fault["subprocess_launches"].get(p, [])]}
+                        for p, n in fault["plan_launches"].items()}},
                 **serve[key], **alla_entry(name, key)}
 
     kernels = [

@@ -2300,7 +2300,8 @@ def _scenario(args):
                       "n_ok": manifest["n_ok"],
                       "n_rejected": manifest["n_rejected"],
                       "n_psd_projected": manifest["n_psd_projected"],
-                      "trace_id": root.trace_id},
+                      "trace_id": root.trace_id,
+                      "kernels": _kernel_block()},
                      indent=1), file=sys.stderr)
     if manifest["n_ok"] == 0:
         raise SystemExit(1)
@@ -2384,7 +2385,8 @@ def _scenario_sweep(args):
     _metrics_flush(args)
     print(json.dumps({"manifest": mpath, "counts": result.counts,
                       "sampler": result.sampler,
-                      "trace_id": root.trace_id},
+                      "trace_id": root.trace_id,
+                      "kernels": _kernel_block()},
                      indent=1), file=sys.stderr)
     if result.counts["n_ok"] == 0:
         raise SystemExit(1)
@@ -2539,7 +2541,8 @@ def _grad(args):
     _metrics_flush(args)
     print(json.dumps({"report": rpath, "grad_kind": kind,
                       "n_entries": len(entries), "n_failed": failed,
-                      "trace_id": root.trace_id},
+                      "trace_id": root.trace_id,
+                      "kernels": _kernel_block()},
                      indent=1), file=sys.stderr)
     if entries and failed == len(entries):
         raise SystemExit(1)

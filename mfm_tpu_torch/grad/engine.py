@@ -35,6 +35,7 @@ from mfm_tpu_torch.grad.sensitivity import sensitivity_batch
 from mfm_tpu_torch.scenario.engine import ScenarioEngine
 from mfm_tpu_torch.scenario.spec import ScenarioSpec, validate_spec
 from mfm_tpu_torch.serve.query import bucket_for
+from mfm_tpu_torch.utils import contracts
 
 #: default solver knobs, pinned here so serve, the smoke run and the
 #: tests agree on one steady state
@@ -333,6 +334,13 @@ class GradEngine:
             x, vol, diag = (o[:P].cpu().numpy() for o in outs)
             return {"weights": x, "vols": vol, "diag": diag}
 
+        def padded(*arrays):
+            ops = tuple(self._put(a) for a in arrays)
+            if contracts._LISTENERS:
+                contracts.note_bucket(f"{contracts.CONSTRUCT_SOLVE}/{solver}",
+                                      *ops)
+            return ops
+
         if solver == "hedge":
             xs0 = np.zeros((B, self.K), self.dtype)
             xs0[:P] = W
@@ -341,9 +349,10 @@ class GradEngine:
                 mask[:P] = 1.0
             else:
                 mask[:P] = np.asarray(hedge_mask, self.dtype)
+            x0, m = padded(xs0, mask)
             xt, h, vol = hedge_batch(
-                self._put(xs0), self._put(np.zeros((B, self.K))), cov,
-                self._put(mask), self._scalar(hmax),
+                x0, self._put(np.zeros((B, self.K))), cov,
+                m, self._scalar(hmax),
                 self._scalar(HEDGE_ETA if eta is None else eta),
                 HEDGE_STEPS if steps is None else int(steps))
             return host(xt, vol, h)
@@ -362,15 +371,16 @@ class GradEngine:
                            0.9 * pos / np.maximum(sums, 1e-300)
                            + 0.1 * uniform,
                            uniform)
+        x0, = padded(xs0)
         if solver == "min_vol":
             lo_v = np.zeros(self.K) if lo is None else lo
             hi_v = np.ones(self.K) if hi is None else hi
             return host(*minvol_batch(
-                self._put(xs0), cov, self._put(lo_v), self._put(hi_v),
+                x0, cov, self._put(lo_v), self._put(hi_v),
                 self._scalar(MINVOL_ETA if eta is None else eta),
                 MINVOL_STEPS if steps is None else int(steps)))
         return host(*riskparity_batch(
-            self._put(xs0), cov,
+            x0, cov,
             self._scalar(RISKPARITY_ETA if eta is None else eta),
             RISKPARITY_STEPS if steps is None else int(steps)))
 

@@ -42,6 +42,7 @@ from mfm_tpu_torch.obs import instrument as _obs
 from mfm_tpu_torch.scenario.kernel import scenario_batch
 from mfm_tpu_torch.scenario.spec import ScenarioSpec, validate_spec
 from mfm_tpu_torch.serve.query import bucket_for
+from mfm_tpu_torch.utils import contracts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,9 +261,12 @@ class ScenarioEngine:
         base_vols = np.sqrt(np.maximum(
             np.diagonal(base[:S], axis1=1, axis2=2), 0)).astype(self.dtype)
         t0 = time.perf_counter()
-        covs, projected, min_eig = scenario_batch(
-            base_t, self._put(shift), self._put(scale), self._put(vol_mult),
-            self._put(corr_beta), self._put(passthrough))
+        ops = (base_t, self._put(shift), self._put(scale),
+               self._put(vol_mult), self._put(corr_beta),
+               self._put(passthrough))
+        if contracts._LISTENERS:
+            contracts.note_bucket(contracts.SCENARIO_BATCH, *ops)
+        covs, projected, min_eig = scenario_batch(*ops)
         # crop to the true S before the host copy (the pad never ships);
         # the copies end the device work, so the histogram measures
         # compute, not enqueue

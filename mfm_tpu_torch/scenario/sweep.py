@@ -66,6 +66,7 @@ from mfm_tpu_torch.scenario.kernel import (
 )
 from mfm_tpu_torch.scenario.spec import PRESETS, ScenarioSpec, validate_spec
 from mfm_tpu_torch.serve.query import bucket_for
+from mfm_tpu_torch.utils import contracts
 from mfm_tpu_torch.utils.chaos import chaos_point
 
 #: a (base, corr_beta-level) pair certifies PSD only when the stressed
@@ -696,9 +697,12 @@ class SweepEngine:
             ident = np.concatenate([ident, np.zeros(pad, bool)])
         state["chunks"] += 1
         put = self._put
-        return sweep_chunk(carry, dev["lib"], dev["xs"], put(th), put(row),
-                           put(src), put(clean), put(reject),
-                           put(ident & clean), dev["lo"], dev["width"])
+        ops = (put(th), put(row), put(src), put(clean), put(reject),
+               put(ident & clean))
+        if contracts._LISTENERS:
+            contracts.note_bucket(contracts.SWEEP_CHUNK, *ops)
+        return sweep_chunk(carry, dev["lib"], dev["xs"], *ops, dev["lo"],
+                           dev["width"])
 
     def _flush_offenders(self, carry, dev, state, m):
         """Run m buffered offender lanes through the EXACT serving path

@@ -53,6 +53,7 @@ import torch
 from mfm_tpu_torch._device import resolve_device
 from mfm_tpu_torch.data.artifacts import _numpy
 from mfm_tpu_torch.ops.xreg import _rowdot
+from mfm_tpu_torch.utils import contracts
 
 #: bucket ladder: base * growth**k (k = 0, 1, ...).  Geometric, so padding
 #: waste is bounded by ``growth``x and a 1e6-portfolio batch still only
@@ -289,6 +290,8 @@ class QueryEngine:
         times the device step alone).
         """
         w, bidx, B, bucket = self.pad_batch(weights, bench, bucket)
+        if contracts._LISTENERS:
+            contracts.note_bucket(contracts.QUERY_BATCH, w, bidx)
         if bucket <= self.chunk:
             out = self._rows(w, bidx)
         else:

@@ -13,16 +13,26 @@ The reference counts JAX lowerings.  The port runs eager torch and has no
 lowering to count, so it counts the events that stand in a lowering's
 place:
 
-- a build or load of a kernel library (``ops/_build.py``);
+- a build or load of a kernel library (``ops/_build.py``):
+  :data:`KERNEL_BUILD_EVENT`, :data:`KERNEL_LOAD_EVENT`;
 - the first call of a ``(shape, dtype, device)`` signature at the eigh
-  dispatchers (``ops/eigh.batched_eigh``, ``batched_eigh_weighted_diag``).
+  dispatchers (``ops/eigh.batched_eigh``, ``batched_eigh_weighted_diag``):
+  :data:`NEW_SIGNATURE_EVENT`;
+- the first padded-operand signature of a bucketed serving entry point,
+  where the reference compiles once per bucket:
+  :data:`BUCKET_SIGNATURE_EVENT`, at ``QueryEngine``'s batch step
+  (:data:`QUERY_BATCH`), ``ScenarioEngine``'s batch kernel
+  (:data:`SCENARIO_BATCH`), ``SweepEngine``'s chunk (:data:`SWEEP_CHUNK`)
+  and the construct solve a served ``construct`` line runs
+  (:data:`CONSTRUCT_SOLVE`, one signature per solver).
 
 A state that drifts in shape shows up as a new signature, as in JAX it
-shows up as a retrace.  Signatures are recorded only while a listener is
-registered — with none, a dispatch pays one empty-list test — so a warmup
-that should make the steady state free runs under :func:`count_compiles`
-too (as a JAX warmup compiles).  A signature recorded once stays
-recorded for the process, like a jit cache entry.
+shows up as a retrace; so does a serving batch that escapes its bucket.
+Signatures are recorded only while a listener is registered — with none,
+a call pays one empty-list test — so a warmup that should make the
+steady state free runs under :func:`count_compiles` too (as a JAX warmup
+compiles).  A signature recorded once stays recorded for the process,
+like a jit cache entry.
 
 The reference's ``no_tracer_leaks`` wraps ``jax.checking_leaks``; eager
 torch has no tracers to leak, so it has no counterpart here.
@@ -37,6 +47,13 @@ import contextlib
 KERNEL_BUILD_EVENT = "/mfm_tpu_torch/ops/build"
 KERNEL_LOAD_EVENT = "/mfm_tpu_torch/ops/load"
 NEW_SIGNATURE_EVENT = "/mfm_tpu_torch/ops/eigh/new_signature"
+BUCKET_SIGNATURE_EVENT = "/mfm_tpu_torch/serve/bucket/new_signature"
+
+#: the bucketed serving entry points, as they name their signatures
+QUERY_BATCH = "QueryEngine.query"
+SCENARIO_BATCH = "ScenarioEngine.run"
+SWEEP_CHUNK = "SweepEngine.chunk"
+CONSTRUCT_SOLVE = "GradEngine.construct_solve"
 
 #: registered listeners; only :func:`count_compiles` adds to it
 _LISTENERS: list = []
@@ -50,15 +67,27 @@ def notify(event: str, detail: str = "") -> None:
         fn(event, detail)
 
 
-def note_signature(where: str, *tensors) -> None:
+def signature_of(where: str, *tensors) -> tuple:
+    """The signature :func:`note_signature` records for this call."""
+    return (where, tuple(tuple(t.shape) for t in tensors),
+            str(tensors[0].dtype), str(tensors[0].device))
+
+
+def note_signature(where: str, *tensors,
+                   event: str = NEW_SIGNATURE_EVENT) -> None:
     """Record a dispatcher call's signature; the first of each is an
-    event.  Callers test ``_LISTENERS`` first, so an unobserved dispatch
-    costs one empty-list test."""
-    sig = (where, tuple(tuple(t.shape) for t in tensors),
-           str(tensors[0].dtype), str(tensors[0].device))
+    ``event``.  Callers test ``_LISTENERS`` first, so an unobserved
+    dispatch costs one empty-list test."""
+    sig = signature_of(where, *tensors)
     if sig not in _SEEN:
         _SEEN.add(sig)
-        notify(NEW_SIGNATURE_EVENT, f"{where}{list(sig[1])} {sig[2]} {sig[3]}")
+        notify(event, f"{where}{list(sig[1])} {sig[2]} {sig[3]}")
+
+
+def note_bucket(where: str, *tensors) -> None:
+    """:func:`note_signature` for a bucketed serving entry point's padded
+    operands (:data:`BUCKET_SIGNATURE_EVENT`)."""
+    note_signature(where, *tensors, event=BUCKET_SIGNATURE_EVENT)
 
 
 class CompileCounter:

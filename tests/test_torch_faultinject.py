@@ -1,11 +1,13 @@
 """The port's recovery matrix (``python -m mfm_tpu_torch.tools.faultinject``)
 on the CPU at the reference's geometry (44 dates, a 32-date history, three
 4-date slabs, 20 stocks, 3 industries, 2 styles, 8 draws): every ported
-plan of ``plan_suite`` passes — their contracts are bitwise — and so does
-steady-state; a sabotaged run fails (a corrupted checkpoint that a loader
-lets through, a poisoned date the guard lets through), so the harness is
-not vacuous; the plans not ported yet are listed by name and ROADMAP item,
-not run, and asking for one exits non-zero.
+plan of the risk path's checkpoint passes — their contracts are bitwise —
+and so does steady-state; a sabotaged run fails (a corrupted checkpoint
+that a loader lets through, a poisoned date the guard lets through), so the
+harness is not vacuous; the plan not ported yet is listed by name and
+ROADMAP item, not run, and asking for it exits non-zero.  The serving
+surfaces' plans run in ``test_torch_faultinject_service.py`` and
+``test_torch_faultinject_fleet.py``.
 """
 
 import json
@@ -20,7 +22,8 @@ from mfm_tpu_torch.tools import faultinject as fi
 from mfm_tpu_torch.utils.chaos import plan_suite
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORTED = [p for p in plan_suite(0) if p.kind in fi.RUNNERS]
+PORTED = [p for p in plan_suite(0)
+          if p.kind in fi.RUNNERS and p.kind not in fi.SERVICE_KINDS]
 
 
 @pytest.fixture(scope="module")
@@ -47,6 +50,11 @@ def test_the_ported_plans_are_the_risk_path_plans():
     kinds = {p.kind for p in plan_suite(0)}
     assert kinds == set(fi.RUNNERS) | set(fi.NOT_PORTED_KINDS)
     assert not set(fi.RUNNERS) & set(fi.NOT_PORTED_KINDS)
+    # the other 15 ported plans are the serving surfaces'; only the
+    # mesh's plan is left
+    assert fi.SERVICE_KINDS <= set(fi.RUNNERS)
+    assert len([p for p in plan_suite(0) if p.kind in fi.RUNNERS]) == 28
+    assert fi.NOT_PORTED_KINDS == {"shard_kill": "§A 16"}
 
 
 @pytest.mark.parametrize("plan", PORTED, ids=[p.name for p in PORTED])
@@ -110,7 +118,7 @@ def test_sabotage_poisoned_date_not_quarantined_fails(harness, monkeypatch):
 def test_main_lists_the_plans_not_ported(tmp_path, monkeypatch, capsys):
     """A default run runs every ported plan and steady-state and lists the
     rest with their ROADMAP items (the runners stubbed: the plans
-    themselves run above)."""
+    themselves run above and in the service and fleet files)."""
     ran = []
     monkeypatch.setattr(fi, "RUNNERS", {
         k: (lambda plan, base, root: ran.append(plan.name) or {})
@@ -120,27 +128,36 @@ def test_main_lists_the_plans_not_ported(tmp_path, monkeypatch, capsys):
     out = tmp_path / "f.json"
     assert fi.main(["--device", "cpu", "--out", str(out)]) == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert sorted(ran) == sorted([p.name for p in PORTED] + ["steady-state"])
-    assert summary["plans"] == 14 and summary["failed"] == []
+    every = [p.name for p in plan_suite(0) if p.kind in fi.RUNNERS]
+    assert sorted(ran) == sorted(every + ["steady-state"])
+    assert summary["plans"] == 29 and summary["failed"] == []
     listed = {r["plan"]: r["roadmap"] for r in summary["not_ported"]}
-    assert len(listed) == 16
-    assert listed["shard-kill-mid-append"] == "§A 16"
-    assert listed["query-kill-mid-batch"] == "§A 20"
-    assert set(listed.values()) == {"§A 16", "§A 20"}
+    assert listed == {"shard-kill-mid-append": "§A 16"}
     assert json.loads(out.read_text())["summary"] == summary
 
 
-@pytest.mark.parametrize("name,item", [("query-steady-state", "§A 20"),
-                                       ("fleet-kill-host", "§A 20"),
+@pytest.mark.parametrize("name,item", [("query-steady-state", None),
+                                       ("fleet-kill-host", None),
                                        ("shard-kill-mid-append", "§A 16")])
-def test_asking_for_an_unported_plan_exits_naming_its_item(name, item):
+def test_asking_for_an_unported_plan_exits_naming_its_item(name, item,
+                                                           tmp_path):
+    """The mesh's plan exits naming its item; the two plans this case
+    asked for before they were ported now run by name and pass."""
+    out = tmp_path / "r.json"
     proc = subprocess.run(
         [sys.executable, "-m", "mfm_tpu_torch.tools.faultinject",
-         "--device", "cpu", "--plans", f"nan-slab,{name}"],
-        cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
-    assert name in proc.stderr and f"ROADMAP.md {item}" in proc.stderr
-    assert "not ported" in proc.stderr
+         "--device", "cpu", "--plans", f"nan-slab,{name}", "--out",
+         str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    if item is not None:
+        assert proc.returncode != 0
+        assert name in proc.stderr and f"ROADMAP.md {item}" in proc.stderr
+        assert "not ported" in proc.stderr
+        return
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    rep = json.loads(out.read_text())
+    assert [r["plan"] for r in rep["results"]] == ["nan-slab", name]
+    assert all(r["status"] == "pass" for r in rep["results"])
 
 
 def test_cli_runs_a_chosen_plan(tmp_path):
