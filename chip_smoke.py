@@ -442,12 +442,15 @@ def profile_run(fn, top: int = 6) -> dict:
                     for e in rows[:top]]}
 
 
-def bound(B, n, rounds, in_bytes, out_bytes, extra_ops=0):
+def bound(kernel, B, n, sweeps, in_bytes, out_bytes):
     """The least time the card could take for ``B`` Jacobi eighs of n x n
-    over ``rounds`` rounds (9 n^2 flop a matrix a round, plus
-    ``extra_ops``), at the FP32 peak, and for the bytes at the memory
-    rate; the larger of the two bounds it."""
-    ops = rounds * 9 * n * n * B + extra_ops
+    over ``sweeps`` sweeps: the launch's operations
+    (``obs/profile.kernel_flops``: 9 n^2 flop a matrix a round, plus
+    3 n^2 for the weighted kernel's h) at the FP32 peak, and the bytes at
+    the memory rate; the larger of the two bounds it."""
+    from mfm_tpu_torch.obs.profile import kernel_flops
+
+    ops = kernel_flops(kernel, B, n, sweeps)
     t_ops = ops / PEAK_FP32_PER_S
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S
     # the warp design's ceiling: no FMA contraction (half the FP32
@@ -460,14 +463,15 @@ def bound(B, n, rounds, in_bytes, out_bytes, extra_ops=0):
 
 def full_kernel_bound(B, n, sweeps):
     """:func:`bound` of the full kernel: A read, w and V written."""
-    return bound(B, n, sweeps * (n - 1), 4 * B * n * n, 4 * B * (n * n + n))
+    return bound("jacobi_eigh", B, n, sweeps, 4 * B * n * n,
+                 4 * B * (n * n + n))
 
 
 def weighted_kernel_bound(B, n, sweeps):
     """:func:`bound` of the weighted kernel: G and d0 read, w and h
-    written, plus h's 3 n^2 flop a matrix."""
-    return bound(B, n, sweeps * (n - 1), 4 * B * (n * n + n), 4 * B * 2 * n,
-                 extra_ops=3 * n * n * B)
+    written."""
+    return bound("jacobi_eigh_weighted", B, n, sweeps, 4 * B * (n * n + n),
+                 4 * B * 2 * n)
 
 
 def outputs_finite(out, valid):
@@ -739,6 +743,216 @@ def serve_update(ctx) -> dict:
             and res["slab_vs_full"]["bitwise"],
             "serve_update: the updates' rows are not bitwise the full run's")
     ctx["unguarded_init"] = st0
+    return res
+
+
+def nw_methods(fr, K, cfg, budget, reps: int) -> dict:
+    """Both Newey-West methods on one run's factor returns ``fr`` (T, K):
+    each method's walls over ``reps`` runs, each ending in a synchronize;
+    the associative covariances held within the ``risk`` budgets'
+    ``nw_cov`` entry (``valid`` exactly) against the serial scan's on the
+    same device, and against the port's float64 associative run on the
+    CPU; and ``compiled_memory`` of the associative run."""
+    from mfm_tpu_torch.convert import budget_check
+    from mfm_tpu_torch.models.newey_west import newey_west_expanding
+    from mfm_tpu_torch.utils.obs import compiled_memory
+
+    def run(x, method):
+        return newey_west_expanding(x, q=cfg.nw_lags,
+                                    half_life=cfg.nw_half_life, min_valid=K,
+                                    method=method)
+
+    outs, walls = {}, {}
+    for method in ("scan", "associative"):
+        runs = [timed(lambda: run(fr, method)) for _ in range(reps)]
+        outs[method] = runs[-1][0]
+        walls[method] = [s for _, s in runs]
+    host = run(fr.double().cpu(), "associative")
+
+    def held(got, want):
+        return budget_check(
+            {"nw_cov": got[0].cpu().numpy(), "nw_valid": got[1].cpu().numpy()},
+            {"nw_cov": want[0].cpu().numpy(),
+             "nw_valid": want[1].cpu().numpy()}, budget)
+
+    vs_scan, failed_scan = held(outs["associative"], outs["scan"])
+    vs_f64, failed_f64 = held(outs["associative"], host)
+    memory = compiled_memory(lambda x: run(x, "associative"), fr)
+    return {"shape": list(fr.shape), "reps": reps,
+            "scan_median_s": statistics.median(walls["scan"]),
+            "associative_median_s": statistics.median(walls["associative"]),
+            "scan_runs_s": walls["scan"],
+            "associative_runs_s": walls["associative"],
+            "valid_equal": bool(torch.equal(outs["scan"][1],
+                                            outs["associative"][1])),
+            "vs_scan": vs_scan, "vs_float64_cpu": vs_f64,
+            "associative_memory": memory,
+            "failed": ([f"vs_scan:{f}" for f in failed_scan]
+                       + [f"vs_float64_cpu:{f}" for f in failed_f64])}
+
+
+def nw_associative_phase(ctx) -> dict:
+    """Phase nw_associative: the associative Newey-West (a doubling prefix
+    scan over the packed (T, 5421) state) at CSI300 width.  Both methods
+    on the main path's factor returns (:func:`nw_methods`, median of 3
+    each); then ``run_fused`` with ``nw_method="associative"`` on the same
+    panel and ``sim_covs``: its nine outputs within the ``risk`` budgets
+    of the scan run, its launches (counted from 0 before its first run:
+    the weighted kernel once, the full kernel twice, as the scan path)
+    and its e2e walls (median of 3)."""
+    import dataclasses
+
+    from mfm_tpu_torch import RiskModel
+    from mfm_tpu_torch.convert import budget_check, outputs_to_numpy
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+
+    T, K, P = ctx["T"], ctx["K"], ctx["P"]
+    cfg, scan_out = ctx["config"], ctx["fused_out"]
+    nw = nw_methods(scan_out.factor_ret, K, cfg, ctx["budget"], 3)
+    rm = RiskModel(*ctx["panel"], n_industries=P,
+                   config=dataclasses.replace(cfg, nw_method="associative"),
+                   device=ctx["device"])
+
+    def run():
+        return rm.run_fused(sim_covs=ctx["sim_covs"], sim_length=T)
+
+    sync()
+    reset_launches()
+    out, first_s = timed(run)
+    launches = launch_counts()
+    walls = [timed(run)[1] for _ in range(3)]
+    records, failed = budget_check(outputs_to_numpy(out),
+                                   outputs_to_numpy(scan_out), ctx["budget"])
+    res = {"newey_west": nw, "run_fused_launches": launches,
+           "run_fused_first_s": first_s,
+           "run_fused_e2e_median_s": statistics.median(walls),
+           "run_fused_e2e_runs_s": walls, "run_fused_vs_scan": records,
+           "run_fused_failed": failed}
+    emit("nw_associative", **res)
+    require(nw["valid_equal"] and not nw["failed"],
+            f"nw_associative: the associative Newey-West is outside the "
+            f"nw_cov budget: {nw['failed']}")
+    require_launches(launches, "nw_associative run_fused", 1, 2)
+    require(not failed, f"nw_associative: run_fused with the associative "
+            f"method is outside the risk budgets of the scan run: {failed}")
+    return res
+
+
+def compile_profile_phase(ctx, build_walls) -> dict:
+    """Phase compile_profile: the kernels' build walls (phase 1, captured
+    by ``obs/profile.capture_compile_walls``); ``executable_profile`` of
+    ``run_fused`` at CSI300 width with the panel and ``sim_covs`` as its
+    arguments (counted flops at least the kernels' own operation count,
+    ``peak_bytes`` at least ``argument_bytes``; its launches); and
+    ``compiled_memory`` of the regression, Newey-West (both methods) and
+    eigen stages, exported with ``record_compiled_memory`` and read back
+    from the registry's ``mfm_compiled_bytes`` gauges."""
+    from mfm_tpu_torch import RiskModel
+    from mfm_tpu_torch.models.newey_west import newey_west_expanding
+    from mfm_tpu_torch.obs import instrument
+    from mfm_tpu_torch.obs.profile import executable_profile, kernel_flops
+    from mfm_tpu_torch.ops.eigh_cuda import (
+        launch_counts,
+        launch_shapes,
+        reset_launches,
+    )
+    from mfm_tpu_torch.utils.obs import compiled_memory
+
+    T, K, P = ctx["T"], ctx["K"], ctx["P"]
+    cfg, sim_covs, dev = ctx["config"], ctx["sim_covs"], ctx["device"]
+    base = RiskModel(*ctx["panel"], n_industries=P, config=cfg, device=dev)
+    panel = (base.ret, base.cap, base.styles, base.industry, base.valid)
+
+    def model(*p):
+        return RiskModel(*p, n_industries=P, config=cfg, device=dev)
+
+    def fused(*a):
+        return model(*a[:5]).run_fused(sim_covs=a[5], sim_length=T)
+
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    prof = executable_profile(fused, *panel, sim_covs)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    kernel_ops = sum(n_launch * kernel_flops(k, B, n, sw)
+                     for k, shapes in launch_shapes().items()
+                     for (B, n, sw), n_launch in shapes.items())
+
+    fr, _, _ = base.reg_by_time()
+    nw_cov, nw_valid = base.newey_west_by_time(fr)
+
+    def stage(fn):
+        return lambda *a: fn(model(*a[:5]), *a[5:])
+
+    stage_mem = {
+        "regression": compiled_memory(stage(lambda m: m.reg_by_time()),
+                                      *panel),
+        "newey_west": compiled_memory(
+            stage(lambda m, f: m.newey_west_by_time(f)), *panel, fr),
+        "newey_west_associative": compiled_memory(
+            stage(lambda m, f: newey_west_expanding(
+                f, q=cfg.nw_lags, half_life=cfg.nw_half_life, min_valid=K,
+                method="associative")), *panel, fr),
+        "eigen": compiled_memory(
+            stage(lambda m, c, v, s: m.eigen_risk_adj_by_time(
+                c, v, sim_covs=s, sim_length=T)),
+            *panel, nw_cov, nw_valid, sim_covs),
+    }
+    for name, mem in stage_mem.items():
+        instrument.record_compiled_memory(name, mem)
+    gauges = {name: {kind: instrument.COMPILED_BYTES.value(stage=name,
+                                                          kind=kind)
+                     for kind in mem}
+              for name, mem in stage_mem.items()}
+    flops = (prof["cost"] or {}).get("flops")
+    mem = prof["memory"]
+    res = {"build_walls_s": build_walls,
+           "build_wall_s": round(sum(build_walls), 4) if build_walls else None,
+           "profile": prof, "profile_wall_s": wall, "launches": launches,
+           "kernel_flops": kernel_ops, "stage_memory": stage_mem,
+           "gauges": gauges}
+    emit("compile_profile", **res)
+    require(flops is not None and flops >= kernel_ops > 0,
+            f"compile_profile: counted flops {flops} below the kernels' own "
+            f"{kernel_ops}")
+    require(mem.get("peak_bytes", -1) >= mem["argument_bytes"] > 0,
+            f"compile_profile: peak_bytes below argument_bytes: {mem}")
+    require(all(gauges[n] == {k: float(v) for k, v in m.items()}
+                for n, m in stage_mem.items()),
+            f"compile_profile: the gauges do not read back: {gauges}")
+    require_launches(launches, "compile_profile run_fused", 1, 2)
+    return res
+
+
+def doctrine_tools_phase(ctx) -> dict:
+    """Phase doctrine_tools (host only): the port's ``lint --strict``,
+    ``sync --strict`` and ``doctor --sync`` through ``cli.main`` on this
+    checkout against the committed baselines; each exit code, its
+    findings by rule, its baselined count and its wall."""
+    res = {}
+    for name, argv in (("lint", ["lint", "--strict", "--json"]),
+                       ("sync", ["sync", "--strict", "--json"]),
+                       ("doctor_sync", ["doctor", "--sync"])):
+        t0 = time.perf_counter()
+        code, out, _ = cli_call(argv)
+        rec = {"rc": code, "wall_s": time.perf_counter() - t0}
+        doc = json.loads(out)
+        if name == "doctor_sync":
+            (sync_rec,) = doc["records"]
+            rec.update(problems=sync_rec["problems"],
+                       baselined=sync_rec["baselined"])
+        else:
+            by_rule = {}
+            for v in doc["new"]:
+                by_rule[v["rule"]] = by_rule.get(v["rule"], 0) + 1
+            rec.update(new_by_rule=by_rule, baselined=len(doc["baselined"]),
+                       stale=len(doc["stale"]))
+        res[name] = rec
+    emit("doctrine_tools", **res)
+    require(all(r["rc"] == 0 for r in res.values()),
+            f"doctrine_tools: a pass is not clean: {res}")
     return res
 
 
@@ -2175,6 +2389,7 @@ def query_cache_phase(ctx) -> dict:
     for i, ln in enumerate(lines):
         co.submit(ln, origin=i)
     finished = done.wait(timeout=300)
+    sync()
     wall = time.perf_counter() - t0
     co.stop()
     after = obs.serve_summary_from_registry()
@@ -4201,6 +4416,15 @@ def tables_equal(out_dir, outputs, arrays, rows=slice(None),
     return res
 
 
+def jit_compiles(metrics_dir) -> float:
+    """``mfm_jit_compiles_total`` from a ``--metrics-dir``'s Prometheus
+    textfile."""
+    with open(os.path.join(metrics_dir, "metrics.prom")) as fh:
+        m = re.search(r"^mfm_jit_compiles_total(?:\{\})? (\S+)$", fh.read(),
+                      re.M)
+    return float(m.group(1)) if m else float("nan")
+
+
 def stage_seconds(metrics_dir) -> dict:
     """``mfm_stage_seconds`` by stage from a ``--metrics-dir`` snapshot."""
     with open(os.path.join(metrics_dir, "metrics.json")) as fh:
@@ -4295,6 +4519,7 @@ def cli_risk_phase(ctx) -> dict:
               "csv_read_csv_module_s": module_read_s,
               "csv_reads_bitwise": reads_bitwise,
               "stages_s": stage_seconds(mdir),
+              "jit_compiles_total": jit_compiles(mdir),
               "in_process_run_s": run_s, "profile": prof,
               "profiled_cli_wall_s": prof_rec["wall_s"],
               "profiled_process_s": prof_process_s,
@@ -4324,6 +4549,9 @@ def cli_risk_phase(ctx) -> dict:
             f"doctor {doctor_rc}")
     require(prof["busy_share"] is not None,
             "cli_risk: the profiler saw no device time")
+    require(result["jit_compiles_total"] >= 1,
+            "cli_risk: the --metrics-dir textfile counts no compile event "
+            f"({result['jit_compiles_total']})")
     ctx["cli"] = {"dir": d, "csv": path, "ck": ck, "result": res,
                   "parsed": parsed, "out": out}
     return result
@@ -5324,6 +5552,7 @@ def fault_matrix_phase(ctx, meanwhile=None) -> dict:
         reset_launches()
         rc, reports["in_process"], local_wall = _fault_in_process(
             local, os.path.join(ctx["tmp"], "faults_local.json"))
+        sync()
         launches = launch_counts()
         require(rc == 0, "fault_matrix: in-process plans failed: "
                 f"{reports['in_process']['summary']['failed']}")
@@ -5822,6 +6051,11 @@ def alla_risk_phase(ctx) -> dict:
     fr, _, _ = rm.reg_by_time()
     (nw_cov, nw_valid), stages["newey_west"] = timed(
         lambda: rm.newey_west_by_time(fr))
+    nw_assoc = nw_methods(fr, K, config, ctx["budget"], 1)
+    emit("nw_associative_alla", **nw_assoc)
+    require(nw_assoc["valid_equal"] and not nw_assoc["failed"],
+            f"alla_risk: the associative Newey-West is outside the nw_cov "
+            f"budget: {nw_assoc['failed']}")
     _, stages["regression"] = timed(rm.reg_by_time)
     (ecov, evalid), stages["eigen"] = timed(
         lambda: rm.eigen_risk_adj_by_time(nw_cov, nw_valid,
@@ -6397,10 +6631,14 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     kind = torch.cuda.get_device_name(0)
+    from mfm_tpu_torch.obs.profile import capture_compile_walls
+
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    with capture_compile_walls() as build_walls:
+        libs = _build.build_all()
     pycache.wait(timeout=600)
     emit("build", seconds=time.perf_counter() - t0,
+         compile_walls_s=build_walls,
          bytecode_cache_rc=pycache.returncode,
          libraries=sorted(p.name for p in libs.values()),
          torch=torch.__version__, cuda=torch.version.cuda)
@@ -6480,6 +6718,15 @@ def main() -> int:
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     emit("main_path_profile", **profile_run(
         lambda: rm.run_fused(sim_covs=sim_covs, sim_length=T)))
+
+    # -- phase 4b: the associative Newey-West, compile and memory profile --
+    pctx = {"panel": panel, "sim_covs": sim_covs, "config": config, "T": T,
+            "K": K, "P": P, "fused_out": out, "device": "cuda",
+            "budget": budget["risk"]}
+    nw_assoc = nw_associative_phase(pctx)
+    profiled = compile_profile_phase(pctx, build_walls)
+    del pctx
+    torch.cuda.empty_cache()
 
     mark("build_checks_main_path")
     # -- phase 5: the daily serving step at CSI300 width -------------------
@@ -6626,9 +6873,11 @@ def main() -> int:
     # -- phase 11d: faults — the recovery matrix at CSI300 width, report and
     # crosscheck over the results the CLI and store sections left ------------
     sctx["report_inputs"] = report_inputs
-    # report_crosscheck runs in this process while the fleet drills run
+    # report_crosscheck and the doctrine passes run in this process while
+    # the fleet drills run
     fault = fault_matrix_phase(
-        sctx, meanwhile=lambda: report_crosscheck_phase(sctx))
+        sctx, meanwhile=lambda: (report_crosscheck_phase(sctx),
+                                 doctrine_tools_phase(sctx)))
     torch.cuda.empty_cache()
     scratch.cleanup()
     cli_scratch.cleanup()
@@ -6785,6 +7034,10 @@ def main() -> int:
                 "bias_stat_launches": bias_launches[f"{name}/warp"],
                 "factor_pipeline_launches": factor_launches[f"{name}/warp"],
                 "scenario_launches": scenario_launches[f"{name}/warp"],
+                "nw_associative_launches":
+                    nw_assoc["run_fused_launches"][f"{name}/warp"],
+                "compile_profile_launches":
+                    profiled["launches"][f"{name}/warp"],
                 "grad_launches": grad_launches[f"{name}/warp"],
                 "cli_launches": {k: v[f"{name}/warp"]
                                  for k, v in cli_launches.items()},

@@ -59,10 +59,11 @@ its ``JAX_PLATFORMS``: a command computes on the CUDA card unless asked
 for the CPU, and without a card ``--device cuda`` raises.  The serve path
 launches no CUDA kernel, and importing this module builds and loads none.
 
-The reference's other subcommands (``lint``, ``sync``, ``audit``),
-``--mesh``, ``--nw-method associative`` and
-``doctor --audit/--sync`` are not ported yet; each exits non-zero naming
-its ROADMAP.md item.
+``lint`` and ``sync`` run the port's stdlib-only doctrine passes
+(``mfm_tpu_torch/lint.py``, ``mfm_tpu_torch/analysis/sync.py``) and
+``doctor --sync`` the latter against its committed baseline.  The
+reference's ``audit``, ``doctor --audit`` and ``--mesh`` are not ported
+yet; each exits non-zero naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -78,7 +79,7 @@ SERVE_MANIFEST_NAME = "serve_manifest.json"
 
 #: the reference's subcommands this port does not carry yet, by the
 #: ROADMAP.md item that ports them
-UNPORTED_COMMANDS = {"lint": "§A 16", "sync": "§A 16", "audit": "§A 16"}
+UNPORTED_COMMANDS = {"audit": "§A 22"}
 
 
 def _unported(args):
@@ -86,20 +87,23 @@ def _unported(args):
         f"mfm_tpu_torch.cli: `{args.cmd}` is not ported yet (ROADMAP.md "
         f"{UNPORTED_COMMANDS[args.cmd]}); this package runs `risk`, "
         "`demo`, `factors`, `scenario`, `grad`, `serve`, `doctor`, "
-        "`metrics`, `alpha`, `prepare`, `pipeline`, `etl-*`, `report` and "
-        "`crosscheck`")
+        "`metrics`, `alpha`, `prepare`, `pipeline`, `etl-*`, `report`, "
+        "`crosscheck`, `lint` and `sync`")
 
 
 def _metrics_init(args) -> None:
-    """``--metrics-dir``: route the JSONL event stream there (telemetry
-    records regardless; this adds sinks)."""
+    """``--metrics-dir``: route the JSONL event stream there and start the
+    compile-event counter (telemetry records regardless; this adds
+    sinks)."""
     mdir = getattr(args, "metrics_dir", None)
     if not mdir:
         return
     from mfm_tpu_torch.obs.exporters import emit_event, route_events_to
+    from mfm_tpu_torch.obs.instrument import watch_compiles
 
     os.makedirs(mdir, exist_ok=True)
     route_events_to(os.path.join(mdir, "events.jsonl"))
+    watch_compiles()
     emit_event("info", "run_start", cmd=args.cmd)
 
 
@@ -538,15 +542,23 @@ def _doctor(args):
     stale, schema-broken or unhealthy."""
     import glob
 
-    for flag in ("audit", "sync"):
-        if getattr(args, flag, None):
-            raise SystemExit(
-                f"mfm_tpu_torch.cli: `doctor --{flag}` is not ported yet "
-                "(ROADMAP.md §A 16); this package audits artifacts, the "
-                "run manifest and, with --serve and --scenarios, the serve, "
-                "fleet, scenario and sweep manifests")
+    if getattr(args, "audit", None):
+        raise SystemExit(
+            "mfm_tpu_torch.cli: `doctor --audit` is not ported yet "
+            "(ROADMAP.md §A 22); this package audits artifacts, the "
+            "run manifest and, with --serve, --scenarios and --sync, the "
+            "serve, fleet, scenario and sweep manifests and the "
+            "lock-discipline pass")
     if args.path is None:
-        raise SystemExit("doctor: PATH is required")
+        if not args.sync:
+            raise SystemExit("doctor: PATH is required unless --audit or "
+                             "--sync is given (the static checks need no "
+                             "serving artifacts)")
+        records = _audit_sync()
+        unhealthy = sum(r["status"] != "ok" for r in records)
+        print(json.dumps({"audited": len(records), "unhealthy": unhealthy,
+                          "records": records}, indent=1))
+        raise SystemExit(1 if unhealthy else 0)
     if os.path.isdir(args.path):
         paths = sorted(glob.glob(os.path.join(args.path, "*.npz")))
         if not paths:
@@ -574,10 +586,72 @@ def _doctor(args):
             records.append(_audit_flightrec(fr_path))
     if args.scenarios:
         records.extend(_audit_scenario_manifests(man_dir))
+    if args.sync:
+        records.extend(_audit_sync())
     unhealthy = sum(r["status"] != "ok" for r in records)
     print(json.dumps({"audited": len(records), "unhealthy": unhealthy,
                       "records": records}, indent=1))
     raise SystemExit(1 if unhealthy else 0)
+
+
+def _audit_sync() -> list:
+    """``doctor --sync``: the lock-discipline pass, strict against its
+    committed baseline — new findings are problems, a stale baseline entry
+    is a problem too (the justified exception no longer exists), baselined
+    findings are warnings so the operator sees what is being excused."""
+    from mfm_tpu_torch.analysis.sync import (
+        DEFAULT_BASELINE,
+        REPO_ROOT,
+        load_baseline,
+        run_sync,
+    )
+
+    bpath = os.path.join(REPO_ROOT, DEFAULT_BASELINE)
+    rec = {"file": bpath, "kind": "sync_analysis", "status": "ok",
+           "problems": [], "warnings": []}
+    res = run_sync(baseline=load_baseline(bpath))
+    for v in res.new:
+        rec["problems"].append(
+            f"{v.file}:{v.line}: {v.rule} [{v.qualname}] {v.message}")
+    for b in res.stale:
+        rec["problems"].append(
+            f"stale baseline entry: {b['file']} {b['rule']} "
+            f"[{b['qualname']}] — the finding no longer exists")
+    for v in res.baselined:
+        rec["warnings"].append(
+            f"baselined: {v.file} {v.rule} [{v.qualname}]")
+    rec["baselined"] = len(res.baselined)
+    if rec["problems"]:
+        rec["status"] = "unhealthy"
+    return [rec]
+
+
+def _gate_cmd(main_fn, args):
+    """``lint`` / ``sync``: the stdlib-only pass's own CLI, with the
+    subcommand's flags passed on."""
+    argv = list(args.paths)
+    if args.baseline:
+        argv += ["--baseline", args.baseline]
+    if args.strict:
+        argv.append("--strict")
+    if args.json:
+        argv.append("--json")
+    raise SystemExit(main_fn(argv))
+
+
+def _lint_cmd(args):
+    # pure-AST pass (mfm_tpu_torch/lint.py): no torch, no numpy
+    from mfm_tpu_torch.lint import main as lint_main
+
+    _gate_cmd(lint_main, args)
+
+
+def _sync_cmd(args):
+    # stdlib-only AST pass (mfm_tpu_torch/analysis/sync.py): lock
+    # discipline and shared state in the serving fleet
+    from mfm_tpu_torch.analysis.sync import main as sync_main
+
+    _gate_cmd(sync_main, args)
 
 
 # -- serve ----------------------------------------------------------------------
@@ -1356,9 +1430,7 @@ def _risk(args):
         raise SystemExit("--update serves new dates only — run the bias "
                          "acceptance tests on a full-history run instead")
     if args.mesh:
-        _unported_flag("risk", "--mesh", "§A 16")
-    if args.nw_method == "associative":
-        _unported_flag("risk", "--nw-method associative", "§A 16")
+        _unported_flag("risk", "--mesh", "§A 16d")
     # the card unless the caller asked for the CPU; raises without a card
     device = resolve_device(args.device)
     _metrics_init(args)
@@ -1920,9 +1992,7 @@ def _pipeline(args):
         raise SystemExit("the resumable state is the serial scan's carry; "
                          "--append needs --nw-method scan")
     if args.mesh:
-        _unported_flag("pipeline", "--mesh", "§A 16")
-    if args.nw_method == "associative":
-        _unported_flag("pipeline", "--nw-method associative", "§A 16")
+        _unported_flag("pipeline", "--mesh", "§A 16d")
     # the card unless the caller asked for the CPU; raises without a card
     device = resolve_device(args.device)
     _metrics_init(args)
@@ -1992,22 +2062,26 @@ def _pipeline(args):
             res, appended, update_wall = _pipeline_append_stage(
                 args, barra, cfg, prev_barra, device)
         else:
-            res = run_risk_pipeline(barra_df=barra, config=cfg,
-                                    industry_codes=codes, with_state=True,
-                                    device=device)
+            # the associative Newey-West has no serial carry to
+            # checkpoint, so no state there
+            res = run_risk_pipeline(
+                barra_df=barra, config=cfg, industry_codes=codes,
+                with_state=cfg.risk.nw_method == "scan", device=device)
     with time_stage("write_result_tables"):
         _write_result_tables(res, args.out, args.specific_risk)
     wall = time.perf_counter() - t0
     record_stage_seconds("factor", factor_wall)
     record_stage_seconds("pipeline_total", wall)
     _save_outputs_npz(res, args.out, args.store)  # outside the timed region
-    # the daily-serving checkpoint `pipeline --append` resumes from
-    from mfm_tpu_torch.pipeline import save_pipeline_state
+    health = None
+    if res.state is not None:
+        # the daily-serving checkpoint `pipeline --append` resumes from
+        from mfm_tpu_torch.pipeline import save_pipeline_state
 
-    state_path = os.path.join(args.out, "risk_state.npz")
-    save_pipeline_state(state_path, res)
-    health = _write_manifest_beside(state_path, res, device,
-                                    trace_id=root.trace_id)
+        state_path = os.path.join(args.out, "risk_state.npz")
+        save_pipeline_state(state_path, res)
+        health = _write_manifest_beside(state_path, res, device,
+                                        trace_id=root.trace_id)
     # acceptance-test compute stays OUT of the reported wall
     _maybe_portfolio_bias(res, args)
     _maybe_portfolio_risk(res, args)
@@ -2022,8 +2096,9 @@ def _pipeline(args):
         "alpha_styles": n_alpha_styles,
         "out": args.out,
         "trace_id": root.trace_id,
-        "health": health["status"],
     }
+    if health is not None:
+        rec["health"] = health["status"]
     if appended is not None:
         rec["appended_dates"] = appended
         rec["update_wall_s"] = round(update_wall, 3)
@@ -2941,8 +3016,8 @@ def _risk_parser(sub) -> None:
     r.add_argument("--nw-method", choices=["scan", "associative"],
                    default="scan",
                    help="expanding Newey-West evaluation: the serial scan "
-                        "(the default) or the associative form (not ported "
-                        "yet, ROADMAP.md §A 16)")
+                        "(the default) or the associative prefix scan "
+                        "(O(log T) passes; no resumable state)")
     r.add_argument("--eigen-sims", type=int, default=100)
     r.add_argument("--eigen-scale", type=float, default=1.4)
     r.add_argument("--vr-half-life", type=float, default=42.0)
@@ -3020,7 +3095,7 @@ def _risk_parser(sub) -> None:
     r.add_argument("--portfolio-date", type=int, default=-1,
                    help="date index for --portfolio (default: last)")
     r.add_argument("--mesh", default=None, metavar="DxS",
-                   help="not ported yet (ROADMAP.md §A 16)")
+                   help="not ported yet (ROADMAP.md §A 16d)")
     r.add_argument("--quarantine", action="store_true",
                    help="guard appended dates (NaN density, universe "
                         "collapse, MAD outliers, bad caps, date order) and "
@@ -3042,8 +3117,8 @@ def _risk_flags(p) -> None:
     p.add_argument("--nw-method", choices=["scan", "associative"],
                    default="scan",
                    help="expanding Newey-West evaluation: the serial scan "
-                        "(the default) or the associative form (not ported "
-                        "yet, ROADMAP.md §A 16)")
+                        "(the default) or the associative prefix scan "
+                        "(O(log T) passes; no resumable state)")
     p.add_argument("--eigen-sims", type=int, default=100)
     p.add_argument("--eigen-scale", type=float, default=1.4)
     p.add_argument("--eigen-chunk", type=_eigen_chunk, default="auto",
@@ -3103,7 +3178,7 @@ def _store_parsers(sub) -> None:
                          "sw_industry_info_for_factors collections into this "
                          "store, readable by `risk --barra-store`")
     pl.add_argument("--mesh", default=None, metavar="DxS",
-                    help="not ported yet (ROADMAP.md §A 16)")
+                    help="not ported yet (ROADMAP.md §A 16d)")
     _risk_flags(pl)
     pl.add_argument("--block", type=int, default=None,
                     help="rolling-kernel date-block size; default: auto "
@@ -3577,9 +3652,12 @@ def main(argv=None):
                          "artifacts: exit non-zero on a torn write, a spec "
                          "hash mismatch or inconsistent counts")
     dr.add_argument("--audit", nargs="?", const="latest", default=None,
-                    metavar="FILE", help="not ported yet (ROADMAP.md §A 16)")
+                    metavar="FILE", help="not ported yet (ROADMAP.md §A 22)")
     dr.add_argument("--sync", action="store_true",
-                    help="not ported yet (ROADMAP.md §A 16)")
+                    help="also run the lock-discipline pass (sync "
+                         "--strict) against its committed baseline: exit "
+                         "non-zero on new S1-S3 findings or stale baseline "
+                         "entries; baselined findings surface as warnings")
     dr.set_defaults(fn=_doctor)
 
     _risk_parser(sub)
@@ -3604,6 +3682,38 @@ def main(argv=None):
     mdf.add_argument("a")
     mdf.add_argument("b")
     mt.set_defaults(fn=_metrics)
+
+    ln = sub.add_parser(
+        "lint",
+        help="the port's doctrine linter (R3 and R5 of R1-R7) over "
+             "mfm_tpu_torch/ and chip_smoke.py")
+    ln.add_argument("paths", nargs="*",
+                    help="files/dirs to lint (default: mfm_tpu_torch "
+                         "chip_smoke.py)")
+    ln.add_argument("--baseline", default=None,
+                    help="baseline JSON ('none' disables; default: "
+                         "mfm_tpu_torch/tools/mfmlint_baseline.json)")
+    ln.add_argument("--strict", action="store_true",
+                    help="also fail on stale baseline entries")
+    ln.add_argument("--json", action="store_true",
+                    help="machine-readable output")
+    ln.set_defaults(fn=_lint_cmd)
+
+    sy = sub.add_parser(
+        "sync",
+        help="lock-discipline & shared-state static analysis for the "
+             "serving fleet (rules S1-S3: guarded-field accesses, "
+             "lock-order cycles, blocking under a lock)")
+    sy.add_argument("paths", nargs="*",
+                    help="files/dirs to analyze (default: mfm_tpu_torch)")
+    sy.add_argument("--baseline", default=None,
+                    help="baseline JSON ('none' disables; default: "
+                         "mfm_tpu_torch/tools/mfmsync_baseline.json)")
+    sy.add_argument("--strict", action="store_true",
+                    help="also fail on stale baseline entries")
+    sy.add_argument("--json", action="store_true",
+                    help="machine-readable output")
+    sy.set_defaults(fn=_sync_cmd)
 
     for name, item in UNPORTED_COMMANDS.items():
         up = sub.add_parser(name, help=f"not ported yet (ROADMAP.md {item})",

@@ -200,10 +200,6 @@ class RiskModelConfig:
                 "(sim_length == T) by construction; a pinned "
                 f"eigen_sim_length ({self.eigen_sim_length}) contradicts it "
                 "— pick one")
-        if self.nw_method == "associative":
-            raise NotImplementedError(
-                "nw_method='associative' is not ported yet "
-                "(ROADMAP.md §A 16)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,7 +219,7 @@ class MeshConfig:
         if self.n_date_shards * self.n_stock_shards > 1:
             raise NotImplementedError(
                 "a device mesh of more than one shard is not ported yet "
-                "(ROADMAP.md §A 16)")
+                "(ROADMAP.md §A 16d)")
 
 
 @dataclasses.dataclass(frozen=True)

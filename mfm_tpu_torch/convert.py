@@ -55,7 +55,7 @@ def config_from_reference(fields: Mapping) -> RiskModelConfig:
     mesh = fields.pop("mesh", None) or {}
     if any(v > 1 for v in mesh.values()):
         raise NotImplementedError(
-            "the device mesh is not ported yet (ROADMAP.md §A 16)")
+            "the device mesh is not ported yet (ROADMAP.md §A 16d)")
     known = {f.name for f in dataclasses.fields(RiskModelConfig)}
     unknown = sorted(set(fields) - known)
     if unknown:

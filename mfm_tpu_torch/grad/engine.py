@@ -336,7 +336,7 @@ class GradEngine:
 
         def padded(*arrays):
             ops = tuple(self._put(a) for a in arrays)
-            if contracts._LISTENERS:
+            if contracts.listening():
                 contracts.note_bucket(f"{contracts.CONSTRUCT_SOLVE}/{solver}",
                                       *ops)
             return ops

@@ -30,7 +30,7 @@ different realization, gated statistically on the eigenfactor bias stat
 Draws come from explicit ``torch.Generator``s; they cannot match
 ``jax.random``'s, so parity with the reference injects ``sim_covs`` (or
 the incremental mode's draw tensor).  Not ported: the device-mesh branch
-(ROADMAP.md §A 16).
+(ROADMAP.md §A 16d).
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ normalized to sum 1, demeaned by the weighted mean:
 and the estimate is *invalid* when t <= q or t <= K.  Every sum is an
 exponentially-weighted cumulative sum, so the whole expanding family is one
 serial pass of EWMA recursions over the dates — here a Python loop of small
-K x K tensor ops on the device (about three dozen launches a date).
+K x K tensor ops on the device (about three dozen launches a date) — or,
+in the "associative" method, one prefix scan of the same recursions in
+O(log T) passes over a packed (T, D) state.
 """
 
 from __future__ import annotations
@@ -75,11 +77,13 @@ def newey_west_expanding(ret: torch.Tensor, q: int = 2,
     Returns ``(covs, valid)`` where ``covs[t]`` equals
     ``newey_west(ret[:t+1], q, half_life)`` and ``valid[t]`` is False when
     t+1 <= q or t+1 <= min_valid (default K).  See the reference for the
-    EWMA derivation.  Only the serial "scan" method is ported.
+    EWMA derivation.  ``method``: "scan" runs the serial recursion (the
+    default, resumable through :func:`newey_west_expanding_resume`);
+    "associative" the same recursions as a prefix scan,
+    :func:`newey_west_expanding_associative`.
     """
     if method == "associative":
-        raise NotImplementedError(
-            "the associative Newey-West is not ported yet (ROADMAP.md §A 16)")
+        return newey_west_expanding_associative(ret, q, half_life, min_valid)
     if method != "scan":
         raise ValueError(f"method must be 'scan' or 'associative', got {method!r}")
     covs, valid, _ = newey_west_expanding_resume(ret, q, half_life, min_valid)
@@ -158,3 +162,89 @@ def newey_west_expanding_resume(
     carry_out = (torch.tensor(t, dtype=torch.int32, device=dev),
                  S, A, Z, Ps, hs, gs, Slags, xlags)
     return covs, torch.tensor(valid, dtype=torch.bool, device=dev), carry_out
+
+
+def linear_prefix_scan(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Every prefix of the recurrence ``s_t = a_t * s_{t-1} + u_t`` from
+    ``s_{-1} = 0``, along dim 0: a (T, 1) coefficient column ``a`` and a
+    (T, D) inject ``u`` give the (T, D) states.
+
+    Doubling (Hillis-Steele) scan of the combine ``(a1, b1) . (a2, b2) =
+    (a1*a2, a2*b1 + b2)``: after the pass at offset d each row holds the
+    composition of the last 2d elements, so ceil(log2 T) passes of whole-
+    tensor ops finish it.  Each pass writes new tensors (two copies of the
+    state at a time).  No power of ``a`` is ever inverted, so a short half
+    life underflows to 0 and never overflows, as ``a^t * cumsum(a^-i u_i)``
+    would.
+    """
+    T = u.shape[0]
+    d = 1
+    while d < T:
+        b = torch.cat([u[:d], torch.addcmul(u[d:], a[d:], u[:-d])])
+        a = torch.cat([a[:d], a[d:] * a[:-d]])
+        u = b
+        d *= 2
+    return u
+
+
+@highest_matmul_precision
+def newey_west_expanding_associative(
+    ret: torch.Tensor, q: int = 2, half_life: float = 252.0,
+    min_valid: int | None = None,
+):
+    """Expanding Newey-West as one prefix scan (the reference's
+    ``lax.associative_scan`` form).
+
+    Every sum of the derivation is a first-order linear recurrence
+    ``s_t = lam * s_{t-1} + u_t``: Z, S, A, the q lag products P^l and the
+    heads (h^l, g^l) pack into one (T, D) inject, D = 1 + K + (1+q) K^2 +
+    q (K+1), and :func:`linear_prefix_scan` evaluates them all in O(log T)
+    passes.  The lag-shifted first moments b^l = S_{t-l} come from shifting
+    the scanned S rows.  No carry comes out: the serving step resumes the
+    serial "scan" method only.
+    """
+    T, K = ret.shape
+    dtype, dev = ret.dtype, ret.device
+    lam = torch.tensor(0.5, dtype=dtype, device=dev) ** (1.0 / half_life)
+    kmin = K if min_valid is None else min_valid
+    tgrid = torch.arange(1, T + 1, device=dev)
+
+    def shift_rows(x, lag):
+        n = min(lag, T)
+        return torch.cat([x.new_zeros((n,) + x.shape[1:]), x[:T - n]])
+
+    def outer_rows(x, y):
+        return (x[:, :, None] * y[:, None, :]).reshape(T, K * K)
+
+    injects = [torch.ones((T, 1), dtype=dtype, device=dev), ret,
+               outer_rows(ret, ret)]
+    for lag in range(1, q + 1):
+        injects.append(outer_rows(shift_rows(ret, lag), ret))    # x_{t-1-l} x_t'
+    for lag in range(1, q + 1):
+        head_on = (tgrid <= lag).to(dtype)[:, None]
+        injects.append(head_on * ret)                             # h^l
+        injects.append(head_on)                                   # g^l
+    U = torch.cat(injects, dim=1)                                 # (T, D)
+    states = linear_prefix_scan(lam.expand(T, 1), U)
+
+    sizes = [1, K, K * K] + [K * K] * q + [K, 1] * q
+    parts = list(torch.split(states, sizes, dim=1))
+    Z, S, A = parts[0][:, 0], parts[1], parts[2].reshape(T, K, K)
+    Ps = [p.reshape(T, K, K) for p in parts[3:3 + q]]
+    heads = parts[3 + q:]
+
+    Zc = Z[:, None, None]
+    mu = S / Z[:, None]
+    mumu = mu[:, :, None] * mu[:, None, :]
+    V = A / Zc - mumu
+    for li, lag in enumerate(range(1, q + 1)):
+        h_l, g_l = heads[2 * li], heads[2 * li + 1][:, 0]
+        a_l = S - h_l
+        b_l = shift_rows(S, lag)                                  # S_{t-l}
+        z_l = Z - g_l
+        G = (Ps[li] - b_l[:, :, None] * mu[:, None, :]
+             - mu[:, :, None] * a_l[:, None, :]
+             + z_l[:, None, None] * mumu) / Zc
+        V = V + (1.0 - lag / (1.0 + q)) * (G + G.transpose(-1, -2))
+    valid = (tgrid > q) & (tgrid > kmin)
+    return V, valid

@@ -357,10 +357,16 @@ class RiskModel:
             n_industries=self.n_industries, kernels=self.kernels)
         factor_ret, specific_ret, r2 = (
             res.factor_ret[:T], res.specific_ret[:T], res.r2[:T])
-        nw_cov, nw_valid, nw_carry_out = newey_west_expanding_resume(
-            factor_ret, q=self.config.nw_lags,
-            half_life=self.config.nw_half_life, min_valid=self.K,
-            carry=nw_carry, skip_mask=skip_mask)
+        if self.config.nw_method == "scan":
+            nw_cov, nw_valid, nw_carry_out = newey_west_expanding_resume(
+                factor_ret, q=self.config.nw_lags,
+                half_life=self.config.nw_half_life, min_valid=self.K,
+                carry=nw_carry, skip_mask=skip_mask)
+        else:
+            # run / run_fused only: every entry point that carries or
+            # guards refuses the method first (_require_scan_method)
+            nw_cov, nw_valid = self.newey_west_by_time(factor_ret)
+            nw_carry_out = None
         eig_carry_out = None
         nw_cov_e, nw_valid_e = (pad(nw_cov, MIN_EIGEN_DATES),
                                 pad(nw_valid, MIN_EIGEN_DATES))

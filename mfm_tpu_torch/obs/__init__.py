@@ -13,9 +13,9 @@
 - :mod:`~mfm_tpu_torch.obs.manifest` — run, serve and fleet manifests
 - :mod:`~mfm_tpu_torch.obs.health` — the model-health monitors and the
   manifests' health verdict
-
-The XLA cost analysis of ``mfm_tpu/obs/profile.py`` waits for ROADMAP.md
-§A 16.
+- :mod:`~mfm_tpu_torch.obs.profile` — counted flops, measured memory and
+  kernel build/load walls of one run (the torch analog of the
+  reference's XLA cost and memory analysis)
 """
 
 from mfm_tpu_torch.obs.metrics import (Counter, Gauge, Histogram,

@@ -10,9 +10,13 @@ replicas, transport), the SLO engine, the span ring and its fleet-wire
 merge, the flight recorder, retries, the scenario engine and the
 streaming sweep record, the guard tallies of a guarded step, the update
 latency, the per-stage walls the manifests' guard block and the CLI
-read, and the fenced checkpoint's saves, loads and refusals
-(data/artifacts.py).  The reference's compile counters and compiled-memory gauges count
-XLA's compile events, which the port does not have (ROADMAP.md §A 16).
+read, the fenced checkpoint's saves, loads and refusals
+(data/artifacts.py), and the compile counters and compiled-memory gauges.
+Eager torch compiles no program, so the compile counter counts the events
+that stand in a lowering's place (:mod:`mfm_tpu_torch.utils.contracts`:
+a kernel library's build or load, a new eigh or serving-bucket
+signature), and the memory gauges export :func:`mfm_tpu_torch.utils.obs.
+compiled_memory`'s measurement of one run.
 """
 
 from __future__ import annotations
@@ -43,6 +47,10 @@ UPDATE_LATENCY = REGISTRY.histogram(
 STAGE_SECONDS = REGISTRY.gauge(
     "mfm_stage_seconds", "last wall time of a pipeline/risk stage",
     labelnames=("stage",))
+COMPILED_BYTES = REGISTRY.gauge(
+    "mfm_compiled_bytes",
+    "compiled-program memory analysis (utils.obs.compiled_memory)",
+    labelnames=("stage", "kind"))
 
 # -- fenced checkpoints (data/artifacts.py) -----------------------------------
 
@@ -64,6 +72,16 @@ CHECKPOINT_SAVE_SECONDS = REGISTRY.histogram(
     "mfm_checkpoint_save_seconds", "artifact save wall time")
 CHECKPOINT_LOAD_SECONDS = REGISTRY.histogram(
     "mfm_checkpoint_load_seconds", "artifact load wall time")
+
+# -- compile-standing events (utils/contracts.py) ------------------------------
+
+JIT_COMPILES_TOTAL = REGISTRY.counter(
+    "mfm_jit_compiles_total",
+    "jit lowerings observed since watch_compiles() (steady state: flat)")
+JIT_COMPILE_SECONDS = REGISTRY.histogram(
+    "mfm_jit_compile_seconds",
+    "per-executable lowering/compile wall (obs.profile.capture_compile_walls)",
+    buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0, 60.0))
 
 # -- retries (data/etl.py with_retry) -----------------------------------------
 
@@ -312,6 +330,45 @@ def record_update_latency(seconds: float) -> None:
 
 def record_stage_seconds(stage: str, seconds: float) -> None:
     STAGE_SECONDS.set_value(float(seconds), stage=stage)
+
+
+def record_compiled_memory(stage: str, mem: dict) -> None:
+    """Export a ``utils.obs.compiled_memory`` analysis as labeled gauges."""
+    for kind, v in mem.items():
+        if isinstance(v, (int, float)):
+            COMPILED_BYTES.set_value(float(v), stage=stage, kind=kind)
+
+
+_COMPILE_WATCHER = None
+
+
+def watch_compiles() -> None:
+    """Install a process-lifetime watcher on the compile-contract events
+    (:mod:`mfm_tpu_torch.utils.contracts`: a kernel build or load, a new
+    eigh or bucket signature) feeding ``mfm_jit_compiles_total``
+    (idempotent)."""
+    global _COMPILE_WATCHER
+    if _COMPILE_WATCHER is not None:
+        return
+    from mfm_tpu_torch.utils import contracts
+
+    def _watcher(event: str, detail: str = "", seconds=None) -> None:
+        JIT_COMPILES_TOTAL.inc()
+
+    contracts._WATCHERS.append(_watcher)
+    _COMPILE_WATCHER = _watcher
+
+
+def unwatch_compiles() -> None:
+    """Remove the watcher installed by :func:`watch_compiles` (tests)."""
+    global _COMPILE_WATCHER
+    if _COMPILE_WATCHER is None:
+        return
+    from mfm_tpu_torch.utils import contracts
+
+    if _COMPILE_WATCHER in contracts._WATCHERS:
+        contracts._WATCHERS.remove(_COMPILE_WATCHER)
+    _COMPILE_WATCHER = None
 
 
 @contextlib.contextmanager

@@ -22,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 from mfm_tpu_torch.utils import contracts
@@ -67,6 +68,7 @@ def build_all() -> dict[str, Path]:
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
+        t0 = time.perf_counter()
         procs = []
         for src, out in todo:
             tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
@@ -79,7 +81,10 @@ def build_all() -> dict[str, Path]:
             if proc.returncode == 0:
                 _log(out).write_text(err)
                 os.replace(tmp, out)  # atomic: a reader never sees a torn file
-                contracts.notify(contracts.KERNEL_BUILD_EVENT, src.name)
+                # all nvcc processes started together: each build's wall
+                # runs from that start until its own process is reaped
+                contracts.notify(contracts.KERNEL_BUILD_EVENT, src.name,
+                                 time.perf_counter() - t0)
             else:
                 tmp.unlink(missing_ok=True)
                 errors.append(f"{src.name}: nvcc exited {proc.returncode}\n{err}")
@@ -91,8 +96,10 @@ def build_all() -> dict[str, Path]:
 @functools.lru_cache(maxsize=None)
 def load(stem: str) -> ctypes.CDLL:
     """The built library of ``csrc/<stem>.cu``, building it at first use."""
+    t0 = time.perf_counter()
     lib = ctypes.CDLL(str(build_all()[stem]))
-    contracts.notify(contracts.KERNEL_LOAD_EVENT, stem)
+    contracts.notify(contracts.KERNEL_LOAD_EVENT, stem,
+                     time.perf_counter() - t0)
     return lib
 
 

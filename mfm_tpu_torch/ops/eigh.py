@@ -260,7 +260,7 @@ def batched_eigh(A: torch.Tensor, *, canonical_signs: bool = True,
     the Jacobi sweep count; ``torch.linalg.eigh`` (n > 128) ignores it.
     ``kernels=False`` runs the plain versions even on a CUDA tensor.
     """
-    if contracts._LISTENERS:
+    if contracts.listening():
         contracts.note_signature("batched_eigh", A)
     if A.shape[-1] > JACOBI_MAX_N:
         w, V = torch.linalg.eigh(A)
@@ -283,7 +283,7 @@ def batched_eigh_weighted_diag(A: torch.Tensor, d0: torch.Tensor, *,
     ``torch.linalg.eigh``; (w_i, h_i) pairing is consistent either way and
     callers rank-pair by sorting the two outputs.
     """
-    if contracts._LISTENERS:
+    if contracts.listening():
         contracts.note_signature("batched_eigh_weighted_diag", A, d0)
     n0 = A.shape[-1]
     d0b = d0.expand(A.shape[:-1])

@@ -66,12 +66,28 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: launches, and nowhere else
 LAUNCHES = {kernel: {"warp": 0, "block": 0}
             for kernel in ("jacobi_eigh", "jacobi_eigh_weighted")}
+#: the same launches by kernel and ``(B, n, sweeps)``, the figures a
+#: launch's operation count needs (``obs/profile.kernel_flops``)
+LAUNCH_SHAPES = {kernel: {} for kernel in LAUNCHES}
 
 
 def reset_launches():
-    for counts in LAUNCHES.values():
+    for kernel, counts in LAUNCHES.items():
         for design in counts:
             counts[design] = 0
+        LAUNCH_SHAPES[kernel].clear()
+
+
+def _count_launch(kernel: str, design: str, B: int, n: int, sweeps: int):
+    LAUNCHES[kernel][design] += 1
+    shapes = LAUNCH_SHAPES[kernel]
+    shapes[(B, n, sweeps)] = shapes.get((B, n, sweeps), 0) + 1
+
+
+def launch_shapes() -> dict:
+    """A copy of :data:`LAUNCH_SHAPES`: ``{kernel: {(B, n, sweeps):
+    launches}}``."""
+    return {kernel: dict(shapes) for kernel, shapes in LAUNCH_SHAPES.items()}
 
 
 def launch_counts() -> dict[str, int]:
@@ -185,7 +201,7 @@ def _launch_eigh(A: torch.Tensor, sweeps: int, design: str):
                     _pair_table(n, A.device).data_ptr(), B, n, sweeps, tiny,
                     stream)
     _raise_on(rc, f"jacobi_eigh ({design})")
-    LAUNCHES["jacobi_eigh"][design] += 1
+    _count_launch("jacobi_eigh", design, B, n, sweeps)
     return w, V
 
 
@@ -212,7 +228,7 @@ def _launch_weighted(A: torch.Tensor, d0: torch.Tensor, sweeps: int,
                     _pair_table(n, A.device).data_ptr(), B, n, sweeps, tiny,
                     stream)
     _raise_on(rc, f"jacobi_eigh_weighted ({design})")
-    LAUNCHES["jacobi_eigh_weighted"][design] += 1
+    _count_launch("jacobi_eigh_weighted", design, B, n, sweeps)
     return w, h
 
 

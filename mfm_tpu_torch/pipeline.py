@@ -23,7 +23,7 @@ import pandas, when called; ``_specific_panels`` and ``_portfolio_risk``
 are their numpy cores.
 
 Not ported here, raising ``NotImplementedError`` with its ROADMAP.md
-item: the sharded ``mesh=`` ingest (§A 16).
+item: the sharded ``mesh=`` ingest (§A 16d).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ from mfm_tpu_torch.models.risk_model import (
 from mfm_tpu_torch.obs import instrument as _telemetry
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md §A {item})")
 
 
@@ -443,7 +443,7 @@ def run_risk_pipeline(
     """
     config = config or PipelineConfig()
     if mesh is not None:
-        _not_ported("run_risk_pipeline(mesh=...)", 16)
+        _not_ported("run_risk_pipeline(mesh=...)", "16d")
     dev = resolve_device(device)
     if arrays is None:
         arrays = barra_frame_to_arrays(barra_df, industry_codes=industry_codes)
@@ -506,7 +506,7 @@ def append_risk_pipeline(
 
     config = config or PipelineConfig()
     if mesh is not None:
-        _not_ported("append_risk_pipeline(mesh=...)", 16)
+        _not_ported("append_risk_pipeline(mesh=...)", "16d")
     dev = resolve_device(device)
     state, meta = load_risk_state(state_path, dev, force=force)
     arrays = barra_frame_to_arrays(

@@ -8,8 +8,8 @@ run by :class:`ScenarioEngine` as one batched call per geometric
 S-bucket on the card (the PSD gate's eigh is the Jacobi kernel), with
 per-scenario rejection isolation and atomic ``scenario_manifest.json``
 evidence; :class:`SweepEngine` streams millions of shock worlds through
-a fixed-size top-k carry.  The grad-guided sweep refinement waits for
-ROADMAP.md §A 12.
+a fixed-size top-k carry, and refines each book's worst case by the
+gradient (``SweepEngine.sweep(refine=...)``).
 """
 
 from mfm_tpu_torch.scenario.counterfactual import (

@@ -264,7 +264,7 @@ class ScenarioEngine:
         ops = (base_t, self._put(shift), self._put(scale),
                self._put(vol_mult), self._put(corr_beta),
                self._put(passthrough))
-        if contracts._LISTENERS:
+        if contracts.listening():
             contracts.note_bucket(contracts.SCENARIO_BATCH, *ops)
         covs, projected, min_eig = scenario_batch(*ops)
         # crop to the true S before the host copy (the pad never ships);

@@ -39,7 +39,7 @@ path, and a dense local re-sweep around each book's best endpoint
 (:class:`_LocalSampler`) folds into the SAME carry, so the final worst
 case can only improve on the coarse top-1.  The reference's mesh
 sharding (``mesh=``) is not ported yet: it raises, naming ROADMAP.md
-§A 16.
+§A 16d.
 
 Host-side orchestration only: the device math lives in
 scenario/kernel.py.
@@ -407,14 +407,14 @@ class SweepEngine:
 
     Args mirror :class:`ScenarioEngine` (``device=None`` is the card).
     ``mesh`` must stay None: sharding the chunk axis over a device mesh
-    waits for ROADMAP.md §A 16.
+    waits for ROADMAP.md §A 16d.
     """
 
     def __init__(self, cov, *, factor_names=None, staleness: int = 0,
                  dtype=None, replay_lookup=None, mesh=None, device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "SweepEngine(mesh=) is not ported yet (ROADMAP.md §A 16)")
+                "SweepEngine(mesh=) is not ported yet (ROADMAP.md §A 16d)")
         self._scen = ScenarioEngine(cov, factor_names=factor_names,
                                     staleness=staleness, dtype=dtype,
                                     replay_lookup=replay_lookup,
@@ -699,7 +699,7 @@ class SweepEngine:
         put = self._put
         ops = (put(th), put(row), put(src), put(clean), put(reject),
                put(ident & clean))
-        if contracts._LISTENERS:
+        if contracts.listening():
             contracts.note_bucket(contracts.SWEEP_CHUNK, *ops)
         return sweep_chunk(carry, dev["lib"], dev["xs"], *ops, dev["lo"],
                            dev["width"])

@@ -2,9 +2,10 @@
 reason-bitmask plumbing (counterpart of ``mfm_tpu/serve/_checks.py``).
 
 The reference passes its array namespace (``jnp`` or ``np``) so the slab
-guards and the host-side request guards share one formula; here the slab
-guards are the only caller until the request guards are ported
-(ROADMAP.md §A 10), so the functions take tensors.
+guards and the host-side request guards share one formula.  Here the
+functions take tensors and the slab guards call them; the request guards
+(``serve/server.py``) run the same MAD formula in numpy, as the
+reference's request guard does, so that a request never reaches torch.
 
 ``torch.nanmedian`` returns the LOWER of the two middle values of an even
 count, where ``np.nanmedian`` and ``jnp.nanmedian`` average them, so the

@@ -39,9 +39,8 @@ parity contract on the response (``warm_start: {used, steps,
 steps_saved, parity: "seeded"}``) and tests hold it to a convergence
 tolerance instead.  Cold solves carry no ``warm_start`` field, which is
 what keeps every existing bitwise contract (batch-of-B == B singles,
-coalesced == sequential) intact when the index is idle.  Construction
-solves are not ported yet (ROADMAP.md §A 12), so nothing in the port
-consults the index until they land.
+coalesced == sequential) intact when the index is idle.  The served
+construction solves (``serve/server.py``) consult the index.
 
 Host-only module: JSON, dicts, locks.
 """

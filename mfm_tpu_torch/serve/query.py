@@ -290,7 +290,7 @@ class QueryEngine:
         times the device step alone).
         """
         w, bidx, B, bucket = self.pad_batch(weights, bench, bucket)
-        if contracts._LISTENERS:
+        if contracts.listening():
             contracts.note_bucket(contracts.QUERY_BATCH, w, bidx)
         if bucket <= self.chunk:
             out = self._rows(w, bidx)

@@ -49,12 +49,11 @@ import time
 from typing import Callable
 
 import numpy as np
-import torch
 
 from mfm_tpu_torch.obs import flightrec as _frec
 from mfm_tpu_torch.obs import instrument as _obs
 from mfm_tpu_torch.obs import trace as _trace
-from mfm_tpu_torch.serve._checks import mad_outlier_cells, names_of_mask
+from mfm_tpu_torch.serve._checks import names_of_mask
 from mfm_tpu_torch.utils.chaos import chaos_point
 
 # request-guard reason bitmask — its own namespace, deliberately disjoint
@@ -505,10 +504,14 @@ def parse_request(line: str, engine, policy: ServePolicy, scenarios=None):
             mask |= REQ_REASON_NAN_WEIGHT
             detail = f"{int((~np.isfinite(w)).sum())} non-finite weights"
         elif policy.weight_mad_k > 0 and w.shape[0] >= 4:
-            # the slab guards' MAD formula (serve/_checks.py), on a CPU
-            # tensor: a request never makes a trip to the card
-            out = mad_outlier_cells(torch.from_numpy(w.astype(np.float64)),
-                                    policy.weight_mad_k)
+            # the slab guards' MAD formula (serve/_checks.py) in numpy, as
+            # the reference's request guard runs it: a request never
+            # reaches torch, so the coalescer's admission lock never waits
+            # on device work
+            x = w.astype(np.float64)
+            dev = np.abs(x - np.nanmedian(x))
+            mad = np.nanmedian(dev)
+            out = dev > (policy.weight_mad_k * mad if mad > 0 else np.inf)
             if bool(out.any()):
                 mask |= REQ_REASON_WEIGHT_OUTLIER
                 detail = f"{int(out.sum())} weight outliers beyond " \

@@ -75,7 +75,7 @@ or manifest's ``kernels`` block) go to the plan's record under
 dates, which is what ``risk --update`` reads (it serves the rows past the
 checkpoint's last date); the in-process appends read the same csv back,
 so both sides see the same parsed bits.  ``shard-kill-mid-append`` needs
-the mesh and is not ported yet (ROADMAP.md §A 16): a run lists it under
+the mesh and is not ported yet (ROADMAP.md §A 16d): a run lists it under
 ``not_ported``, and asking for it by name exits non-zero.
 
 Everything is seeded; a failing plan replays exactly.  Exit 0 iff every
@@ -115,7 +115,7 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 DEFAULTS = dict(T=44, hist=32, slab=4, N=20, P=3, Q=2, sims=8)
 
 #: plans of plan_suite this harness does not run yet, by ROADMAP.md item
-NOT_PORTED_KINDS = {"shard_kill": "§A 16"}
+NOT_PORTED_KINDS = {"shard_kill": "§A 16d"}
 
 #: the plans of the serving surfaces (queries, scenarios, the sweep, grad,
 #: tracing, the flight recorder, the response cache and the fleet); the
@@ -2419,6 +2419,8 @@ RUNNERS = {"truncate": run_byte_fault, "corrupt": run_byte_fault,
 def _run_plan(fn, base, rec: dict) -> dict:
     """Run one plan, recording its status, wall and the kernel launches of
     the plan's own process (in-process appends and rebuilds)."""
+    import torch
+
     t0 = time.perf_counter()
     before, n_appends = _launches(), len(base.appends)
     try:
@@ -2427,6 +2429,8 @@ def _run_plan(fn, base, rec: dict) -> dict:
     except AssertionError as err:
         rec["status"] = "FAIL"
         rec["error"] = str(err)
+    if torch.device(base.device).type == "cuda":
+        torch.cuda.synchronize()   # the wall holds the plan's device work
     rec["wall_s"] = round(time.perf_counter() - t0, 3)
     rec["launches"] = _diff(_launches(), before)
     rec["append_launches"] = base.appends[n_appends:]

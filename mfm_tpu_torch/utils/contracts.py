@@ -29,10 +29,19 @@ place:
 A state that drifts in shape shows up as a new signature, as in JAX it
 shows up as a retrace; so does a serving batch that escapes its bucket.
 Signatures are recorded only while a listener is registered — with none,
-a call pays one empty-list test — so a warmup that should make the
+a call pays two empty-list tests — so a warmup that should make the
 steady state free runs under :func:`count_compiles` too (as a JAX warmup
 compiles).  A signature recorded once stays recorded for the process,
-like a jit cache entry.
+like a jit cache entry.  A build or load event carries its wall seconds
+(``obs/profile.capture_compile_walls`` reads them); a signature event
+carries none, as eager torch compiles nothing there.
+
+Besides the scoped :func:`count_compiles` listeners, a process may hold
+one *watcher* (:data:`_WATCHERS`), ``obs/instrument.watch_compiles``'s
+feed of ``mfm_jit_compiles_total``: like the reference's monitoring
+listener it stays registered for the process, and it is kept apart from
+:data:`_LISTENERS` so that a scoped counter's exit leaves that list as it
+found it.
 
 The reference's ``no_tracer_leaks`` wraps ``jax.checking_leaks``; eager
 torch has no tracers to leak, so it has no counterpart here.
@@ -57,14 +66,24 @@ CONSTRUCT_SOLVE = "GradEngine.construct_solve"
 
 #: registered listeners; only :func:`count_compiles` adds to it
 _LISTENERS: list = []
+#: process-lifetime watchers (``obs/instrument.watch_compiles``)
+_WATCHERS: list = []
 #: ``(dispatcher, shapes, dtype, device)`` signatures seen while listening
 _SEEN: set = set()
 
 
-def notify(event: str, detail: str = "") -> None:
-    """Tell every registered listener about ``event``."""
-    for fn in list(_LISTENERS):
-        fn(event, detail)
+def listening() -> bool:
+    """Whether any listener or watcher would receive an event: the gate a
+    dispatcher tests before :func:`note_signature`."""
+    return bool(_LISTENERS or _WATCHERS)
+
+
+def notify(event: str, detail: str = "",
+           seconds: float | None = None) -> None:
+    """Tell every registered listener and watcher about ``event``
+    (``seconds``: the wall of a build or load, None for a signature)."""
+    for fn in list(_LISTENERS) + list(_WATCHERS):
+        fn(event, detail, seconds)
 
 
 def signature_of(where: str, *tensors) -> tuple:
@@ -76,8 +95,8 @@ def signature_of(where: str, *tensors) -> tuple:
 def note_signature(where: str, *tensors,
                    event: str = NEW_SIGNATURE_EVENT) -> None:
     """Record a dispatcher call's signature; the first of each is an
-    ``event``.  Callers test ``_LISTENERS`` first, so an unobserved
-    dispatch costs one empty-list test."""
+    ``event``.  Callers test :func:`listening` first, so an unobserved
+    dispatch costs two empty-list tests."""
     sig = signature_of(where, *tensors)
     if sig not in _SEEN:
         _SEEN.add(sig)
@@ -97,7 +116,8 @@ class CompileCounter:
         self.count = 0
         self.events: list[str] = []
 
-    def __call__(self, event: str, detail: str = "") -> None:
+    def __call__(self, event: str, detail: str = "",
+                 seconds: float | None = None) -> None:
         self.count += 1
         self.events.append(f"{event} {detail}".rstrip())
 

@@ -422,8 +422,8 @@ def test_bias_plot_without_matplotlib_exits_as_the_reference(runs):
     assert msgs[0] == msgs[1] and "needs matplotlib" in msgs[0]
 
 
-@pytest.mark.parametrize("flag,item", [(["--barra", "x.csv", "--nw-method",
-                                         "associative"], "§A 16"),
+@pytest.mark.parametrize("flag,item", [(["--barra", "x.csv", "--mesh",
+                                         "1x2"], "§A 16"),
                                        (["--barra", "x.csv", "--mesh",
                                          "2x1"], "§A 16")])
 def test_unported_flags_name_their_item(flag, item):

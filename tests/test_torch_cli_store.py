@@ -41,6 +41,7 @@ import torch
 from mfm_tpu.cli import main as ref_main
 from mfm_tpu.data.etl import PanelStore as RefStore
 from mfm_tpu.data.synthetic import synthetic_collections as ref_collections
+from mfm_tpu.obs import instrument as ref_instrument
 from mfm_tpu_torch.cli import main
 from mfm_tpu_torch.data.artifacts import _numpy, load_artifact
 from mfm_tpu_torch.data.columns import take
@@ -48,6 +49,7 @@ from mfm_tpu_torch.data.csvio import read_csv
 from mfm_tpu_torch.data.etl import PanelStore, read_table
 from mfm_tpu_torch.data.prepare import prepare_factor_inputs
 from mfm_tpu_torch.data.synthetic import synthetic_collections
+from mfm_tpu_torch.obs import instrument
 
 from tests.test_torch_store import canon
 from tests.test_xlsx import write_xlsx
@@ -159,11 +161,34 @@ def test_prepare_and_factors_prepared_match_the_reference(stores):
         (root / "port_fac" / "barra_data.csv").read_bytes()
 
 
+#: the process-lifetime counters ``guard_summary_from_registry`` reads,
+#: which the ``health`` verdict's quarantine-rate check is built from
+GUARD_COUNTERS = ("SERVED_DATES_TOTAL", "QUARANTINED_DATES_TOTAL",
+                  "GUARD_REASON_TOTAL", "SERVED_COV_STALENESS")
+
+
+def zero_guard_counters():
+    """Both packages' guard counters back to zero.  Whatever guarded
+    appends ran earlier in this process (another test file on the same
+    worker) would otherwise reach one package's ``health`` only
+    (``REGISTRY.reset()`` drops the registry's entries, not the module
+    level metrics' counts)."""
+    for mod in (instrument, ref_instrument):
+        for name in GUARD_COUNTERS:
+            metric = getattr(mod, name)
+            with metric._lock:
+                metric._series.clear()
+    assert instrument.guard_summary_from_registry() == \
+        ref_instrument.guard_summary_from_registry()
+
+
 @pytest.fixture(scope="module")
 def pipelines(stores):
-    """Both pipelines over the whole stores, the port's with --to-store."""
+    """Both pipelines over the whole stores, the port's with --to-store,
+    each from zeroed guard counters."""
     root = stores
     recs = {}
+    zero_guard_counters()
     for pkg in ("ref", "port"):
         extra = (["--to-store", str(root / "fstore")] if pkg == "port"
                  else [])
@@ -195,6 +220,17 @@ def test_pipeline_matches_the_reference(pipelines):
         wh, wi, wrows = read_exact(want / f"{name}.csv")
         assert gh == wh and gi == wi, name
         close(numbers(grows), numbers(wrows))
+
+
+def test_zeroed_guard_counters_give_both_packages_one_summary():
+    """A guarded append that quarantined a date in one package only (the
+    in-process fault plans do so in the port) reads as ``degraded`` there
+    until the counters are zeroed; after, both summaries are the same."""
+    instrument.SERVED_DATES_TOTAL.inc(40)
+    instrument.QUARANTINED_DATES_TOTAL.inc(1)
+    assert instrument.guard_summary_from_registry()["quarantine_rate"] > 0.02
+    zero_guard_counters()
+    assert instrument.guard_summary_from_registry()["served_dates"] == 0
 
 
 def test_pipeline_is_the_in_process_api(pipelines):
@@ -315,9 +351,22 @@ def test_refusals_exit_with_the_reference_message(stores, argv):
     (["risk", "--barra", "x.csv", "--nw-method", "associative"],
      "--nw-method associative"),
 ])
-def test_mesh_and_associative_name_their_item(argv, flag):
-    code, _ = run("port", argv)
-    assert "not ported" in code and flag in code and "§A 16" in code
+def test_mesh_and_associative_name_their_item(argv, flag, tmp_path,
+                                               monkeypatch):
+    """``--mesh`` names its item (§A 16d); ``--nw-method associative`` is
+    ported, so the command gets past its flags to its input and fails
+    there exactly as the reference does."""
+    monkeypatch.chdir(tmp_path)
+    if flag == "--mesh":
+        code, _ = run("port", argv)
+        assert "not ported" in code and flag in code and "§A 16d" in code
+        return
+    errs = []
+    for pkg in ("ref", "port"):
+        with pytest.raises((ValueError, OSError)) as exc:
+            run(pkg, argv)
+        errs.append((type(exc.value), str(exc.value)))
+    assert errs[0] == errs[1]
 
 
 @pytest.mark.parametrize("argv", [

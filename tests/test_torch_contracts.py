@@ -25,6 +25,14 @@ from mfm_tpu_torch.utils.contracts import (
 )
 
 
+@pytest.fixture(autouse=True)
+def fresh_signatures(monkeypatch):
+    """Each test from an empty signature set: a ``--metrics-dir`` CLI run
+    earlier in the process (``obs/instrument.watch_compiles``) records
+    every dispatch's signature for the process, as a jit cache would."""
+    monkeypatch.setattr(contracts, "_SEEN", set())
+
+
 @jax.jit
 def _double(x):
     return x * 2.0

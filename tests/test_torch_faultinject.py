@@ -54,7 +54,7 @@ def test_the_ported_plans_are_the_risk_path_plans():
     # mesh's plan is left
     assert fi.SERVICE_KINDS <= set(fi.RUNNERS)
     assert len([p for p in plan_suite(0) if p.kind in fi.RUNNERS]) == 28
-    assert fi.NOT_PORTED_KINDS == {"shard_kill": "§A 16"}
+    assert fi.NOT_PORTED_KINDS == {"shard_kill": "§A 16d"}
 
 
 @pytest.mark.parametrize("plan", PORTED, ids=[p.name for p in PORTED])
@@ -132,7 +132,7 @@ def test_main_lists_the_plans_not_ported(tmp_path, monkeypatch, capsys):
     assert sorted(ran) == sorted(every + ["steady-state"])
     assert summary["plans"] == 29 and summary["failed"] == []
     listed = {r["plan"]: r["roadmap"] for r in summary["not_ported"]}
-    assert listed == {"shard-kill-mid-append": "§A 16"}
+    assert listed == {"shard-kill-mid-append": "§A 16d"}
     assert json.loads(out.read_text())["summary"] == summary
 
 

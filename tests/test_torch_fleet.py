@@ -171,9 +171,10 @@ def test_coalescer_full_linger_eof_triggers():
 def test_coalescer_steady_state_launches_no_kernel():
     """With the coalescer on, warmed (type, bucket) shapes stay steady:
     repeated same-shape flushes launch no CUDA kernel and load no kernel
-    library, and each round answers bitwise as the sequential loop (the
-    port's compile counter, ``assert_max_compiles``, waits for ROADMAP.md
-    §A 15)."""
+    library, and each round answers bitwise as the sequential loop (read
+    from the launch counts and the library loads directly; the port's
+    compile counter, ``utils/contracts.assert_max_compiles``, holds the
+    buckets in ``tests/test_torch_bucket_contracts.py``)."""
     from mfm_tpu_torch.ops import _build
     from mfm_tpu_torch.ops.eigh_cuda import launch_counts
 

@@ -275,7 +275,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     assert {f"mfm_tpu_torch/{m}.py" for m in (
         "cli", "data/etl", "serve/transport", "serve/replica",
         "serve/frontend", "obs/slo", "obs/manifest", "obs/exporters",
-        "obs/trace", "obs/instrument")} <= scanned
+        "obs/trace", "obs/instrument", "obs/profile", "lint",
+        "analysis/__init__", "analysis/sync")} <= scanned
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -289,7 +290,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     {"mesh": {"n_date_shards": 2, "n_stock_shards": 1}},
 ])
 def test_unported_features_raise(fields):
-    if "eigen_mc_dtype" in fields:  # ported: the bfloat16 Monte-Carlo
+    # ported: the bfloat16 Monte-Carlo, and the associative Newey-West
+    if "eigen_mc_dtype" in fields or "nw_method" in fields:
         port = config_from_reference(fields)
         assert port.identity() == RefConfig(**fields).identity()
         return

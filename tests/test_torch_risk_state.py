@@ -431,10 +431,9 @@ def test_update_rejects_mismatched_identity(panels):
 
 
 def test_state_requires_scan_method(panels):
-    """The port cannot build an associative config yet, so the refusal is
-    reached with a config that claims the method after construction."""
-    cfg = RiskModelConfig(eigen_n_sims=8, eigen_sim_length=48)
-    object.__setattr__(cfg, "nw_method", "associative")
+    """Every resumable entry point refuses the associative method."""
+    cfg = RiskModelConfig(eigen_n_sims=8, eigen_sim_length=48,
+                          nw_method="associative")
     with pytest.raises(ValueError, match="scan"):
         _model(panels, cfg=cfg).init_state()
     _, st = _model(panels, slice(0, 20)).init_state()

@@ -331,14 +331,10 @@ def test_device_cuda_raises_without_a_card(ckpts):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["risk", "--barra", "x.csv", "--nw-method", "associative"], "§A 16"),
-    (["risk", "--barra", "x.csv", "--mesh", "2x1"], "§A 16"),
-    (["sync"], "§A 16"),
-    (["pipeline", "--store", "s", "--mesh", "2x1"], "§A 16"),
-    (["pipeline", "--store", "s", "--nw-method", "associative"], "§A 16"),
-    (["lint"], "§A 16"),
-    (["audit"], "§A 16"),
-    (["doctor", ".", "--audit"], "§A 16"),
+    (["risk", "--barra", "x.csv", "--mesh", "2x1"], "§A 16d"),
+    (["pipeline", "--store", "s", "--mesh", "2x1"], "§A 16d"),
+    (["audit"], "§A 22"),
+    (["doctor", ".", "--audit"], "§A 22"),
 ])
 def test_unported_commands_name_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit) as exc:
