@@ -95,7 +95,23 @@ same csv, within the ``factors`` budgets of float64), ``cli_scenario``
 checkpoint, bitwise the in-process engines; ``doctor --scenarios``) and
 ``cli_grad`` (``grad reverse`` on 64 books, ``sensitivity``, ``construct
 min_vol`` on 100 books, each report bitwise ``GradEngine``); all but the
-headline ``risk`` go through ``cli.main`` in this process.  Then the host
+headline ``risk`` go through ``cli.main`` in this process.  Then the
+mesh, on virtual ('date', 'stock') meshes of the card
+(``MFM_TORCH_VIRTUAL_DEVICES=8``: each shard a separate tensor on
+cuda:0, computed one after another, so no scaling shows), in six phases,
+each record stating its mesh, ``virtual`` and the shard devices, each
+sharded run bitwise its unsharded one, each kernel launch held against
+its plain version at its shard's shape and the launches counted by
+kernel and batch: ``mesh_run_fused`` (config 1 on 2x2 and 4x2, which
+pads 2 dates; walls beside the unsharded run's), ``mesh_serve``
+(``init_state`` on 1378 dates, two guarded 4-date updates on 2x2, no
+compile-contract event after the first), ``mesh_pipeline``
+(``run_risk_pipeline(mesh=2x2)`` on the CSI300 table, its
+``LazyBarraArrays`` undensified, and the append to 1390),
+``mesh_cli`` (``risk --update --mesh 2x2`` as a subprocess, its tables
+the in-process run's), ``mesh_sweep`` (``SweepEngine(mesh=2x2)``, 16
+chunks) and ``distributed`` (``initialize`` over NCCL with one process,
+``make_global_mesh``, one ``all_reduce`` and one ``all_gather``).  Then the host
 data layer at CSI300 width, in three phases: ``store_build`` (the port's
 ``synthetic_collections`` at T = 1390, N = 300 + 1, 31 industries, about
 403,000 price rows; each collection's read, the prepare path's walls;
@@ -108,17 +124,20 @@ to date a part a day, ``pipeline --append`` bitwise ``pipeline`` from
 scratch, ``risk --barra-store`` bitwise the cut run; ``factors
 --prepared`` bitwise ``run_factor_pipeline``; each process's launches).  Then the
 faults, in two phases: ``fault_matrix`` (``python -m
-mfm_tpu_torch.tools.faultinject``'s matrix at CSI300 width, all 28 ported
-plans and steady-state: the plans bound by CLI subprocesses in four
-concurrent harness processes — ``risk --update``, ``serve``, ``scenario
+mfm_tpu_torch.tools.faultinject``'s matrix at CSI300 width, all 29 plans
+and steady-state: the plans bound by CLI subprocesses in four
+concurrent harness processes, started with the CLI section and running
+beside it, the mesh and the store — ``risk --update`` (one of them with
+``--mesh 2x2``), ``serve``, ``scenario
 run``, ``scenario sweep``, ``grad sensitivity``, trace and
 flight-recorder processes SIGKILLed at their crash points, the cache's
 generation fence across a torn publish — the rest in this process
-meanwhile: the fenced checkpoint's byte faults, poisoned slabs under the
+after the store: the fenced checkpoint's byte faults, poisoned slabs under the
 carry-freeze contract, the retry drill, the coalescer's and the cache's
 lock schedules, the query plans, the scenario poison, steady-state on the
 compile-contract counter for the update and per bucket for the query
-loop; then the three fleet drills; every plan bitwise, the launches of
+loop; the three fleet drills in one more harness process once the
+groups end; every plan bitwise, the launches of
 each guarded append and completed subprocess) and
 ``report_crosscheck`` (``report`` over cli_risk's results against a
 numpy recomputation, ``--plot``, ``crosscheck --gate 0`` over the store's
@@ -150,7 +169,8 @@ run can spare), and, after holding it against
 its plain version there, at the shapes a one-date update launches, and
 samples the SM clock from ``nvidia-smi`` while each warp kernel runs.
 
-Output: the card's name and power limit first; one JSON line per phase;
+Output: the card's name and power limit first; one JSON line per phase,
+each with its seconds since the run began (``t_s``);
 the ``{"kernels": [...]}`` line second to last; and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 the last line is printed.  Without a CUDA device it exits 1 at once.
@@ -158,6 +178,7 @@ the last line is printed.  Without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
@@ -198,12 +219,69 @@ def require(ok, what: str):
         raise SmokeFailure(what)
 
 
+#: the host clock when the run began; every phase line carries its seconds
+#: since then (``t_s``), so a run's lines give its timeline
+T_START = time.perf_counter()
+
+
 def emit(tag: str, **fields):
-    print(json.dumps({"phase": tag, **fields}), flush=True)
+    print(json.dumps({"phase": tag, **fields,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def sync():
     torch.cuda.synchronize()
+
+
+#: every subprocess :func:`start_cli` started; any still alive when the run
+#: ends (a failed check) is killed then
+_STARTED: list = []
+
+
+def _kill_started() -> None:
+    for proc in _STARTED:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+atexit.register(_kill_started)
+
+
+def start_cli(argv, env=None) -> tuple:
+    """``python -m mfm_tpu_torch.cli *argv`` started as a subprocess on the
+    card (the CLI's default device), its output going to files so that it
+    never waits on a pipe: (process, stdout, stderr, start).  It runs while
+    this process does other work; :func:`finish_cli` collects it."""
+    out = tempfile.TemporaryFile("w+")
+    err = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mfm_tpu_torch.cli", *map(str, argv)],
+        cwd=str(ROOT), stdout=out, stderr=err, text=True, env=env)
+    _STARTED.append(proc)
+    return proc, out, err, time.perf_counter()
+
+
+def finish_cli(started, what: str, timeout: float = 600) -> tuple:
+    """The subprocess :func:`start_cli` started, to its end: (its last
+    standard-output line as JSON, its wall from start to end, its standard
+    error).  A non-zero exit fails ``what``."""
+    proc, out, err, t0 = started
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    require(proc.returncode == 0, f"{what}: exit {proc.returncode}: "
+            f"{stderr[-2000:]}")
+    return json.loads(stdout.strip().splitlines()[-1]), wall, stderr
 
 
 def fill_bytecode_cache() -> subprocess.Popen:
@@ -267,9 +345,14 @@ def sm_clock_mhz(fn, reps: int) -> dict:
 
 
 def rel_per_matrix(x, ref):
-    """max over the batch of max|x - ref| / max|ref| within each matrix."""
+    """max over the batch of max|x - ref| / max|ref| within each matrix;
+    a matrix whose reference is all zero (a mesh's padded date) counts 0
+    where ``x`` is all zero too, and inf where it is not."""
     flat = (x - ref).abs().flatten(1).amax(1)
-    return float((flat / ref.abs().flatten(1).amax(1)).max())
+    den = ref.abs().flatten(1).amax(1)
+    rel = torch.where(den > 0, flat / torch.where(den > 0, den, 1.0),
+                      torch.where(flat > 0, float("inf"), 0.0))
+    return float(rel.max()) if rel.numel() else 0.0
 
 
 def recon_orth(w, V, A):
@@ -416,12 +499,20 @@ def check_kernels(gen):
     emit("kernel_check", case="rank_deficient_slots", ok=True)
 
 
-def profile_run(fn, top: int = 6) -> dict:
+def profile_run(fn, top: int = 6, hold: bool = False) -> dict:
     """Device busy time of one call of ``fn`` from ``torch.profiler``
     (CUDA activity only, to keep the tracer's host cost low): kernel
     launches, summed kernel time, its share of the call's wall, and the
     kernels that took the most device time.  ``busy_s`` is None when the
-    tracer saw no device activity."""
+    tracer saw no device activity.  The device events are read from the
+    trace as recorded (``kineto_results``) and counted as ``key_averages``
+    counts them: by name, each event's duration its device self time,
+    async and hidden events left out, names whose total is 0 dropped;
+    without ``key_averages``' host-side event tree, which took ~25 s at
+    the main path's ~84,000 kernels.  With ``hold``, ``key_averages`` of
+    the same trace must give the same rows (a small call's)."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _rewrite_name
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -429,17 +520,40 @@ def profile_run(fn, top: int = 6) -> dict:
         fn()
         sync()
         wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows) / 1e6
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()
+                or getattr(e, "is_hidden_event", bool)()):
+            continue
+        row = by_name.setdefault(e.name(), [0, 0])
+        row[0] += 1
+        row[1] += e.duration_ns()
+    # the names as key_averages shows them (demangled), merged
+    named = {}
+    for k, (n, ns) in by_name.items():
+        row = named.setdefault(_rewrite_name(k, with_wildcard=True), [0, 0])
+        row[0] += n
+        row[1] += ns
+    rows = sorted(((k, n, ns) for k, (n, ns) in named.items() if ns > 0),
+                  key=lambda r: r[2], reverse=True)
+    if hold:
+        want = {e.key: (e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type.name == "CUDA"
+                and e.self_device_time_total > 0}
+        require(sorted(want) == sorted(k for k, _, _ in rows) and all(
+            want[k][0] == n and abs(want[k][1] - ns / 1e3) <= 1e-3 * n
+            for k, n, ns in rows),
+            f"profile_run: the trace's device rows are not key_averages': "
+            f"{rows[:4]} against {sorted(want.items())[:4]}")
+    busy = sum(ns for _, _, ns in rows) / 1e9
     return {"wall_s": wall,
             "busy_s": busy if rows else None,
             "busy_share": busy / wall if rows else None,
-            "device_kernels": sum(e.count for e in rows),
-            "top": [{"kernel": e.key[:80], "count": e.count,
-                     "device_s": e.self_device_time_total / 1e6}
-                    for e in rows[:top]]}
+            "device_kernels": sum(n for _, n, _ in rows),
+            "top": [{"kernel": k[:80], "count": n, "device_s": ns / 1e9}
+                    for k, n, ns in rows[:top]]}
 
 
 def bound(kernel, B, n, sweeps, in_bytes, out_bytes):
@@ -730,8 +844,9 @@ def serve_update(ctx) -> dict:
         "budget_records": records,
         "update_wall": wall_stats(walls),
         "launches_per_update": per_update,
+        # the one profile held against key_averages: ~300 kernels
         "profile_one_update": profile_run(
-            lambda: model(slice(T - 1, T)).update(seq_state)),
+            lambda: model(slice(T - 1, T)).update(seq_state), hold=True),
     }
     emit("serve_update", **res)
     require(not failed and not failed_slab,
@@ -4442,10 +4557,11 @@ def cli_risk_phase(ctx) -> dict:
     ``risk_outputs.npz`` bit for bit ``run_risk_pipeline`` in this process
     on the same csv and seed; the subprocess's kernel launches (the warp
     design: one weighted launch, two or more full ones); the run manifest
-    beside the checkpoint, and ``doctor`` on it; a second subprocess with
-    ``--profile`` for the busy share and peak memory.  The csv is read
+    beside the checkpoint, and ``doctor`` on it.  A second subprocess with
+    ``--profile``, for the busy share and peak memory, starts with the
+    first and is collected by phase cli_risk_profile.  The csv is read
     here twice, by byte positions and through the ``csv`` module, each
-    timed, the two bit for bit the same."""
+    timed, the two bit for bit the same, while both subprocesses run."""
     import numpy as np
 
     from mfm_tpu_torch import PipelineConfig, RiskModelConfig
@@ -4462,26 +4578,15 @@ def cli_risk_phase(ctx) -> dict:
     out, ck = os.path.join(d, "risk_out"), os.path.join(d, "ck", "state.npz")
     mdir, pdir = os.path.join(d, "metrics"), os.path.join(d, "profile")
 
-    def risk(*flags):
-        cmd = [sys.executable, "-m", "mfm_tpu_torch.cli", "risk", "--barra",
-               path, *flags]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True,
-                              text=True, timeout=600)
-        require(proc.returncode == 0, f"cli_risk: exit {proc.returncode}: "
-                f"{proc.stderr[-2000:]}")
-        return (json.loads(proc.stdout.strip().splitlines()[-1]),
-                time.perf_counter() - t0)
-
-    rec, process_s = risk("--out", out, "--save-state", ck, "--quarantine",
-                          "--specific-risk", "--save-outputs",
-                          "--portfolio-bias", "100", "--metrics-dir", mdir)
     # the profiler's post-processing of ~84,000 kernels lands in the
-    # record's wall, so the busy share and peak come from a run of their own
-    prof_rec, prof_process_s = risk("--out", os.path.join(d, "risk_prof"),
-                                    "--profile", pdir)
-    with open(os.path.join(pdir, "profile_summary.json")) as fh:
-        prof = json.load(fh)
+    # record's wall, so the busy share and peak come from a run of their
+    # own; both processes run at once, while this one reads the csv
+    started = start_cli(["risk", "--barra", path, "--out", out,
+                         "--save-state", ck, "--quarantine", "--specific-risk",
+                         "--save-outputs", "--portfolio-bias", "100",
+                         "--metrics-dir", mdir])
+    prof_started = start_cli(["risk", "--barra", path, "--out",
+                              os.path.join(d, "risk_prof"), "--profile", pdir])
 
     parsed, read_s = timed(lambda: read_csv(path))
     # the same file through the csv module's reading (the byte-position
@@ -4501,6 +4606,7 @@ def cli_risk_phase(ctx) -> dict:
     res, run_s = timed(lambda: run_risk_pipeline(parsed, config=cfg,
                                                  with_state=True, device=dev))
     spec = res._specific_panels(42.0, 10, 1.0, 10)[1]
+    rec, process_s, _ = finish_cli(started, "cli_risk")
     equal = tables_equal(out, res.outputs, res.arrays, specific=spec)
     with open(os.path.join(out, "portfolio_bias.json")) as fh:
         equal["portfolio_bias"] = json.load(fh) == res.portfolio_bias(
@@ -4520,9 +4626,7 @@ def cli_risk_phase(ctx) -> dict:
               "csv_reads_bitwise": reads_bitwise,
               "stages_s": stage_seconds(mdir),
               "jit_compiles_total": jit_compiles(mdir),
-              "in_process_run_s": run_s, "profile": prof,
-              "profiled_cli_wall_s": prof_rec["wall_s"],
-              "profiled_process_s": prof_process_s,
+              "in_process_run_s": run_s,
               "kernels": rec["kernels"], "tables_bitwise": equal,
               "manifest": {"backend": man["backend"],
                            "checkpoint": man["checkpoint"],
@@ -4547,14 +4651,29 @@ def cli_risk_phase(ctx) -> dict:
             and man["checkpoint"] == "state.npz" and doctor_rc == 0,
             f"cli_risk: the manifest or doctor: {result['manifest']}, "
             f"doctor {doctor_rc}")
-    require(prof["busy_share"] is not None,
-            "cli_risk: the profiler saw no device time")
     require(result["jit_compiles_total"] >= 1,
             "cli_risk: the --metrics-dir textfile counts no compile event "
             f"({result['jit_compiles_total']})")
     ctx["cli"] = {"dir": d, "csv": path, "ck": ck, "result": res,
-                  "parsed": parsed, "out": out}
+                  "parsed": parsed, "out": out,
+                  "profile": (prof_started, pdir)}
     return result
+
+
+def cli_risk_profile_phase(ctx) -> dict:
+    """Phase cli_risk_profile: the ``risk --profile`` subprocess phase
+    cli_risk started beside its first, which ran on while the section's
+    later phases did, to its end: its busy share and peak memory."""
+    started, pdir = ctx["cli"].pop("profile")
+    rec, process_s, _ = finish_cli(started, "cli_risk --profile")
+    with open(os.path.join(pdir, "profile_summary.json")) as fh:
+        prof = json.load(fh)
+    res = {"profile": prof, "profiled_cli_wall_s": rec["wall_s"],
+           "profiled_process_s": process_s}
+    emit("cli_risk_profile", **res)
+    require(prof["busy_share"] is not None,
+            "cli_risk: the profiler saw no device time")
+    return res
 
 
 def cli_update_phase(ctx) -> dict:
@@ -4567,6 +4686,8 @@ def cli_update_phase(ctx) -> dict:
     summary counts it (the registry's counters moved by one quarantined
     date and 40 served ones); its health is ``evaluate_health`` of the
     appended outputs under that guard summary."""
+    import shutil
+
     import numpy as np
 
     from mfm_tpu_torch.data.artifacts import load_risk_outputs
@@ -4611,6 +4732,10 @@ def cli_update_phase(ctx) -> dict:
              os.path.join(d, f"head_{leg}"), "--save-state", ck, *flags,
              *pin]))
         require(code == 0, f"cli_update {leg}: --save-state exit {code}")
+        if leg == "plain":
+            # phase mesh_cli's --update --mesh starts from this checkpoint
+            c["mesh_ck"] = os.path.join(d, "ck_mesh", "state.npz")
+            shutil.copytree(os.path.dirname(ck), os.path.dirname(c["mesh_ck"]))
         before = guard_summary_from_registry()
         reset_launches()
         (code, txt, _), walls[f"{leg}_update_s"] = timed(lambda: cli_call(
@@ -4993,6 +5118,569 @@ def cli_grad_phase(ctx) -> dict:
     return res
 
 
+# -- the mesh: virtual ('date', 'stock') meshes over the card ------------------
+
+#: the devices the mesh section's meshes draw on: the card, repeated
+#: (``MFM_TORCH_VIRTUAL_DEVICES``); every mesh here is virtual, its shards
+#: separate tensors on cuda:0, computed one after another
+MESH_DEVICES = 8
+#: the meshes ``run_fused`` runs on (4x2 pads 2 dates, 1390 -> 1392) and
+#: the timed repetitions of each, 2x2's in turns with the unsharded run;
+#: 4x2's cut to one, the smoke's room
+MESH_SHAPES = ((2, 2), (4, 2))
+MESH_WALL_REPS = {(2, 2): 3, (4, 2): 1}
+#: the serving split of ``mesh_serve``: the fault geometry's history, then
+#: two 4-date slabs
+MESH_SERVE_T0, MESH_SLAB = 1378, 4
+#: the sharded sweep's chunks of SWEEP_CHUNK scenarios
+MESH_SWEEP_CHUNKS = 16
+
+
+class recorded_launches:
+    """Within the block, every launch of either kernel's wrapper records a
+    copy of its inputs (the dispatchers import the wrappers when they
+    call them), so each launch can be held against its plain version at
+    its own shape afterwards (:func:`hold_recorded`)."""
+
+    def __enter__(self):
+        from mfm_tpu_torch.ops import eigh_cuda
+
+        self.mod, self.calls = eigh_cuda, []
+        self.full = eigh_cuda.jacobi_eigh_cuda
+        self.weighted = eigh_cuda.jacobi_eigh_weighted_diag_cuda
+
+        def full(A, sweeps=None, canonical_signs=True, sort=True):
+            self.calls.append(("full", A.clone(), None, sweeps))
+            return self.full(A, sweeps=sweeps,
+                             canonical_signs=canonical_signs, sort=sort)
+
+        def weighted(A, d0, sweeps=None):
+            self.calls.append(("weighted", A.clone(), d0.clone(), sweeps))
+            return self.weighted(A, d0, sweeps=sweeps)
+
+        eigh_cuda.jacobi_eigh_cuda = full
+        eigh_cuda.jacobi_eigh_weighted_diag_cuda = weighted
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.mod.jacobi_eigh_cuda = self.full
+        self.mod.jacobi_eigh_weighted_diag_cuda = self.weighted
+
+
+def hold_recorded(calls, where: str) -> dict:
+    """Every recorded launch held against the kernel's plain version on its
+    own inputs, at its shard's shape: the weighted kernel's w bitwise and
+    h within 1e-4 per matrix, the full kernel's w and V bitwise, NaN in
+    the same places (a mesh-padded date has no stock, so its regression
+    and Newey-West give NaN, which the kernels carry and the crop drops;
+    errors are over finite entries).  The first launch of each shape is
+    also timed (CUDA events, the warp design) beside its bound.  Emits
+    ``{where}_check``."""
+    from mfm_tpu_torch.ops import eigh as E
+    from mfm_tpu_torch.ops.eigh_cuda import (
+        _launch_eigh,
+        _launch_weighted,
+        jacobi_eigh_cuda,
+        jacobi_eigh_weighted_diag_cuda,
+    )
+
+    held, shapes = [], {}
+    for kind, A, d0, sweeps in calls:
+        B, n = A.shape[0], A.shape[-1]
+        sw = sweeps if sweeps is not None else E._sweeps_for(n, A.dtype)
+        key = f"{kind} ({B}, {n}, {n}), {sw}"
+        if kind == "weighted":
+            w, h = jacobi_eigh_weighted_diag_cuda(A, d0, sweeps=sw)
+            wp, hp = E.jacobi_eigh_weighted_diag_slots(A, d0, sw)
+            rows = torch.isfinite(hp).all(dim=1)
+            ok = same(w, wp) and torch.equal(torch.isfinite(h),
+                                             torch.isfinite(hp)) \
+                and rel_per_matrix(h[rows], hp[rows]) <= 1e-4
+            err = max(max_abs_diff(w, wp), max_abs_diff(h, hp))
+            if key not in shapes:
+                b = weighted_kernel_bound(B, n, sw)
+                shapes[key] = {"ms": time_ms(lambda: _launch_weighted(
+                    A, d0, sw, "warp"), 3), "bound_ms": b["bound_ms"],
+                    "bound_by": b["bound_by"]}
+        else:
+            w, V = jacobi_eigh_cuda(A, sweeps=sw, sort=False,
+                                    canonical_signs=False)
+            wp, Vp = E.jacobi_eigh_slots(A, sw)
+            ok = same(w, wp) and same(V, Vp)
+            err = max(max_abs_diff(w, wp), max_abs_diff(V, Vp))
+            if key not in shapes:
+                b = full_kernel_bound(B, n, sw)
+                shapes[key] = {"ms": time_ms(lambda: _launch_eigh(
+                    A, sw, "warp"), 10), "bound_ms": b["bound_ms"],
+                    "bound_by": b["bound_by"]}
+        held.append({"shape": key, "ok": ok, "max_abs_err": err})
+        del w, wp
+    calls.clear()
+    res = {"launches_held": len(held), "all_ok": all(h["ok"] for h in held),
+           "max_abs_err": {k: max(h["max_abs_err"] for h in held
+                                  if h["shape"] == k) for k in shapes},
+           "shard_shapes": shapes}
+    emit(f"{where}_check", **res)
+    require(res["all_ok"], f"{where}: a kernel launch disagrees with its "
+            f"plain version at its shard's shape: {held}")
+    return res
+
+
+def shard_launches(what: str, want_weighted: dict, want_full: dict) -> dict:
+    """The launches since the last reset, by kernel and batch: exactly
+    ``want_weighted`` / ``want_full`` (``{B: launches}``), all of the warp
+    design."""
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, launch_shapes
+
+    counts, shapes = launch_counts(), launch_shapes()
+    by_b = {k: {} for k in shapes}
+    for kernel, per in shapes.items():
+        for (B, _, _), c in per.items():
+            by_b[kernel][B] = by_b[kernel].get(B, 0) + c
+    got = {"jacobi_eigh_weighted": by_b["jacobi_eigh_weighted"],
+           "jacobi_eigh": by_b["jacobi_eigh"]}
+    require(got == {"jacobi_eigh_weighted": want_weighted,
+                    "jacobi_eigh": want_full}
+            and counts["jacobi_eigh/block"] == 0
+            and counts["jacobi_eigh_weighted/block"] == 0,
+            f"{what}: launches by batch {got}, want weighted "
+            f"{want_weighted} and full {want_full}, the warp design only")
+    return counts
+
+
+def _merge(*pairs) -> dict:
+    out = {}
+    for B, c in pairs:
+        out[B] = out.get(B, 0) + c
+    return out
+
+
+def mesh_expected(mesh, Tp: int, M: int) -> tuple:
+    """The launches, by batch, of a sharded rebuild over Tp (mesh-padded)
+    dates with the eigen stage unchunked: the weighted kernel once a shard
+    on its contiguous date block (the dates padded to the mesh's size),
+    the full kernel once a date row (the pseudo-inverse) and once for the
+    F0 eigh over every date."""
+    nd = mesh.shape["date"]
+    Te = Tp + (-Tp) % mesh.size
+    return ({Te // mesh.size * M: mesh.size},
+            _merge((Tp // nd, nd), (Tp, 1)))
+
+
+def mesh_run_fused_phase(ctx) -> dict:
+    """Phase mesh_run_fused: config 1 at CSI300 width on virtual 2x2 and
+    4x2 meshes of the card (4x2 pads 2 dates): the nine fields bitwise
+    the unsharded run at the same shapes, and cropped, the main path's;
+    the launches per kernel and batch as the sharding gives them (the
+    weighted kernel once a shard, the full one once a date row and once
+    for F0), each held against its plain version at its shard's shape;
+    walls (median of 3 on 2x2, in turns with the unsharded run; one run
+    on 4x2), recorded, not claimed."""
+    from mfm_tpu_torch import RiskModel
+    from mfm_tpu_torch.ops.eigh_cuda import reset_launches
+    from mfm_tpu_torch.parallel.mesh import (
+        make_mesh,
+        pad_to_mesh,
+        shard_panel,
+        use_mesh,
+    )
+
+    sim_covs, T, M = ctx["sim_covs"], ctx["T"], ctx["M"]
+    cfg, P, main = ctx["config"], ctx["P"], ctx["fused_out"]
+    panel = tuple(torch.as_tensor(p).to(ctx["device"]) for p in ctx["panel"])
+
+    def run(*panels):
+        return RiskModel(*panels, n_industries=P, config=cfg).run_fused(
+            sim_covs=sim_covs, sim_length=T)
+
+    res, plain_walls = {}, []
+    ctx["mesh_launches"] = {}
+    for nd, ns in MESH_SHAPES:
+        mesh = make_mesh(nd, ns, device=ctx["device"])
+        tag = f"{nd}x{ns}"
+        padded = tuple(pad_to_mesh(p, mesh) for p in panel)
+        Tp = padded[0].shape[0]
+        base = main if Tp == T else run(*padded)
+        sharded = shard_panel(padded, mesh)
+
+        def sharded_run():
+            with use_mesh(mesh):
+                return run(*sharded)
+
+        sync()
+        reset_launches()
+        with recorded_launches() as calls:
+            out = sharded_run()
+        sync()
+        launches = shard_launches(f"mesh_run_fused {tag}",
+                                  *mesh_expected(mesh, Tp, M))
+        ctx["mesh_launches"][f"run_fused_{tag}"] = launches
+        held = hold_recorded(calls, f"mesh_run_fused_{tag}")
+        walls = []
+        for _ in range(MESH_WALL_REPS[(nd, ns)]):
+            if (nd, ns) == MESH_SHAPES[0]:
+                plain_walls.append(timed(lambda: run(*panel))[1])
+            walls.append(timed(sharded_run)[1])
+        rec = {**mesh.describe(), "padded_shape": list(padded[0].shape),
+               "vs_unsharded": compare_rows(out, base),
+               "cropped_vs_main_path": compare_rows(suffix(out, 0, T), main),
+               "launches": launches, "held": held["launches_held"],
+               "shard_shapes": held["shard_shapes"],
+               "wall_median_s": statistics.median(walls), "walls_s": walls}
+        res[tag] = rec
+        require(rec["vs_unsharded"]["bitwise"]
+                and rec["cropped_vs_main_path"]["bitwise"],
+                f"mesh_run_fused {tag}: not bitwise the unsharded run: "
+                f"{rec['vs_unsharded']}")
+        del out, base, sharded, padded
+        torch.cuda.empty_cache()
+    res.update(unsharded_wall_median_s=statistics.median(plain_walls),
+               unsharded_walls_s=plain_walls)
+    emit("mesh_run_fused", **res)
+    return res
+
+
+def mesh_serve_phase(ctx) -> dict:
+    """Phase mesh_serve: ``init_state`` over the first 1378 dates (guarded),
+    then two 4-date slabs through ``update_guarded`` on a virtual 2x2
+    mesh: outputs, guard report and every carry leaf bitwise the
+    unsharded updates', each launch held at its shard's shape; after the
+    first (warmup) update the second adds no compile-contract event."""
+    from mfm_tpu_torch import RiskModel, RiskModelConfig
+    from mfm_tpu_torch.config import QuarantinePolicy
+    from mfm_tpu_torch.models.risk_model import MIN_REGRESSION_DATES
+    from mfm_tpu_torch.ops.eigh_cuda import reset_launches
+    from mfm_tpu_torch.parallel.mesh import make_mesh, shard_panel, use_mesh
+    from mfm_tpu_torch.utils.contracts import count_compiles
+
+    panel, T, M, P = ctx["panel"], ctx["T"], ctx["M"], ctx["P"]
+    cfg = RiskModelConfig(eigen_sim_length=T,
+                          quarantine=QuarantinePolicy(enabled=True))
+    T0, S = MESH_SERVE_T0, MESH_SLAB
+    mesh = make_mesh(2, 2, device=ctx["device"])
+
+    def slab(k):
+        return tuple(p[T0 + k * S:T0 + (k + 1) * S] for p in panel)
+
+    _, state0 = RiskModel(*(p[:T0] for p in panel), n_industries=P,
+                          config=cfg).init_state()
+    plain, sharded, res = state0, state0, {**mesh.describe()}
+    for k in range(2):
+        b_out, b_rep, plain = RiskModel(
+            *slab(k), n_industries=P, config=cfg).update_guarded(plain)
+        sync()
+        reset_launches()
+        with count_compiles() as events, recorded_launches() as calls:
+            with use_mesh(mesh):
+                s_out, s_rep, sharded = RiskModel(
+                    *shard_panel(slab(k), mesh), n_industries=P,
+                    config=cfg).update_guarded(sharded)
+            sync()
+        # the regression pads a 2-date shard to 16 dates; the eigen stage
+        # runs one date a shard
+        launches = shard_launches(
+            f"mesh_serve slab {k}", {M: 4},
+            _merge((MIN_REGRESSION_DATES, 2), (S, 1)))
+        ctx["mesh_launches"][f"serve_update_guarded_{k}"] = launches
+        held = hold_recorded(calls, f"mesh_serve_{k}")
+        rec = {"outputs": compare_rows(s_out, b_out),
+               "report": all(same(getattr(s_rep, f), getattr(b_rep, f))
+                             for f in b_rep._fields),
+               "carries": compare_carries(sharded, plain, guard=True),
+               "compile_events": events.count, "launches": launches,
+               "shard_shapes": held["shard_shapes"]}
+        res[f"slab{k}"] = rec
+        require(rec["outputs"]["bitwise"] and rec["report"]
+                and rec["carries"]["bitwise"],
+                f"mesh_serve slab {k}: the sharded update is not bitwise "
+                f"the unsharded one: {rec}")
+    require(res["slab1"]["compile_events"] == 0,
+            f"mesh_serve: {res['slab1']['compile_events']} compile-contract "
+            "events after the warmup update")
+    emit("mesh_serve", **res)
+    return res
+
+
+def mesh_pipeline_phase(ctx) -> dict:
+    """Phase mesh_pipeline: ``run_risk_pipeline(mesh=2x2)`` on the
+    398,228-row CSI300 table, each shard's block densified from the row
+    space: bitwise the dense run (phase pipeline_run's), its
+    ``LazyBarraArrays`` still undensified after it; then
+    ``append_risk_pipeline(mesh=2x2)`` from a 1350-date checkpoint to
+    1390, bitwise the unsharded append, outputs and carries; every launch
+    held at its shard's shape."""
+    import numpy as np
+
+    from mfm_tpu_torch import (
+        PipelineConfig,
+        append_risk_pipeline,
+        run_risk_pipeline,
+        save_pipeline_state,
+    )
+    from mfm_tpu_torch.models.risk_model import MIN_REGRESSION_DATES
+    from mfm_tpu_torch.ops.eigh_cuda import reset_launches
+    from mfm_tpu_torch.parallel.mesh import make_mesh
+
+    table, sim_covs, T, M = ctx["table"], ctx["sim_covs"], ctx["T"], ctx["M"]
+    dense, cfg = ctx["pipeline"], PipelineConfig()
+    mesh = make_mesh(2, 2, device=ctx["device"])
+    inject = dict(sim_covs=sim_covs, sim_length=T, device=ctx["device"])
+    sync()
+    reset_launches()
+    with recorded_launches() as calls:
+        got, wall = timed(lambda: run_risk_pipeline(table, config=cfg,
+                                                    mesh=mesh, **inject))
+    launches = shard_launches("mesh_pipeline", *mesh_expected(mesh, T, M))
+    ctx["mesh_launches"]["pipeline"] = launches
+    res = {**mesh.describe(), "run": {
+        "vs_dense": compare_rows(got.outputs, dense.outputs),
+        "undensified": not got.arrays.densified, "wall_s": wall,
+        "launches": launches,
+        "shard_shapes": hold_recorded(calls, "mesh_pipeline_run")[
+            "shard_shapes"]}}
+    require(res["run"]["vs_dense"]["bitwise"] and res["run"]["undensified"],
+            f"mesh_pipeline: the shard-local run is not bitwise the dense "
+            f"one, or densified its table: {res['run']}")
+    del got
+    T0 = SERVE_T0
+    dates = np.unique(table["date"])
+    head = {k: v[table["date"] < dates[T0]] for k, v in table.items()}
+    first = run_risk_pipeline(head, config=cfg, with_state=True, **inject)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, d, "state.npz") for d in ("a", "b")]
+        for p in paths:
+            save_pipeline_state(p, first)
+        plain = append_risk_pipeline(paths[0], table, config=cfg,
+                                     device=ctx["device"])
+        sync()
+        reset_launches()
+        with recorded_launches() as calls:
+            app, wall = timed(lambda: append_risk_pipeline(
+                paths[1], table, config=cfg, mesh=mesh))
+    # 40 dates: two 20-date rows regress, each shard's eigen block is 10
+    A = T - T0
+    launches = shard_launches(
+        "mesh_pipeline append", {(A + (-A) % 4) // 4 * M: 4},
+        _merge((max(A // 2, MIN_REGRESSION_DATES), 2), (A, 1)))
+    ctx["mesh_launches"]["append"] = launches
+    res["append"] = {
+        "appended": len(app.arrays.dates),
+        "vs_unsharded": compare_rows(app.outputs, plain.outputs),
+        "carries": compare_carries(app.state, plain.state),
+        "wall_s": wall, "launches": launches,
+        "shard_shapes": hold_recorded(calls, "mesh_pipeline_append")[
+            "shard_shapes"]}
+    emit("mesh_pipeline", **res)
+    a = res["append"]
+    require(a["appended"] == T - T0 and a["vs_unsharded"]["bitwise"]
+            and a["carries"]["bitwise"],
+            f"mesh_pipeline: the sharded append is not bitwise the "
+            f"unsharded one: {a}")
+    return res
+
+
+def mesh_cli_start(ctx) -> tuple:
+    """Start phase mesh_cli's subprocess, ``python -m mfm_tpu_torch.cli
+    risk --update --mesh 2x2`` on the card (``MFM_TORCH_VIRTUAL_DEVICES=4``)
+    from phase cli_update's 1350-date checkpoint over the whole csv; it
+    runs while the section's later phases do.  Returns (process, start)."""
+    from mfm_tpu_torch._device import VIRTUAL_DEVICES_ENV
+
+    c = ctx["cli"]
+    env = {**os.environ, VIRTUAL_DEVICES_ENV: "4"}
+    cmd = [sys.executable, "-m", "mfm_tpu_torch.cli", "risk", "--barra",
+           c["csv"], "--out", os.path.join(c["dir"], "upd_mesh"), "--update",
+           c["mesh_ck"], "--mesh", "2x2", "--eigen-sim-length",
+           str(ctx["T"])]
+    return (subprocess.Popen(cmd, cwd=str(ROOT), stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, env=env),
+            time.perf_counter())
+
+
+def mesh_cli_phase(ctx, started) -> dict:
+    """Phase mesh_cli: the subprocess :func:`mesh_cli_start` started, to
+    its end: each table bit for bit the in-process full run's last 40
+    dates, its checkpoint's carries bitwise the unsharded ``--update``'s;
+    its launches (the weighted kernel once a shard).  Its shard shapes are
+    phase mesh_pipeline's append's, held there."""
+    import numpy as np
+
+    from mfm_tpu_torch.data.artifacts import load_artifact
+
+    c, T = ctx["cli"], ctx["T"]
+    d, full = c["dir"], c["result"]
+    out, ck = os.path.join(d, "upd_mesh"), c["mesh_ck"]
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=600)
+    process_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"mesh_cli: exit {proc.returncode}: "
+            f"{stderr[-2000:]}")
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    launches = rec["kernels"]["launches"]
+    ctx["mesh_launches"]["cli_update_subprocess"] = launches
+    got, _ = load_artifact(ck)
+    want, _ = load_artifact(os.path.join(d, "ck_plain", "state.npz"))
+    res = {"mesh": "2x2", "virtual": True, "devices": ["cuda:0"] * 4,
+           "process_s": process_s, "update_wall_s": rec["update_wall_s"],
+           "appended": len(rec["appended_dates"]), "launches": launches,
+           "tables_vs_full": tables_equal(out, full.outputs, full.arrays,
+                                          rows=slice(SERVE_T0, None)),
+           "checkpoint_vs_unsharded": sorted(got) == sorted(want) and all(
+               np.array_equal(got[k], want[k], equal_nan=True)
+               for k in want)}
+    emit("mesh_cli", **res)
+    require(res["appended"] == T - SERVE_T0
+            and all(res["tables_vs_full"].values())
+            and res["checkpoint_vs_unsharded"],
+            f"mesh_cli: the sharded --update is not bitwise the in-process "
+            f"run: {res}")
+    require(launches["jacobi_eigh_weighted/warp"] == 4
+            and launches["jacobi_eigh/warp"] >= 3
+            and launches["jacobi_eigh/block"] == 0
+            and launches["jacobi_eigh_weighted/block"] == 0,
+            f"mesh_cli: the subprocess's launches {launches}, want the "
+            "weighted kernel once a shard (4)")
+    return res
+
+
+def mesh_sweep_phase(ctx) -> dict:
+    """Phase mesh_sweep: ``SweepEngine(mesh=2x2)`` on bench config
+    sweep's case, 16 chunks of 8,192 scenarios, each chunk's lanes split
+    over the four shards: the books, counts and histogram bitwise the
+    unsharded sweep's; the offender flushes' launches (the full kernel,
+    unsharded) held."""
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+    from mfm_tpu_torch.parallel.mesh import make_mesh
+    from mfm_tpu_torch.scenario import SweepEngine, UniformSampler
+
+    cov, names, xs, ball = sweep_case()
+    K, chunk = len(names), SWEEP_CHUNK
+    n = MESH_SWEEP_CHUNKS * chunk
+    mesh = make_mesh(2, 2, device=ctx["device"])
+    plain_eng = SweepEngine(cov, factor_names=names, device=ctx["device"])
+    eng = SweepEngine(cov, factor_names=names, mesh=mesh)
+    want, plain_s = timed(lambda: plain_eng.sweep(
+        xs, UniformSampler(ball, K, n, seed=5), chunk=chunk))
+    sync()
+    reset_launches()
+    with recorded_launches() as calls:
+        got, wall = timed(lambda: eng.sweep(
+            xs, UniformSampler(ball, K, n, seed=5), chunk=chunk))
+    launches = launch_counts()
+    ctx["mesh_launches"]["sweep"] = launches
+    held = hold_recorded(calls, "mesh_sweep")
+    res = {**mesh.describe(), "scenarios": n,
+           "bitwise": json.dumps(got.to_dict(), sort_keys=True)
+           == json.dumps(want.to_dict(), sort_keys=True),
+           "counts": got.counts, "wall_s": wall, "unsharded_wall_s": plain_s,
+           "launches": launches, "shard_shapes": held["shard_shapes"]}
+    emit("mesh_sweep", **res)
+    require(res["bitwise"], "mesh_sweep: the sharded sweep is not bitwise "
+            "the unsharded one")
+    require(launches["jacobi_eigh_weighted/warp"] == 0
+            and launches["jacobi_eigh/block"] == 0,
+            f"mesh_sweep: launches {launches}")
+    return res
+
+
+def distributed_phase(ctx) -> dict:
+    """Phase distributed: ``parallel.distributed.initialize`` over NCCL
+    with one process (TCP on 127.0.0.1 at a free port), then
+    ``make_global_mesh`` (virtual, 4x2) and ``process_date_slice``; one
+    ``all_reduce`` and one ``all_gather_into_tensor`` on the card, a
+    date-sharded vector through the mesh's gather; the group destroyed."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mfm_tpu_torch.parallel.distributed import (
+        initialize,
+        make_global_mesh,
+        process_date_slice,
+    )
+    from mfm_tpu_torch.parallel.mesh import P, NamedSharding, gather
+    from mfm_tpu_torch.parallel.mesh import make_sharded
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    dev = ctx["device"]
+    multi = initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                       device=dev, timeout_s=120)
+    sync()
+    init_s = time.perf_counter() - t0
+    try:
+        backend = dist.get_backend()
+        mesh = make_global_mesh(n_stock=2, device=dev)
+        sl = process_date_slice(ctx["T"])
+        x = torch.arange(4, dtype=torch.float32, device=dev)
+        dist.all_reduce(x)
+        g = torch.empty(4, dtype=torch.float32, device=dev)
+        dist.all_gather_into_tensor(g, torch.arange(4, dtype=torch.float32,
+                                                    device=dev))
+        v = make_sharded((8,), NamedSharding(mesh, P("date")),
+                         lambda idx: torch.arange(8.0)[idx])
+        total = float(gather(v).sum())
+        sync()
+    finally:
+        dist.destroy_process_group()
+    res = {"backend": backend, "multi_process": multi, "init_s": init_s,
+           **mesh.describe(), "date_slice": [sl.start, sl.stop],
+           "all_reduce": x.tolist(), "all_gather": g.tolist(),
+           "gathered_sum": total}
+    emit("distributed", **res)
+    require(backend == ("nccl" if dev == "cuda" else "gloo")
+            and multi is False
+            and mesh.devices.shape == (4, 2) and mesh.virtual
+            and res["date_slice"] == [0, ctx["T"]]
+            and res["all_reduce"] == [0.0, 1.0, 2.0, 3.0]
+            and res["all_gather"] == [0.0, 1.0, 2.0, 3.0]
+            and total == 28.0,
+            f"distributed: {res}")
+    return res
+
+
+def mesh_section(ctx) -> tuple:
+    """The mesh section's phases, its meshes virtual over the card
+    (``MFM_TORCH_VIRTUAL_DEVICES`` set for the section only).  Returns the
+    launches of each path it drove and, by path, the warp ms and bound of
+    each kernel at each shard shape it launched."""
+    from mfm_tpu_torch._device import VIRTUAL_DEVICES_ENV
+
+    prev = os.environ.get(VIRTUAL_DEVICES_ENV)
+    os.environ[VIRTUAL_DEVICES_ENV] = str(MESH_DEVICES)
+    cli = None
+    try:
+        fused = mesh_run_fused_phase(ctx)
+        torch.cuda.empty_cache()
+        # after the walls: the subprocess runs while the phases below do
+        cli = mesh_cli_start(ctx)
+        serve = mesh_serve_phase(ctx)
+        pipe = mesh_pipeline_phase(ctx)
+        torch.cuda.empty_cache()
+        sweep = mesh_sweep_phase(ctx)
+        distributed_phase(ctx)
+        mesh_cli_phase(ctx, cli)
+    finally:
+        if cli is not None and cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].communicate()
+        if prev is None:
+            os.environ.pop(VIRTUAL_DEVICES_ENV, None)
+        else:
+            os.environ[VIRTUAL_DEVICES_ENV] = prev
+    launches = ctx.pop("mesh_launches")
+    emit("mesh_launches", **launches)
+    shard_ms = {**{f"run_fused_{a}x{b}": fused[f"{a}x{b}"]["shard_shapes"]
+                   for a, b in MESH_SHAPES},
+                "serve_update_guarded": serve["slab0"]["shard_shapes"],
+                "pipeline": pipe["run"]["shard_shapes"],
+                "append": pipe["append"]["shard_shapes"],
+                "sweep": sweep["shard_shapes"]}
+    return launches, shard_ms
+
+
 # -- the host data layer: the store path at CSI300 width -----------------------
 
 #: the CSI300 store: T dates x N constituents (+ the outsider), K = 42;
@@ -5188,7 +5876,8 @@ class TruthSource:
 
 
 def store_pipeline_phase(ctx) -> dict:
-    """Phase store_pipeline: four subprocesses on the card.  (a)
+    """Phase store_pipeline: four subprocesses on the card, (b)-(d) at
+    once after (a).  (a)
     ``pipeline --store W --to-store F`` on a copy W of the store cut at
     CUT (the last full-universe date at least 40 before the end; prices
     and index prices past it removed); W brought up to date by
@@ -5232,19 +5921,13 @@ def store_pipeline_phase(ctx) -> dict:
     out = {k: os.path.join(d, k) for k in ("A", "A0", "C", "D", "F")}
     mdirs = {k: os.path.join(d, f"metrics_{k}") for k in "abc"}
 
-    def cli_proc(*argv):
-        cmd = [sys.executable, "-m", "mfm_tpu_torch.cli", *argv]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True,
-                              text=True, timeout=600)
-        require(proc.returncode == 0, f"store_pipeline: {argv[:2]} exit "
-                f"{proc.returncode}: {proc.stderr[-2000:]}")
-        return (json.loads(proc.stdout.strip().splitlines()[-1]),
-                time.perf_counter() - t0)
+    def finish(started, argv):
+        rec, wall, _ = finish_cli(started, f"store_pipeline: {argv[:2]}")
+        return rec, wall
 
-    rec_a, wall_a = cli_proc("pipeline", "--store", W, "--out", out["A"],
-                             "--to-store", out["F"], *L,
-                             "--metrics-dir", mdirs["a"])
+    argv_a = ("pipeline", "--store", W, "--out", out["A"], "--to-store",
+              out["F"], *L, "--metrics-dir", mdirs["a"])
+    rec_a, wall_a = finish(start_cli(argv_a), argv_a)
     shutil.copytree(out["A"], out["A0"])
     # the daily ETL's shape: one part a day past the cut
     src = TruthSource(st)
@@ -5255,34 +5938,17 @@ def store_pipeline_phase(ctx) -> dict:
                                      end_date=str(days[-1]))))
     want_px = int((px["trade_date"] > cut).sum())
     parts = len(ws._parts("daily_prices"))
-    rec_b, wall_b = cli_proc("pipeline", "--store", W, "--out", out["A"],
-                             "--append", *L, "--metrics-dir", mdirs["b"])
-    rec_c, wall_c = cli_proc("pipeline", "--store", W, "--out", out["C"],
-                             *L, "--metrics-dir", mdirs["c"])
-    rec_d, wall_d = cli_proc("risk", "--barra-store", out["F"], "--out",
-                             out["D"], *L, "--save-outputs", "--save-state",
-                             os.path.join(out["D"], "ck", "state.npz"))
-
-    def tables_same(x, y):
-        return {n: open(os.path.join(x, f"{n}.csv"), "rb").read()
-                == open(os.path.join(y, f"{n}.csv"), "rb").read()
-                for n in RESULT_TABLES}
-
-    def artifact_same(x, y, name):
-        a, ma = load_artifact(os.path.join(x, name))
-        b, mb = load_artifact(os.path.join(y, name))
-        return set(a) == set(b) and all(
-            np.array_equal(a[k], b[k], equal_nan=True) for k in b) and (
-            ma.get("last_date") == mb.get("last_date"))
-
-    append_eq = {**tables_same(out["A"], out["C"]),
-                 "risk_outputs": artifact_same(out["A"], out["C"],
-                                               "risk_outputs.npz"),
-                 "risk_state": artifact_same(out["A"], out["C"],
-                                             "risk_state.npz")}
-    barra_store_eq = {**tables_same(out["D"], out["A0"]),
-                      "risk_outputs": artifact_same(out["D"], out["A0"],
-                                                    "risk_outputs.npz")}
+    # (b), (c) and (d) read what (a) and the refresh left and each writes
+    # a directory of its own: they run at once, while this process runs
+    # factors --prepared
+    argv = {"b": ("pipeline", "--store", W, "--out", out["A"], "--append",
+                  *L, "--metrics-dir", mdirs["b"]),
+            "c": ("pipeline", "--store", W, "--out", out["C"], *L,
+                  "--metrics-dir", mdirs["c"]),
+            "d": ("risk", "--barra-store", out["F"], "--out", out["D"], *L,
+                  "--save-outputs", "--save-state",
+                  os.path.join(out["D"], "ck", "state.npz"))}
+    started = {k: start_cli(a) for k, a in argv.items()}
 
     # factors --prepared, and run_factor_pipeline on the inputs it read
     fdir = os.path.join(d, "factors")
@@ -5307,6 +5973,30 @@ def store_pipeline_phase(ctx) -> dict:
     write_csv(mine, table)
     factors_bitwise = open(mine, "rb").read() == open(
         os.path.join(fdir, "barra_data.csv"), "rb").read()
+
+    (rec_b, wall_b), (rec_c, wall_c), (rec_d, wall_d) = (
+        finish(started[k], argv[k]) for k in "bcd")
+
+    def tables_same(x, y):
+        return {n: open(os.path.join(x, f"{n}.csv"), "rb").read()
+                == open(os.path.join(y, f"{n}.csv"), "rb").read()
+                for n in RESULT_TABLES}
+
+    def artifact_same(x, y, name):
+        a, ma = load_artifact(os.path.join(x, name))
+        b, mb = load_artifact(os.path.join(y, name))
+        return set(a) == set(b) and all(
+            np.array_equal(a[k], b[k], equal_nan=True) for k in b) and (
+            ma.get("last_date") == mb.get("last_date"))
+
+    append_eq = {**tables_same(out["A"], out["C"]),
+                 "risk_outputs": artifact_same(out["A"], out["C"],
+                                               "risk_outputs.npz"),
+                 "risk_state": artifact_same(out["A"], out["C"],
+                                             "risk_state.npz")}
+    barra_store_eq = {**tables_same(out["D"], out["A0"]),
+                      "risk_outputs": artifact_same(out["D"], out["A0"],
+                                                    "risk_outputs.npz")}
 
     # the factor and risk stages of (c) in this process, profiled
     prep = s["prep"]
@@ -5387,8 +6077,8 @@ def store_pipeline_phase(ctx) -> dict:
 #: the recovery matrix at CSI300 width: a 1378-date history, three 4-date
 #: slabs, the reference demo's 100 draws
 FAULT_GEOMETRY = dict(T=1390, hist=1378, slab=4, N=300, P=31, Q=10, sims=100)
-FAULT_PORTED = 28
-FAULT_NOT_PORTED = 1
+FAULT_PORTED = 29
+FAULT_NOT_PORTED = 0
 #: the plans bound by CLI subprocesses, run as concurrent ``python -m
 #: mfm_tpu_torch.tools.faultinject --plans <group>`` processes, each group
 #: one plan after another inside, balanced by the plans' walls with four
@@ -5397,7 +6087,8 @@ FAULT_NOT_PORTED = 1
 FAULT_GROUPS = (
     ("eigen-kill-mid-update", "trace-kill-mid-flush", "kill-after-rename"),
     ("cache-stale-generation", "grad-kill-mid-solve", "kill-after-tmp"),
-    ("sweep-kill-mid-stream", "flightrec-kill-mid-dump"),
+    ("sweep-kill-mid-stream", "flightrec-kill-mid-dump",
+     "shard-kill-mid-append"),
     ("scenario-kill-mid-batch", "kill-at-manifest", "query-kill-mid-batch"),
 )
 #: the fleet drills, one harness process: alongside the groups only on a
@@ -5411,7 +6102,8 @@ FAULT_FLEET_PROCS = 7
 #: the subprocesses each plan's runner SIGKILLs at a crash point
 FAULT_KILLS = {
     "kill-after-tmp": 1, "kill-after-rename": 1, "kill-at-manifest": 1,
-    "eigen-kill-mid-update": 1, "query-kill-mid-batch": 1,
+    "eigen-kill-mid-update": 1, "shard-kill-mid-append": 1,
+    "query-kill-mid-batch": 1,
     "scenario-kill-mid-batch": 1, "sweep-kill-mid-stream": 1,
     "grad-kill-mid-solve": 1, "trace-kill-mid-flush": 1,
     "flightrec-kill-mid-dump": 1, "cache-stale-generation": 1,
@@ -5420,11 +6112,15 @@ FAULT_KILLS = {
 #: runner's order: "both" (a ``risk --update``: the weighted kernel and
 #: the full one, for F0 and the pseudo-inverse), "full" (the PSD gate of
 #: ``scenario run`` / ``sweep``, ``eigh_diff``'s forward in ``grad
-#: sensitivity``), "none" (query serving, the flight-recorder driver); a
+#: sensitivity``), "mesh" (a ``risk --update --mesh 2x2`` over a 4-date
+#: slab: the weighted kernel once a shard, the full one for each date
+#: row's pseudo-inverse and F0), "none" (query serving, the
+#: flight-recorder driver); a
 #: fleet drill's processes (its front end, each worker that wrote its
 #: shard, the single-process replay) all "none"
 FAULT_SUBPROCESS_KERNELS = {
     "kill-at-manifest": ["both"], "eigen-kill-mid-update": ["both"],
+    "shard-kill-mid-append": ["mesh"],
     "query-kill-mid-batch": ["none"],
     "scenario-kill-mid-batch": ["full", "full"],
     "sweep-kill-mid-stream": ["full", "full"],
@@ -5469,6 +6165,11 @@ def _fault_subprocess_launch_check(name: str, launches: list) -> None:
         what = f"fault_matrix {name} subprocess {i}"
         if kind == "both":
             require_launches(got, what, 1, 1)
+        elif kind == "mesh":
+            require_launches(got, what, 4, 3)
+            require(got["jacobi_eigh_weighted/warp"] == 4,
+                    f"{what}: the weighted kernel must launch once a shard "
+                    f"(4): {got}")
         elif kind == "full":
             require_launches(got, what, 0, 1)
             require(got["jacobi_eigh_weighted/warp"] == 0,
@@ -5478,25 +6179,79 @@ def _fault_subprocess_launch_check(name: str, launches: list) -> None:
                     f"{got}")
 
 
-def fault_matrix_phase(ctx, meanwhile=None) -> dict:
+def fault_matrix_start(tmp: str) -> dict:
+    """Start phase fault_matrix's harness processes, writing under
+    ``tmp``: FAULT_GROUPS all at once, then, once every group has ended,
+    the fleet drills in one more (alongside the groups only on a host with
+    the cores).  They run while this process goes on with the sections
+    before the phase, which collects them: the state it takes."""
+    alive_groups = 2 * len(FAULT_GROUPS) + 1
+    alive_with_fleet = alive_groups + FAULT_FLEET_PROCS
+    cores = os.cpu_count() or 1
+    state = {"tmp": tmp, "t0": time.perf_counter(), "group_s": None,
+             "cores": cores, "alive_with_fleet": alive_with_fleet,
+             "fleet_alongside": cores >= 4 * alive_with_fleet}
+    # the environment now, for the fleet drills too: not that of whatever
+    # section runs when the groups end
+    env = dict(os.environ)
+
+    def start(plans, tag):
+        out = os.path.join(tmp, f"faults_{tag}.json")
+        log = open(os.path.join(tmp, f"faults_{tag}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mfm_tpu_torch.tools.faultinject",
+             *_fault_argv(plans, out)], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT, text=True, env=env)
+        _STARTED.append(proc)
+        rec = {"tag": tag, "plans": list(plans), "out": out, "log": log.name,
+               "proc": proc, "t0": time.perf_counter()}
+
+        def wait():
+            proc.wait()
+            rec["wall_s"] = time.perf_counter() - rec["t0"]
+            log.close()
+        rec["waiter"] = threading.Thread(target=wait, daemon=True)
+        rec["waiter"].start()
+        return rec
+
+    groups = [start(g, f"g{i}") for i, g in enumerate(FAULT_GROUPS)]
+    state["groups"] = list(groups)
+    if state["fleet_alongside"]:
+        state["groups"].append(start(FAULT_FLEET, "fleet"))
+
+    def chain():
+        for g in groups:
+            g["waiter"].join()
+        state["group_s"] = time.perf_counter() - state["t0"]
+        if not state["fleet_alongside"]:
+            state["groups"].append(start(FAULT_FLEET, "fleet"))
+    state["chain"] = threading.Thread(target=chain, daemon=True)
+    state["chain"].start()
+    return state
+
+
+def fault_matrix_phase(ctx, started, meanwhile=None) -> dict:
     """Phase fault_matrix: ``python -m mfm_tpu_torch.tools.faultinject``
     on the card at CSI300 width (FAULT_GEOMETRY, float32, guarded): every
-    ported plan of ``plan_suite`` (28, ``shard-kill-mid-append`` listed as
-    not ported) and steady-state must pass.  The plans bound by CLI
+    plan of ``plan_suite`` (29, none left unported) and steady-state must
+    pass.  The plans bound by CLI
     subprocesses run in FAULT_GROUPS, one harness process per group, all
-    at once: the ``risk --update`` processes SIGKILLed at the checkpoint's
-    and the manifest's crash points with the fence's recovery bitwise, the
+    at once, started by :func:`fault_matrix_start` (``started``) sections
+    before this phase: the ``risk --update`` processes SIGKILLed at the checkpoint's
+    and the manifest's crash points with the fence's recovery bitwise (one
+    of them sharded, ``--mesh 2x2`` on a virtual mesh of the card), the
     ``serve``, ``scenario run``, ``scenario sweep``, ``grad sensitivity``,
     trace and flight-recorder processes SIGKILLed at theirs with no torn
     file and the replay bitwise, the cache's generation fence across a
-    torn publish.  Meanwhile this process runs the rest: the byte faults,
+    torn publish.  Here this process runs the rest: the byte faults,
     the poisoned slabs under the carry-freeze contract, the retry drill,
     the schedule drills, both steady states, the query plans on the card
     (dead letters, the shed order, the hot swap's breaker) and the
-    scenario poison's lane isolation.  Then the three fleet drills in one
-    more harness process, after the groups unless the host has the cores
-    to run them alongside, while this process runs ``meanwhile`` (phase
-    report_crosscheck): a replica SIGKILLed mid-drain, a simulated host
+    scenario poison's lane isolation; then ``meanwhile`` (phases
+    report_crosscheck and doctrine_tools), and it waits for every harness.
+    The three fleet drills run in one more harness process, started when
+    the groups end unless the host has the cores to run them alongside: a
+    replica SIGKILLed mid-drain, a simulated host
     killed with a worker wedged, a worker wedged — every id bitwise the
     single-process replay, the manifest's audit balanced.  Each plan's
     record goes on a line, each group's wall on one.  ``query-steady-state`` must add no
@@ -5518,64 +6273,37 @@ def fault_matrix_phase(ctx, meanwhile=None) -> dict:
     grouped = {n for g in FAULT_GROUPS for n in g}
     local = [n for n in ported
              if n not in grouped and n not in FAULT_FLEET] + ["steady-state"]
-    alive_groups = 2 * len(FAULT_GROUPS) + 1
-    alive_with_fleet = alive_groups + FAULT_FLEET_PROCS
-    cores = os.cpu_count() or 1
-    fleet_alongside = cores >= 4 * alive_with_fleet
-
-    def start(plans, tag):
-        out = os.path.join(ctx["tmp"], f"faults_{tag}.json")
-        log = open(os.path.join(ctx["tmp"], f"faults_{tag}.log"), "w")
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "mfm_tpu_torch.tools.faultinject",
-             *_fault_argv(plans, out)], cwd=ROOT, stdout=log,
-            stderr=subprocess.STDOUT, text=True)
-        rec = {"tag": tag, "plans": list(plans), "out": out, "log": log.name,
-               "proc": proc, "t0": time.perf_counter()}
-
-        def wait():
-            proc.wait()
-            rec["wall_s"] = time.perf_counter() - rec["t0"]
-            log.close()
-        rec["waiter"] = threading.Thread(target=wait, daemon=True)
-        rec["waiter"].start()
-        return rec
-
-    sync()
-    t0 = time.perf_counter()
-    groups = [start(g, f"g{i}") for i, g in enumerate(FAULT_GROUPS)]
-    if fleet_alongside:
-        groups.append(start(FAULT_FLEET, "fleet"))
+    tmp, t0, groups = started["tmp"], started["t0"], started["groups"]
+    cores, fleet_alongside = started["cores"], started["fleet_alongside"]
+    alive_with_fleet = started["alive_with_fleet"]
+    t_phase = time.perf_counter()
     reports = {}
-    group_s = meanwhile_s = None
+    meanwhile_s = None
     try:
         reset_launches()
         rc, reports["in_process"], local_wall = _fault_in_process(
-            local, os.path.join(ctx["tmp"], "faults_local.json"))
+            local, os.path.join(tmp, "faults_local.json"))
         sync()
         launches = launch_counts()
         require(rc == 0, "fault_matrix: in-process plans failed: "
                 f"{reports['in_process']['summary']['failed']}")
-
-        def join(gs):
-            for g in gs:
-                g["waiter"].join(timeout=900)
-                require(not g["waiter"].is_alive(),
-                        f"fault_matrix: group {g['tag']} ran past 900 s")
-        join(groups)
-        group_s = time.perf_counter() - t0
-        if not fleet_alongside:
-            groups.append(start(FAULT_FLEET, "fleet"))
         if meanwhile is not None:
             t1 = time.perf_counter()
             meanwhile()
             meanwhile_s = time.perf_counter() - t1
-        join(groups)
+        started["chain"].join(timeout=900)
+        require(not started["chain"].is_alive(),
+                "fault_matrix: the groups ran past 900 s")
+        for g in groups:
+            g["waiter"].join(timeout=900)
+            require(not g["waiter"].is_alive(),
+                    f"fault_matrix: group {g['tag']} ran past 900 s")
     finally:
         for g in groups:
             if g["proc"].poll() is None:
                 g["proc"].kill()
                 g["proc"].wait()
+    group_s = started["group_s"]
     for g in groups:
         ok = g["proc"].returncode == 0 and os.path.exists(g["out"])
         if not ok:
@@ -5610,7 +6338,8 @@ def fault_matrix_phase(ctx, meanwhile=None) -> dict:
                            for r in results if "subprocess_launches" in r}
     eigen = by["eigen-kill-mid-update"]
     qs = by["query-steady-state"]
-    res = {"wall_s": wall, "groups_and_local_s": group_s,
+    res = {"wall_s": wall, "groups_s": group_s,
+           "phase_s": time.perf_counter() - t_phase,
            "in_process_s": local_wall, "meanwhile_s": meanwhile_s,
            "cpu_count": cores, "processes_alive_with_fleet": alive_with_fleet,
            "fleet_alongside": fleet_alongside,
@@ -6549,21 +7278,19 @@ def alpha_cli_phase(ctx) -> dict:
     llm_exprs, _ = extract_expressions(ALPHA_CHAT, known_fields=set(panel))
 
     res = {"T": T, "N": N, "csv_write_s": csv_s}
-    for name, src, extra in (
-            ("select", "exprs.txt", ["--select", "5", "--select-out",
-                                     os.path.join(d, "selected.txt")]),
-            ("llm", "chat.md", ["--llm"])):
+    # both subprocesses at once
+    started = {name: start_cli(["alpha", "--exprs", os.path.join(d, src),
+                                "--panel", panel_csv, "--out",
+                                os.path.join(d, f"scores_{name}.csv"),
+                                *extra])
+               for name, src, extra in (
+                   ("select", "exprs.txt",
+                    ["--select", "5", "--select-out",
+                     os.path.join(d, "selected.txt")]),
+                   ("llm", "chat.md", ["--llm"]))}
+    for name, run in started.items():
         out_csv = os.path.join(d, f"scores_{name}.csv")
-        cmd = [sys.executable, "-m", "mfm_tpu_torch.cli", "alpha", "--exprs",
-               os.path.join(d, src), "--panel", panel_csv, "--out", out_csv,
-               *extra]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True,
-                              text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        require(proc.returncode == 0, f"alpha_cli {name}: exit "
-                f"{proc.returncode}: {proc.stderr[-2000:]}")
-        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec, wall, stderr = finish_cli(run, f"alpha_cli {name}")
         want_exprs = exprs if name == "select" else llm_exprs
         card = read_scorecard(out_csv)
         want = alpha_summary(compile_alpha_batch(want_exprs)(panel), fwd)
@@ -6571,7 +7298,7 @@ def alpha_cli_phase(ctx) -> dict:
             np.array_equal(card[k], want[k].cpu().numpy(), equal_nan=True)
             for k in want)
         res[name] = {"wall_s": wall, "report": rec, "scorecard_equal": equal,
-                     "skipped_lines": proc.stderr.count("skipped")}
+                     "skipped_lines": stderr.count("skipped")}
         require(rec["device"].startswith("cuda"),
                 f"alpha_cli {name} did not run on the card: {rec}")
         require(equal, f"alpha_cli {name}: the scorecard is not the "
@@ -6824,6 +7551,12 @@ def main() -> int:
     emit("fleet_launches", **fleet_launches)
 
     mark("fleet")
+    # the faults section's harness processes (phase fault_matrix) start
+    # here and run while this process goes on with the CLI, the mesh and
+    # the store: they are bound by process starts, this process by its own
+    # host work, and the host has the cores for both
+    fault_scratch = tempfile.TemporaryDirectory()
+    fault_started = fault_matrix_start(fault_scratch.name)
     # -- phase 11b: the CLI's compute subcommands at CSI300 width -------------
     # the headline `risk` run is a subprocess on the card; the others go
     # through cli.main in this process, each launch count read around the
@@ -6834,11 +7567,18 @@ def main() -> int:
     cli_factors_phase(ctx)
     cli_scenario_phase(ctx)
     cli_grad_phase(ctx)
+    cli_risk_profile_phase(ctx)
     cli_launches = {"risk_subprocess": cli_risk["kernels"]["launches"],
                     "risk_update": cli_update["plain"]["launches"],
                     "risk_update_guarded": cli_update["guarded"]["launches"],
                     "demo": cli_demo["launches"], **ctx["cli_launches"]}
     emit("cli_launches", **cli_launches)
+    mark("cli")
+    # -- phase 11e: the mesh: virtual ('date', 'stock') meshes over the card,
+    # each sharded path bitwise its unsharded run (the CSI300 table and
+    # the checkpoint of the CLI section, still here, feed it) -------------
+    ctx.update(config=config, P=P)
+    mesh_launches, mesh_shard_ms = mesh_section(ctx)
     # the faults section reads cli_risk's results directory against these
     # host copies of the in-process outputs, so that scratch stays until then
     import numpy as np
@@ -6858,7 +7598,7 @@ def main() -> int:
     del ctx, cres
     torch.cuda.empty_cache()
 
-    mark("cli")
+    mark("mesh")
     # -- phase 11c: the host data layer, the store path at CSI300 width -----
     # the store's commands run as subprocesses on the card (each reports
     # its own launches) or through cli.main here; the in-process runs
@@ -6874,11 +7614,13 @@ def main() -> int:
     # crosscheck over the results the CLI and store sections left ------------
     sctx["report_inputs"] = report_inputs
     # report_crosscheck and the doctrine passes run in this process while
-    # the fleet drills run
+    # the harness processes end
     fault = fault_matrix_phase(
-        sctx, meanwhile=lambda: (report_crosscheck_phase(sctx),
-                                 doctrine_tools_phase(sctx)))
+        sctx, fault_started,
+        meanwhile=lambda: (report_crosscheck_phase(sctx),
+                           doctrine_tools_phase(sctx)))
     torch.cuda.empty_cache()
+    fault_scratch.cleanup()
     scratch.cleanup()
     cli_scratch.cleanup()
     del sctx, report_inputs
@@ -7038,6 +7780,12 @@ def main() -> int:
                     nw_assoc["run_fused_launches"][f"{name}/warp"],
                 "compile_profile_launches":
                     profiled["launches"][f"{name}/warp"],
+                "mesh_launches": {k: v[f"{name}/warp"]
+                                  for k, v in mesh_launches.items()},
+                "mesh_shard_ms": {
+                    path: {s: t for s, t in shapes.items()
+                           if s.startswith(key)}
+                    for path, shapes in mesh_shard_ms.items()},
                 "grad_launches": grad_launches[f"{name}/warp"],
                 "cli_launches": {k: v[f"{name}/warp"]
                                  for k, v in cli_launches.items()},

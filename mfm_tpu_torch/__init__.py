@@ -42,6 +42,9 @@ Layout
                                   extraction
 - :mod:`mfm_tpu_torch.obs`      — the serving stack's metrics, spans and
                                   flight recorder
+- :mod:`mfm_tpu_torch.parallel` — the ('date', 'stock') device mesh, its
+                                  sharded panels and collectives, and the
+                                  multi-process helpers
 - :mod:`mfm_tpu_torch.convert`  — reference configs / numpy panels / states
                                   -> port, and results back
 - :mod:`mfm_tpu_torch.data`     — barra-table ingest, seeded synthetic

@@ -1,10 +1,19 @@
 """Device resolution for the port's entry points, the move of their inputs
-onto the device, and the one host read of a per-date mask."""
+onto the device, the one host read of a per-date mask, and the devices a
+mesh may draw on."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+#: the port's counterpart of XLA's ``--xla_force_host_platform_device_count``:
+#: ``N`` makes a mesh see the process's one device N times over (a virtual
+#: mesh: its shards are separate tensors, all on that device).  Read only
+#: when a mesh is built (:func:`mesh_devices`), never by a single-device run.
+VIRTUAL_DEVICES_ENV = "MFM_TORCH_VIRTUAL_DEVICES"
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -40,3 +49,30 @@ def host_flags(mask, T: int) -> list[bool]:
     if len(flags) != T:
         raise ValueError(f"skip_mask has {len(flags)} dates, the slab {T}")
     return flags
+
+
+def mesh_devices(device: str | torch.device | None = None) -> list:
+    """The devices a mesh may draw on, in order.
+
+    ``device`` resolves as for every entry point (None: the card).  With
+    :data:`VIRTUAL_DEVICES_ENV` set to N, the process's one device
+    (``cuda:0`` on the card, the CPU in the tests) repeated N times;
+    otherwise every visible CUDA device, or the one CPU.
+    """
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    raw = os.environ.get(VIRTUAL_DEVICES_ENV)
+    if raw:
+        try:
+            n = int(raw)
+        except ValueError:
+            n = 0
+        if n < 1:
+            raise ValueError(f"{VIRTUAL_DEVICES_ENV} must be a positive "
+                             f"int, got {raw!r}")
+        return [dev] * n
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]

@@ -61,9 +61,12 @@ launches no CUDA kernel, and importing this module builds and loads none.
 
 ``lint`` and ``sync`` run the port's stdlib-only doctrine passes
 (``mfm_tpu_torch/lint.py``, ``mfm_tpu_torch/analysis/sync.py``) and
-``doctor --sync`` the latter against its committed baseline.  The
-reference's ``audit``, ``doctor --audit`` and ``--mesh`` are not ported
-yet; each exits non-zero naming its ROADMAP.md item.
+``doctor --sync`` the latter against its committed baseline.
+``risk --mesh DxS`` (and ``--update``) and ``pipeline --append --mesh
+DxS`` compute on a ('date', 'stock') device mesh; on one device a
+virtual one (``MFM_TORCH_VIRTUAL_DEVICES=N``).  The reference's
+``audit`` and ``doctor --audit`` are not ported yet; each exits non-zero
+naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -1065,10 +1068,29 @@ def _serve_fleet(args, server, state_path, man_dir, _finish,
 
 # -- shared helpers of the compute subcommands ---------------------------------
 
-def _unported_flag(cmd: str, flag: str, item: str):
-    raise SystemExit(
-        f"mfm_tpu_torch.cli: `{cmd} {flag}` is not ported yet (ROADMAP.md "
-        f"{item})")
+def _parse_mesh_arg(spec, device):
+    """``--mesh DxS`` -> a ('date', 'stock') mesh over the first D*S of
+    the devices a mesh may draw on, or None.  The risk paths then compute
+    sharded: panels shard-local, state replicated.  Too few devices
+    refuse, naming the virtual-device variable."""
+    if not spec:
+        return None
+    from mfm_tpu_torch._device import VIRTUAL_DEVICES_ENV, mesh_devices
+    from mfm_tpu_torch.parallel.mesh import make_mesh
+
+    d, _, s = str(spec).lower().partition("x")
+    try:
+        nd, ns = int(d), int(s) if s else 1
+    except ValueError:
+        raise SystemExit(f"--mesh: want DATExSTOCK (e.g. 2x4), got {spec!r}")
+    devs = mesh_devices(device)
+    need = nd * ns
+    if need > len(devs):
+        raise SystemExit(
+            f"--mesh {spec}: needs {need} devices but only {len(devs)} are "
+            f"up — set {VIRTUAL_DEVICES_ENV}={need} before launch for a "
+            "virtual mesh")
+    return make_mesh(nd, ns, devices=devs[:need])
 
 
 @contextlib.contextmanager
@@ -1429,10 +1451,9 @@ def _risk(args):
         # bias statistics need history; an appended slab has none
         raise SystemExit("--update serves new dates only — run the bias "
                          "acceptance tests on a full-history run instead")
-    if args.mesh:
-        _unported_flag("risk", "--mesh", "§A 16d")
     # the card unless the caller asked for the CPU; raises without a card
     device = resolve_device(args.device)
+    mesh = _parse_mesh_arg(args.mesh, device)
     _metrics_init(args)
     root = _root_span(args)
 
@@ -1465,7 +1486,8 @@ def _risk(args):
         with _profile_ctx(args.profile or args.jax_profile, device):
             try:
                 res = append_risk_pipeline(args.update, table, config=cfg,
-                                           force=args.force, device=device)
+                                           force=args.force, mesh=mesh,
+                                           device=device)
             except (ValueError, ArtifactCorruptError,
                     ArtifactStaleError) as err:
                 raise SystemExit(f"--update: {err}") from err
@@ -1503,7 +1525,7 @@ def _risk(args):
     with _profile_ctx(args.profile or args.jax_profile, device):
         res = run_risk_pipeline(arrays=arrays, config=cfg,
                                 with_state=bool(args.save_state),
-                                device=device)
+                                mesh=mesh, device=device)
     with time_stage("write_result_tables"):
         _write_result_tables(res, args.out, args.specific_risk)
     wall = time.perf_counter() - t0
@@ -1892,8 +1914,9 @@ def _pipeline_append_stage(args, barra, cfg, prev_barra, device):
                                    cfg.dtype)
     t0 = time.perf_counter()
     try:
-        app = append_risk_pipeline(state_path, barra, config=cfg,
-                                   force=args.force, device=device)
+        app = append_risk_pipeline(
+            state_path, barra, config=cfg, force=args.force,
+            mesh=_parse_mesh_arg(args.mesh, device), device=device)
     except (ValueError, ArtifactCorruptError, ArtifactStaleError) as err:
         raise SystemExit(f"--append: {err}") from err
     update_wall = time.perf_counter() - t0
@@ -1991,8 +2014,6 @@ def _pipeline(args):
     if args.append and args.nw_method != "scan":
         raise SystemExit("the resumable state is the serial scan's carry; "
                          "--append needs --nw-method scan")
-    if args.mesh:
-        _unported_flag("pipeline", "--mesh", "§A 16d")
     # the card unless the caller asked for the CPU; raises without a card
     device = resolve_device(args.device)
     _metrics_init(args)
@@ -3095,7 +3116,12 @@ def _risk_parser(sub) -> None:
     r.add_argument("--portfolio-date", type=int, default=-1,
                    help="date index for --portfolio (default: last)")
     r.add_argument("--mesh", default=None, metavar="DxS",
-                   help="not ported yet (ROADMAP.md §A 16d)")
+                   help="compute on a DATExSTOCK device mesh (e.g. 2x2): "
+                        "panels are built shard-local and the risk stack "
+                        "runs sharded, bitwise the single-device run; with "
+                        "--update the slab must divide the mesh exactly.  "
+                        "On one device bring up a virtual mesh with "
+                        "MFM_TORCH_VIRTUAL_DEVICES=N")
     r.add_argument("--quarantine", action="store_true",
                    help="guard appended dates (NaN density, universe "
                         "collapse, MAD outliers, bad caps, date order) and "
@@ -3178,7 +3204,9 @@ def _store_parsers(sub) -> None:
                          "sw_industry_info_for_factors collections into this "
                          "store, readable by `risk --barra-store`")
     pl.add_argument("--mesh", default=None, metavar="DxS",
-                    help="not ported yet (ROADMAP.md §A 16d)")
+                    help="run the --append update step on a DATExSTOCK "
+                         "device mesh (slab sharded, state replicated; "
+                         "bitwise the single-device update)")
     _risk_flags(pl)
     pl.add_argument("--block", type=int, default=None,
                     help="rolling-kernel date-block size; default: auto "

@@ -204,9 +204,10 @@ class RiskModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh shape: ``n_date_shards`` over the date axis,
-    ``n_stock_shards`` over the stock axis.  The port runs on one device,
-    so more than one shard raises."""
+    """Device-mesh shape: ``n_date_shards`` over the date axis (the
+    cross-sectional regression and the eigen Monte-Carlo are parallel
+    over dates), ``n_stock_shards`` over the stock axis (shard-local panel
+    construction, rolling windows); ``parallel/mesh.py`` builds it."""
 
     n_date_shards: int = 1
     n_stock_shards: int = 1
@@ -216,10 +217,6 @@ class MeshConfig:
             if not _is_count(getattr(self, name)):
                 raise ValueError(f"{name} must be a positive int, "
                                  f"got {getattr(self, name)!r}")
-        if self.n_date_shards * self.n_stock_shards > 1:
-            raise NotImplementedError(
-                "a device mesh of more than one shard is not ported yet "
-                "(ROADMAP.md §A 16d)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -44,18 +44,19 @@ def config_from_reference(fields: Mapping) -> RiskModelConfig:
     """The port's config from the reference ``RiskModelConfig``'s fields.
 
     The ``quarantine`` policy's dict becomes a :class:`QuarantinePolicy`;
-    a ``mesh`` entry is accepted only at one shard per axis (the port runs
-    on one device); unknown fields raise.
+    a ``mesh`` entry must make a :class:`MeshConfig` and then goes to the
+    pipeline's config (:func:`pipeline_config_from_reference`): the risk
+    model takes its mesh from the ambient one (``parallel/mesh.py``
+    ``use_mesh``); unknown fields raise.
     """
     fields = dict(fields)
     quarantine = fields.pop("quarantine", None)
     if quarantine is not None:
         fields["quarantine"] = (quarantine if isinstance(
             quarantine, QuarantinePolicy) else QuarantinePolicy(**quarantine))
-    mesh = fields.pop("mesh", None) or {}
-    if any(v > 1 for v in mesh.values()):
-        raise NotImplementedError(
-            "the device mesh is not ported yet (ROADMAP.md §A 16d)")
+    mesh = fields.pop("mesh", None)
+    if mesh is not None and not isinstance(mesh, MeshConfig):
+        MeshConfig(**mesh)
     known = {f.name for f in dataclasses.fields(RiskModelConfig)}
     unknown = sorted(set(fields) - known)
     if unknown:
@@ -90,7 +91,7 @@ def pipeline_config_from_reference(fields: Mapping) -> PipelineConfig:
     """The port's ``PipelineConfig`` from the reference ``PipelineConfig``'s
     fields as a plain dict: ``factors`` through
     :func:`factor_config_from_reference`, ``risk`` through
-    :func:`config_from_reference`, ``mesh`` (one shard per axis only),
+    :func:`config_from_reference`, ``mesh`` (any shard counts),
     ``dtype``, ``block`` and ``rolling_impl``; unknown fields raise."""
     fields = dict(fields)
     unknown = sorted(set(fields) - {f.name for f in

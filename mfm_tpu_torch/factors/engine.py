@@ -25,6 +25,7 @@ from mfm_tpu_torch.config import FactorConfig
 from mfm_tpu_torch.factors import style
 from mfm_tpu_torch.factors.post import apply_post_processing
 from mfm_tpu_torch.ops.rolling import auto_block
+from mfm_tpu_torch.parallel.mesh import ShardedPanel, gather
 
 _NAN = float("nan")
 
@@ -72,6 +73,13 @@ class FactorEngine:
     total_hldr_eqy_inc_min_int, debt_to_assets.  ``index_close``: (T,)
     market index closes.  Both keep their dtypes and move to ``device``:
     None for the CUDA card, or e.g. "cpu".
+
+    Fields laid out over a mesh (``parallel/mesh.py`` ``ShardedPanel``s,
+    e.g. stock-sharded ``shard_panel(..., rolling=True)``) are gathered to
+    the mesh's first device at entry (``device`` defaults to it): NLSIZE's
+    per-date regression and the post-processing reduce over the whole
+    stock axis, so one gather at entry keeps them in the single-device
+    summation order.
     """
 
     fields: Dict[str, torch.Tensor]
@@ -86,8 +94,13 @@ class FactorEngine:
     device: str | torch.device | None = None
 
     def __post_init__(self):
+        sharded = [v for v in self.fields.values()
+                   if isinstance(v, ShardedPanel)]
+        if sharded and self.device is None:
+            self.device = sharded[0].mesh.first_device
         self.device = resolve_device(self.device)
-        self.fields = {k: on_device(v, self.device)
+        self.fields = {k: on_device(gather(v) if isinstance(v, ShardedPanel)
+                                    else v, self.device)
                        for k, v in self.fields.items()}
         self.index_close = on_device(self.index_close, self.device)
         if self.block is None:

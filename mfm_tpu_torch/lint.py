@@ -11,8 +11,11 @@ The reference's rules, and what each means for eager PyTorch on the card:
       buffer donation, and eager torch has neither: every call runs
       eagerly, integers keep the dtype they are given, and no buffer is
       handed to a callee.  The port keeps the IDs and emits none of them.
-  R6  PartitionSpec axis names must come from the mesh doctrine — waits
-      for the port's mesh (ROADMAP.md §A 16d); emitted by nothing yet.
+  R6  PartitionSpec axis names must come from the mesh doctrine: a
+      string axis name in a call of ``PartitionSpec`` (imported under any
+      alias, or ``parallel/mesh.py``'s short name ``P``) outside
+      the axes ``parallel/mesh.py`` builds its ``Mesh`` over
+      (``('date', 'stock')``).
   R3  process-global numeric switches only in designated entrypoint
       modules, and never the same switch to the same value twice per
       module: torch's TF32 flags (``torch.backends.cuda.matmul.allow_tf32``,
@@ -72,8 +75,8 @@ RULES = {
     "R5": "perf_counter span times work that reaches the card without "
           "synchronizing inside it — the span measures the enqueue, not "
           "the compute",
-    "R6": "PartitionSpec axis name outside the mesh doctrine — the port's "
-          "mesh is not ported yet (ROADMAP.md §A 16d)",
+    "R6": "PartitionSpec axis name outside the mesh doctrine "
+          "(parallel/mesh.py's Mesh axes)",
     "R7": "metrics/logging call reachable from traced code — " + _NO_TRACE,
 }
 
@@ -151,6 +154,8 @@ class ModuleInfo:
     torch_aliases: set = dataclasses.field(default_factory=set)
     time_aliases: set = dataclasses.field(default_factory=set)
     functools_aliases: set = dataclasses.field(default_factory=set)
+    # local names of ``PartitionSpec`` (R6)
+    pspec_aliases: set = dataclasses.field(default_factory=set)
     # local name -> (target module, attr) for from-imports
     from_imports: dict = dataclasses.field(default_factory=dict)
     # local alias -> dotted module for module imports
@@ -210,6 +215,9 @@ class _Scanner(ast.NodeVisitor):
                 self.mod.torch_names.add(local)
             elif src == "time":
                 self.mod.time_aliases.add(local)
+            elif a.name == "PartitionSpec" or (
+                    src.endswith("parallel.mesh") and a.name == "P"):
+                self.mod.pspec_aliases.add(local)
             else:
                 self.mod.from_imports[local] = (src, a.name)
         self.generic_visit(node)
@@ -389,6 +397,9 @@ class Linter:
         self.edges: dict[str, set[str]] = {}
         #: functions that (transitively) call into torch: device work
         self.torch_touch: set[str] = set()
+        #: the mesh doctrine's axes (R6), read off parallel/mesh.py's
+        #: ``Mesh(devices, (axes...))`` call when it is linted
+        self.mesh_axes: set[str] = {"date", "stock"}
         self.violations: list[Violation] = []
 
     # -- loading ------------------------------------------------------------
@@ -642,11 +653,49 @@ class Linter:
                        "that reaches the card without a synchronize inside "
                        "the span")
 
+    def _read_mesh_axes(self):
+        for mod in self.modules.values():
+            if not mod.name.endswith("parallel.mesh"):
+                continue
+            for n in ast.walk(mod.tree):
+                if not isinstance(n, ast.Call):
+                    continue
+                chain = _attr_chain(n.func) or []
+                if chain[-1:] == ["Mesh"] and len(n.args) >= 2 and \
+                        isinstance(n.args[1], (ast.Tuple, ast.List)):
+                    axes = {_const_str(e) for e in n.args[1].elts}
+                    axes.discard(None)
+                    if axes:
+                        self.mesh_axes = axes
+
+    def _check_r6(self, mod: ModuleInfo):
+        aliases = set(mod.pspec_aliases)
+        if mod.name.endswith("parallel.mesh"):
+            aliases |= {"PartitionSpec", "P"}   # the module's own names
+        if not aliases:
+            return
+        for n in ast.walk(mod.tree):
+            if not (isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+                    and n.func.id in aliases):
+                continue
+            for a in n.args:
+                elts = a.elts if isinstance(a, (ast.Tuple, ast.List)) else [a]
+                for e in elts:
+                    s = _const_str(e)
+                    if s is not None and s not in self.mesh_axes:
+                        self.violations.append(Violation(
+                            mod.file, n.lineno, "R6",
+                            self._enclosing_qual(mod, n),
+                            f"PartitionSpec axis {s!r} is not a doctrine "
+                            f"mesh axis {sorted(self.mesh_axes)}"))
+
     def run_rules(self):
+        self._read_mesh_axes()
         for info in self.funcs.values():
             self._check_r5(info)
         for mod in self.modules.values():
             self._check_r3(mod)
+            self._check_r6(mod)
         self.violations.sort(key=lambda v: (v.file, v.line, v.rule))
 
 
@@ -765,8 +814,8 @@ def baseline_path(args) -> str | None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="mfmlint",
-        description="AST lint for the port's doctrine (R3, R5; R1, R2, R4, "
-                    "R6 and R7 need a traced region, donation or the mesh)")
+        description="AST lint for the port's doctrine (R3, R5, R6; R1, R2, "
+                    "R4 and R7 need a traced region or donation)")
     add_gate_flags(ap, DEFAULT_TARGETS, DEFAULT_BASELINE)
     args = ap.parse_args(argv)
     res = run_lint(args.paths, load_baseline(baseline_path(args)),

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from mfm_tpu_torch.ops.eigh import batched_eigh
+from mfm_tpu_torch.parallel.mesh import replicate_under_mesh
 from mfm_tpu_torch.utils.prec import highest_matmul_precision
 
 
@@ -143,8 +144,12 @@ def portfolio_bias_stat(X, design_valid, covs, cov_valid, spec_vol, ret,
     (T, N); ``covs`` (T, K, K); ``cov_valid`` (T,); ``spec_vol`` (T, N)
     (NaN = no estimate); ``ret`` (T, N); ``weights`` (Q, N) nonnegative.
     Returns ``(z (Q, T-1), mask (Q, T-1))``; :func:`bias_std` takes the std
-    under any date mask.
+    under any date mask.  Date-sharded inputs (``parallel/mesh.py``) are
+    gathered first: the realized leg reads each date's next date, across
+    a shard boundary.
     """
+    X, design_valid, covs, cov_valid, spec_vol, ret = replicate_under_mesh(
+        (X, design_valid, covs, cov_valid, spec_vol, ret))
     dtype, dev = X.dtype, X.device
     K = X.shape[-1]
     zero = torch.zeros((), dtype=dtype, device=dev)

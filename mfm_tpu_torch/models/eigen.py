@@ -27,10 +27,15 @@ simulated covariances, then cast up for the full-precision eighs: a
 different realization, gated statistically on the eigenfactor bias stat
 (``tools/parity_budget.json``, entry ``eigen_mc_bf16``), not bitwise.
 
+Under an ambient ``('date', 'stock')`` mesh (``parallel/mesh.py``) the
+Monte-Carlo runs date-parallel over the whole mesh: each shard runs the
+per-date body on its contiguous date block, so every eigh stays
+shard-local and the result is bitwise the single-device batch.  The F0
+eigh and the rebuild stay whole on the mesh's first device.
+
 Draws come from explicit ``torch.Generator``s; they cannot match
 ``jax.random``'s, so parity with the reference injects ``sim_covs`` (or
-the incremental mode's draw tensor).  Not ported: the device-mesh branch
-(ROADMAP.md §A 16d).
+the incremental mode's draw tensor).
 """
 
 from __future__ import annotations
@@ -42,6 +47,15 @@ from mfm_tpu_torch.ops.eigh import (
     _sweeps_for,
     batched_eigh,
     batched_eigh_weighted_diag,
+)
+from mfm_tpu_torch.parallel.mesh import (
+    P,
+    NamedSharding,
+    _ambient_mesh,
+    device_put,
+    gather,
+    map_shards,
+    replicate,
 )
 from mfm_tpu_torch.utils.prec import highest_matmul_precision
 
@@ -277,15 +291,32 @@ def eigen_risk_adjust_by_time(
     md = _mc(mc_dtype)
     sim = sim_covs if md is None else sim_covs.to(md)
 
-    def v2_of(s_c, d0_c):
-        return _bias_ratios(_assemble_g(s_c, sim[None], md), d0_c,
-                            sim_sweeps, kernels)
+    def v2_slab(s_c, d0_c, sc):
+        """v2 over a (t, K) slab of dates, streamed by ``chunk`` when it
+        bites: the per-shard body under a mesh."""
+        t = s_c.shape[0]
+        step = t if chunk is None or chunk >= t else chunk
+        return torch.cat([
+            _bias_ratios(_assemble_g(s_c[a:a + step], sc[None], md),
+                         d0_c[a:a + step], sim_sweeps, kernels)
+            for a in range(0, t, step)]) if t else s_c
 
-    if chunk is None or chunk >= T:
-        v2 = v2_of(s, D0)
+    mesh = _ambient_mesh()
+    if mesh is None:
+        v2 = v2_slab(s, D0, sim)
     else:
-        v2 = torch.cat([v2_of(s[a:a + chunk], D0[a:a + chunk])
-                        for a in range(0, T, chunk)])
+        # the date axis over the WHOLE mesh: each shard's contiguous block
+        # (dates padded to a multiple of the mesh's size carry s = 0, so G
+        # is all zero, every ratio is degenerate and v2 = 1; cropped); the
+        # draws are made once and copied to every shard, one shard's G
+        # freed before the next shard's is made
+        pad = (-T) % mesh.size
+        z = torch.zeros((pad, K), dtype=s.dtype, device=s.device)
+        spread = NamedSharding(mesh, P(("date", "stock")))
+        v2 = gather(map_shards(
+            v2_slab, device_put(torch.cat([s, z]), spread),
+            device_put(torch.cat([D0, z]), spread), replicate(sim, mesh),
+            out_specs=P(("date", "stock"))))[:T]
 
     return _rebuild(U0, D0, v2, scale_coef, valid & psd)
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from mfm_tpu_torch._device import host_flags
+from mfm_tpu_torch.parallel.mesh import replicate_under_mesh
 from mfm_tpu_torch.utils.prec import highest_matmul_precision
 
 
@@ -112,7 +113,11 @@ def newey_west_expanding_resume(
     masked date's candidate carry is dropped, never blended in, so a NaN
     in the date cannot reach the sums.  The masked date's stacked output V
     is the discarded candidate and its ``valid`` is False.
+
+    Under a mesh the tiny (T, K) series runs replicated: a date-sharded
+    input is gathered first.
     """
+    ret = replicate_under_mesh(ret)
     T, K = ret.shape
     dtype, dev = ret.dtype, ret.device
     lam = torch.tensor(0.5, dtype=dtype, device=dev) ** (1.0 / half_life)
@@ -201,8 +206,10 @@ def newey_west_expanding_associative(
     q (K+1), and :func:`linear_prefix_scan` evaluates them all in O(log T)
     passes.  The lag-shifted first moments b^l = S_{t-l} come from shifting
     the scanned S rows.  No carry comes out: the serving step resumes the
-    serial "scan" method only.
+    serial "scan" method only.  Under a mesh it runs replicated, as the
+    serial scan does.
     """
+    ret = replicate_under_mesh(ret)
     T, K = ret.shape
     dtype, dev = ret.dtype, ret.device
     lam = torch.tensor(0.5, dtype=dtype, device=dev) ** (1.0 / half_life)

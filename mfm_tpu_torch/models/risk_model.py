@@ -22,10 +22,19 @@ The model runs on the CUDA card unless ``device="cpu"`` is given; with no
 CUDA device and no explicit CPU request it raises.  On the card the two
 Jacobi eigh kernels carry stages 1 and 3; ``kernels=False`` swaps in their
 plain PyTorch versions, for comparison only.
+
+Built under an ambient ``('date', 'stock')`` mesh (``parallel/mesh.py``
+``use_mesh``), the model gathers the stock axis of its panels once
+(``constrain_cross_section``); stage 1 then runs on each date shard, on
+that shard's device, and its (T, ...) outputs are gathered to the mesh's
+first device, where Newey-West and vol-regime run replicated; the eigen
+Monte-Carlo runs over every shard of the mesh.  Every result is bitwise
+the single-device run's at the same shapes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Sequence
 
@@ -53,6 +62,15 @@ from mfm_tpu_torch.models.vol_regime import (
     vol_regime_adjust_resume,
 )
 from mfm_tpu_torch.ops.xreg import _rowdot, regress_panel
+from mfm_tpu_torch.parallel.mesh import (
+    P,
+    ShardedPanel,
+    _ambient_mesh,
+    constrain_cross_section,
+    gather,
+    map_shards,
+    use_mesh,
+)
 from mfm_tpu_torch.serve.guard import GuardReport, guard_slab
 
 
@@ -132,6 +150,16 @@ MIN_REGRESSION_DATES = 16
 #: other matmul kernels than at two or more
 MIN_EIGEN_DATES = 2
 
+
+def _pad_dates(a, rows: int):
+    """``a`` with copies of its last date appended up to ``rows`` dates
+    (as it is when it has that many, or none)."""
+    T = a.shape[0]
+    if T >= rows or T == 0:
+        return a
+    return torch.cat([a, a[-1:].expand((rows - T,) + a.shape[1:])])
+
+
 _INJECTED = ("eigen_incremental=True derives its draws from config.seed "
              "(they are part of the resumable identity) — injected "
              "generator/sim_covs would break the bitwise-suffix contract")
@@ -149,7 +177,8 @@ class RiskModel:
       styles:   (T, N, Q) style exposures.
       industry: (T, N) int codes in [0, P), -1/invalid for missing.
       valid:    (T, N) bool universe mask.
-      device:   None (the CUDA card) or an explicit device such as "cpu".
+      device:   None (the CUDA card) or an explicit device such as "cpu";
+                under a mesh, the mesh's first device.
       kernels:  False runs the eigh kernels' plain versions on the card.
       factor_names: optional (K,) labels, host-side sugar for
                 :meth:`names`.
@@ -167,20 +196,58 @@ class RiskModel:
     factor_names: Sequence[str] | None = None
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
-        for f in ("ret", "cap", "styles", "industry", "valid"):
-            setattr(self, f, on_device(getattr(self, f), self.device))
-        self.valid = self.valid.to(torch.bool)
+        self.mesh = _ambient_mesh()
+        names = ("ret", "cap", "styles", "industry", "valid")
+        if self.mesh is None:
+            self.device = resolve_device(self.device)
+            for f in names:
+                setattr(self, f, on_device(getattr(self, f), self.device))
+            self.valid = self.valid.to(torch.bool)
+        else:
+            first = self.mesh.first_device
+            if self.device is not None and \
+                    torch.device(self.device).type != first.type:
+                raise ValueError(f"device={self.device!r} is not the mesh's "
+                                 f"first device {first}")
+            self.device = first
+            panels = constrain_cross_section(*(
+                x if isinstance(x, ShardedPanel) else on_device(x, first)
+                for x in (getattr(self, f) for f in names)))
+            for f, x in zip(names, panels):
+                setattr(self, f, x)
+            if self.valid.dtype != torch.bool:
+                self.valid = map_shards(lambda v: v.to(torch.bool),
+                                        self.valid, out_specs=P("date"))
         self.T, self.N = self.ret.shape
         self.Q = self.styles.shape[-1]
         self.K = 1 + self.n_industries + self.Q
 
+    def _whole(self, x):
+        """A panel whole on this model's device (under a mesh, gathered)."""
+        return gather(x) if isinstance(x, ShardedPanel) else x
+
     # -- stage 1 -----------------------------------------------------------
+    def _regress(self, min_dates: int = 0):
+        """(factor_ret, specific_ret, r2) of every date; a date block of
+        fewer than ``min_dates`` dates runs padded with copies of its last
+        date.  Under a mesh each date shard runs on its own device (one
+        pseudo-inverse launch a shard) and the results are gathered."""
+        def run(ret, cap, styles, industry, valid):
+            T = ret.shape[0]
+            res = regress_panel(
+                *(_pad_dates(a, min_dates)
+                  for a in (ret, cap, styles, industry, valid)),
+                n_industries=self.n_industries, kernels=self.kernels)
+            return res.factor_ret[:T], res.specific_ret[:T], res.r2[:T]
+
+        panels = (self.ret, self.cap, self.styles, self.industry, self.valid)
+        if self.mesh is None:
+            return run(*panels)
+        return tuple(gather(o) for o in map_shards(
+            run, *panels, out_specs=(P("date"), P("date"), P("date"))))
+
     def reg_by_time(self):
-        res = regress_panel(
-            self.ret, self.cap, self.styles, self.industry, self.valid,
-            n_industries=self.n_industries, kernels=self.kernels)
-        return res.factor_ret, res.specific_ret, res.r2
+        return self._regress()
 
     # -- stage 2 -----------------------------------------------------------
     def newey_west_by_time(self, factor_ret):
@@ -213,12 +280,14 @@ class RiskModel:
         sweeps = self.config.eigen_sim_sweeps
         if sweeps == "auto":
             sweeps = None
-        return eigen_risk_adjust_by_time(
-            nw_cov, nw_valid, sim_covs, self.config.eigen_scale_coef,
-            sim_sweeps=sweeps, sim_length=sim_length,
-            chunk=self._resolve_eigen_chunk(sim_covs.shape[0],
-                                            nw_cov.element_size()),
-            kernels=self.kernels, mc_dtype=self.config.eigen_mc_dtype)
+        with (contextlib.nullcontext() if self.mesh is None
+              else use_mesh(self.mesh)):
+            return eigen_risk_adjust_by_time(
+                nw_cov, nw_valid, sim_covs, self.config.eigen_scale_coef,
+                sim_sweeps=sweeps, sim_length=sim_length,
+                chunk=self._resolve_eigen_chunk(sim_covs.shape[0],
+                                                nw_cov.element_size()),
+                kernels=self.kernels, mc_dtype=self.config.eigen_mc_dtype)
 
     def _resolve_eigen_chunk(self, n_sims: int, itemsize: int) -> int | None:
         """config.eigen_chunk -> a concrete date-chunk size (or None);
@@ -345,18 +414,7 @@ class RiskModel:
         in the incremental eigen, so they consume no draw.
         """
         T = self.T
-
-        def pad(a, rows):
-            if T >= rows or T == 0:
-                return a
-            return torch.cat([a, a[-1:].expand((rows - T,) + a.shape[1:])])
-
-        res = regress_panel(
-            *(pad(a, MIN_REGRESSION_DATES) for a in (
-                self.ret, self.cap, self.styles, self.industry, self.valid)),
-            n_industries=self.n_industries, kernels=self.kernels)
-        factor_ret, specific_ret, r2 = (
-            res.factor_ret[:T], res.specific_ret[:T], res.r2[:T])
+        factor_ret, specific_ret, r2 = self._regress(MIN_REGRESSION_DATES)
         if self.config.nw_method == "scan":
             nw_cov, nw_valid, nw_carry_out = newey_west_expanding_resume(
                 factor_ret, q=self.config.nw_lags,
@@ -368,8 +426,8 @@ class RiskModel:
             nw_cov, nw_valid = self.newey_west_by_time(factor_ret)
             nw_carry_out = None
         eig_carry_out = None
-        nw_cov_e, nw_valid_e = (pad(nw_cov, MIN_EIGEN_DATES),
-                                pad(nw_valid, MIN_EIGEN_DATES))
+        nw_cov_e, nw_valid_e = (_pad_dates(nw_cov, MIN_EIGEN_DATES),
+                                _pad_dates(nw_valid, MIN_EIGEN_DATES))
         if self.config.eigen_incremental:
             skip = host_flags(skip_mask, T) + [True] * (len(nw_cov_e) - T)
             eigen_cov, eigen_valid, eig_carry_out = self._eigen_incremental(
@@ -441,7 +499,8 @@ class RiskModel:
         universe sizes; the last-good covariance is the final eigen-valid
         date's adjusted covariance."""
         pol = self.config.quarantine
-        counts = self.valid.sum(dim=1).cpu().numpy().astype(np.float64)
+        counts = self._whole(self.valid).sum(dim=1).cpu().numpy().astype(
+            np.float64)
         vr = outputs.vr_cov.cpu().numpy()
         ev = outputs.eigen_valid.cpu().numpy()
         W = pol.universe_window
@@ -523,7 +582,8 @@ class RiskModel:
                 "quarantine-enabled config (the guards need the trailing-"
                 "universe ring and last-good covariance seeded at init)")
         quarantined, reasons, ring, ring_pos = guard_slab(
-            self.ret, self.cap, self.valid, state.guard_ring,
+            *map(self._whole, (self.ret, self.cap, self.valid)),
+            state.guard_ring,
             state.guard_ring_pos, self.config.quarantine,
             pre_reasons=pre_reasons, heal_mask=heal_mask)
         skip = quarantined.tolist()  # the one read of the verdicts

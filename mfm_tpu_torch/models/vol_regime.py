@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from mfm_tpu_torch._device import host_flags
+from mfm_tpu_torch.parallel.mesh import replicate_under_mesh
 
 def vr_init_carry(dtype, device=None) -> tuple:
     """The ``(num, den)`` EWMA state before any date — the resumable
@@ -52,8 +53,10 @@ def vol_regime_adjust_resume(factor_ret, covs, valid, half_life: float = 42.0,
     than an invalid date, which still decays both sums; a quarantined date
     leaves the time axis, so (good, BAD, good) matches (good, good)
     bitwise.  The masked date's stored multiplier is the frozen carry's
-    ratio, the value a degraded-mode reader would see.
+    ratio, the value a degraded-mode reader would see.  Under a mesh the
+    (T,) series run replicated: date-sharded inputs are gathered first.
     """
+    factor_ret, covs, valid = replicate_under_mesh((factor_ret, covs, valid))
     dtype, dev = factor_ret.dtype, factor_ret.device
     lam = torch.tensor(0.5, dtype=dtype, device=dev) ** (1.0 / half_life)
     var = covs.diagonal(dim1=-2, dim2=-1)  # (T, K)

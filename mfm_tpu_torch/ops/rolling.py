@@ -33,6 +33,13 @@ from typing import Callable, Sequence
 
 import torch
 
+from mfm_tpu_torch.parallel.mesh import (
+    ShardedPanel,
+    gather,
+    map_shards,
+    replicate,
+)
+
 #: the rolling-kernel implementations, the single source for config
 #: validation (scan = O(T*N) two-level chunked scans, block = the
 #: windowed-gather reference formulation)
@@ -213,7 +220,20 @@ def rolling_beta_hsigma(ret: torch.Tensor, market_ret: torch.Tensor, *,
     (float32 drift up to ~2e-4 relative on an index-tracker-like stock,
     ``mfm_tpu/ops/rolling.py:270-282``); the block path forms the
     residuals explicitly.
+
+    ``ret`` laid out over a mesh (a ``ShardedPanel`` in the rolling layout
+    ``P(None, ('date', 'stock'))``): each stock shard runs on its device
+    (the windows run along time, so no shard needs another's stocks) and
+    the results are gathered to the mesh's first device.
     """
+    if isinstance(ret, ShardedPanel):
+        if not isinstance(market_ret, ShardedPanel):
+            market_ret = replicate(market_ret, ret.mesh)
+        return tuple(gather(o) for o in map_shards(
+            lambda r, m: rolling_beta_hsigma(
+                r, m, window=window, half_life=half_life,
+                min_periods=min_periods, block=block, impl=impl),
+            ret, market_ret, out_specs=(ret.spec, ret.spec)))
     T, N = ret.shape
     dtype = ret.dtype
     if market_ret.dim() == 1:

@@ -14,16 +14,17 @@ panel -> factor table -> barra table -> risk model -> results.
   specific-risk panel, portfolio risk, the random-portfolio bias test and
   the batched query engine of a date;
 - :func:`save_pipeline_state` / :func:`append_risk_pipeline`: the daily
-  append from a fenced checkpoint, bitwise the suffix of a full run.
+  append from a fenced checkpoint, bitwise the suffix of a full run;
+- ``mesh=`` on both (``parallel/mesh.py``): the risk stack sharded over a
+  ``('date', 'stock')`` mesh, its panels built shard by shard from the
+  table's row space (:func:`_sharded_risk_panels`), so the host never
+  holds a dense (T, N) panel, bitwise the single-device run.
 
 Everything runs on the CUDA card unless ``device="cpu"`` is given.  Only
 the five table methods, :meth:`RiskPipelineResult.specific_risk`'s
 DataFrames and :meth:`RiskPipelineResult.portfolio_risk`'s ``pd.Series``
 import pandas, when called; ``_specific_panels`` and ``_portfolio_risk``
 are their numpy cores.
-
-Not ported here, raising ``NotImplementedError`` with its ROADMAP.md
-item: the sharded ``mesh=`` ingest (§A 16d).
 """
 
 from __future__ import annotations
@@ -41,7 +42,11 @@ import torch
 from mfm_tpu_torch._device import resolve_device
 from mfm_tpu_torch.config import PipelineConfig
 from mfm_tpu_torch.data.artifacts import _numpy
-from mfm_tpu_torch.data.barra import BarraArrays, barra_frame_to_arrays
+from mfm_tpu_torch.data.barra import (
+    BarraArrays,
+    barra_frame_to_arrays,
+    barra_frame_to_coo,
+)
 from mfm_tpu_torch.factors.engine import (
     FactorEngine,
     gather_rows,
@@ -54,10 +59,14 @@ from mfm_tpu_torch.models.risk_model import (
     RiskModelState,
 )
 from mfm_tpu_torch.obs import instrument as _telemetry
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md §A {item})")
+from mfm_tpu_torch.parallel.mesh import (
+    PIPELINE_SPECS,
+    NamedSharding,
+    ShardedPanel,
+    shard_panel,
+    shard_region,
+    use_mesh,
+)
 
 
 #: composite -> barra output name (``Barra_factor_cal/config.py:53-72``)
@@ -440,10 +449,22 @@ def run_risk_pipeline(
     ``with_state`` runs :meth:`RiskModel.init_state` and sets
     ``result.state``, the checkpoint :func:`append_risk_pipeline` serves
     new dates from.  ``device``: None for the CUDA card, or e.g. "cpu".
+
+    ``mesh`` (:func:`mfm_tpu_torch.parallel.mesh.make_mesh`) runs the risk
+    stack sharded: each shard's panel block is densified straight from
+    the table's row space (no host-side dense (T, N) panel; ``arrays``
+    given densified are cut into blocks instead), the model runs under
+    the mesh, and the outputs are cropped back to the real (T, N);
+    ``result.arrays`` is a :class:`LazyBarraArrays`, densified only when
+    an analytic reads a panel.  A state run needs T divisible by the
+    mesh's date axis and N by its stock axis (padding must never enter
+    the resumable carries).
     """
     config = config or PipelineConfig()
     if mesh is not None:
-        _not_ported("run_risk_pipeline(mesh=...)", "16d")
+        return _run_risk_pipeline_sharded(
+            barra_df, arrays, config, industry_codes, sim_covs, sim_length,
+            fused, with_state, mesh, device)
     dev = resolve_device(device)
     if arrays is None:
         arrays = barra_frame_to_arrays(barra_df, industry_codes=industry_codes)
@@ -459,6 +480,165 @@ def run_risk_pipeline(
     run = rm.run_fused if fused else rm.run
     out = run(sim_covs=sim_covs, sim_length=sim_length)
     return RiskPipelineResult(outputs=out, arrays=arrays, model=rm)
+
+
+class LazyBarraArrays:
+    """:class:`BarraArrays` facade over a :class:`BarraCOO`.
+
+    Metadata (dates, stocks, codes, names) is immediate; the first access
+    to a dense panel attribute densifies once and caches.  The sharded
+    pipeline returns this, so the run never builds a host-side dense
+    panel; only analytics that need one (``portfolio_bias``, the specific
+    risk's cap groups) pay the densification, when they read it.
+    """
+
+    _PANELS = ("ret", "cap", "styles", "industry", "valid")
+
+    def __init__(self, coo, dtype=np.float64):
+        self._coo, self._dtype, self._dense = coo, dtype, None
+        self.dates = coo.dates
+        self.stocks = coo.stocks
+        self.industry_codes = coo.industry_codes
+        self.style_names = list(coo.style_names)
+
+    @property
+    def n_industries(self) -> int:
+        return len(self.industry_codes)
+
+    @property
+    def densified(self) -> bool:
+        return self._dense is not None
+
+    def factor_names(self) -> list:
+        return self._coo.factor_names()
+
+    def __getattr__(self, name):
+        if name in LazyBarraArrays._PANELS:
+            if self._dense is None:
+                self._dense = self._coo.to_arrays(self._dtype)
+            return getattr(self._dense, name)
+        raise AttributeError(name)
+
+
+class _DenseBlocks:
+    """Densified :class:`BarraArrays` behind the :meth:`BarraCOO.block`
+    protocol (a slice instead of a densification), so
+    :func:`_sharded_risk_panels` serves both ingest forms."""
+
+    def __init__(self, arrays):
+        self._a = arrays
+        self.dates, self.stocks = arrays.dates, arrays.stocks
+        self.industry_codes = arrays.industry_codes
+        self.style_names = list(arrays.style_names)
+
+    @property
+    def n_industries(self):
+        return len(self.industry_codes)
+
+    def factor_names(self):
+        return self._a.factor_names()
+
+    def block(self, t0, t1, s0, s1, dtype=np.float64):
+        a = self._a
+        T, N = a.ret.shape
+        out = {}
+        for name, fill in (("ret", np.nan), ("cap", np.nan),
+                           ("styles", np.nan), ("industry", -1),
+                           ("valid", False)):
+            src = getattr(a, name)
+            shape = (t1 - t0, s1 - s0) + src.shape[2:]
+            dt = dtype if src.dtype.kind == "f" else src.dtype
+            blk = np.full(shape, fill, dt)
+            tt, ss = min(t1, T), min(s1, N)
+            if tt > t0 and ss > s0:
+                blk[:tt - t0, :ss - s0] = src[t0:tt, s0:ss]
+            out[name] = blk
+        return out
+
+
+def _sharded_risk_panels(coo, mesh, dtype: torch.dtype):
+    """The five risk-model panels made directly in their mesh layout
+    (:data:`~mfm_tpu_torch.parallel.mesh.PIPELINE_SPECS`): each position's
+    (date, stock) rectangle is densified by :meth:`BarraCOO.block` and
+    sent to that position's device, one rectangle at a time, so the host
+    never holds a dense (T, N) panel.
+
+    Global shapes are padded to mesh-divisible sizes (the ``pad_to_mesh``
+    doctrine); a padding cell is a rectangle no table row falls in, so it
+    densifies to missing data (NaN / industry -1 / valid False), inert in
+    the model's masked design.  Returns ``(panels, (T, N))``, T and N the
+    real extents.
+    """
+    names = ("ret", "cap", "styles", "industry", "valid")
+    T, N, Q = len(coo.dates), len(coo.stocks), len(coo.style_names)
+    nd, ns = mesh.shape["date"], mesh.shape["stock"]
+    Tp, Np = T + (-T) % nd, N + (-N) % ns
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    layout = NamedSharding(mesh, PIPELINE_SPECS["ret"])
+    shards = {n: {} for n in names}
+    made = {}
+    for pos in mesh.local_positions:
+        rt, rs = shard_region((Tp, Np), layout, pos)
+        dev = mesh.devices[pos]
+        key = (rt.start, rt.stop, rs.start, rs.stop, str(dev))
+        if key not in made:
+            blk = coo.block(rt.start, rt.stop, rs.start, rs.stop,
+                            dtype=np_dtype)
+            made[key] = {n: torch.from_numpy(blk[n]).to(dev) for n in names}
+        for n in names:
+            shards[n][pos] = made[key][n]
+    first = mesh.local_positions[0]
+    return tuple(
+        ShardedPanel((Tp, Np, Q) if n == "styles" else (Tp, Np),
+                     NamedSharding(mesh, PIPELINE_SPECS[n]), shards[n],
+                     shards[n][first].dtype)
+        for n in names), (T, N)
+
+
+def _crop_outputs(out: RiskModelOutputs, T: int, N: int) -> RiskModelOutputs:
+    """Crop mesh-padded outputs back to the real (T, N) extents."""
+    return RiskModelOutputs(
+        factor_ret=out.factor_ret[:T], specific_ret=out.specific_ret[:T, :N],
+        r2=out.r2[:T], nw_cov=out.nw_cov[:T], nw_valid=out.nw_valid[:T],
+        eigen_cov=out.eigen_cov[:T], eigen_valid=out.eigen_valid[:T],
+        vr_cov=out.vr_cov[:T], lamb=out.lamb[:T])
+
+
+def _run_risk_pipeline_sharded(barra_df, arrays, config, industry_codes,
+                               sim_covs, sim_length, fused, with_state,
+                               mesh, device):
+    """The ``mesh=`` body of :func:`run_risk_pipeline` (see its
+    docstring)."""
+    if arrays is None:
+        coo = barra_frame_to_coo(barra_df, industry_codes=industry_codes)
+        result_arrays = LazyBarraArrays(coo)
+    else:
+        coo = _DenseBlocks(arrays)
+        result_arrays = arrays
+    nd, ns = mesh.shape["date"], mesh.shape["stock"]
+    T, N = len(coo.dates), len(coo.stocks)
+    if with_state and (T % nd or N % ns):
+        raise ValueError(
+            f"a state (resumable-carry) run cannot be mesh-padded: T={T} "
+            f"must divide the date axis ({nd}) and N={N} the stock axis "
+            f"({ns}) — pick a compatible mesh (make_mesh(n_date=...)) or "
+            "run unsharded")
+    panels, (T, N) = _sharded_risk_panels(coo, mesh, _dtype(config))
+    with use_mesh(mesh):
+        rm = RiskModel(*panels, n_industries=coo.n_industries,
+                       config=config.risk, device=device,
+                       factor_names=coo.factor_names())
+        if with_state:
+            out, state = rm.init_state(
+                sim_covs=sim_covs, sim_length=sim_length,
+                last_date=date_stamp(coo.dates[-1]))
+            return RiskPipelineResult(outputs=_crop_outputs(out, T, N),
+                                      arrays=result_arrays, model=rm,
+                                      state=state)
+        run = rm.run_fused if fused else rm.run
+        out = run(sim_covs=sim_covs, sim_length=sim_length)
+    return RiskPipelineResult(outputs=_crop_outputs(out, T, N),
+                              arrays=result_arrays, model=rm)
 
 
 def save_pipeline_state(path: str, result: RiskPipelineResult):
@@ -501,13 +681,18 @@ def append_risk_pipeline(
     guarded (:meth:`RiskModel.update_guarded`) and ``result.report``
     carries the verdicts.  ``force`` overrides the checkpoint's generation
     fencing.
+
+    With ``mesh`` the slab's panels are sharded over it and the state,
+    replicated, lives on its first device, so the one update step runs on
+    the mesh, bitwise the single-device update.  The slab must divide the
+    mesh exactly: the update folds every row into the carries, so a
+    padded slab would corrupt them.
     """
     from mfm_tpu_torch.data.artifacts import load_risk_state
 
     config = config or PipelineConfig()
-    if mesh is not None:
-        _not_ported("append_risk_pipeline(mesh=...)", "16d")
-    dev = resolve_device(device)
+    dev = (mesh.first_device if mesh is not None and device is None
+           else resolve_device(device))
     state, meta = load_risk_state(state_path, dev, force=force)
     arrays = barra_frame_to_arrays(
         barra_df,
@@ -526,15 +711,28 @@ def append_risk_pipeline(
         arrays, dates=arrays.dates[keep], ret=arrays.ret[keep],
         cap=arrays.cap[keep], styles=arrays.styles[keep],
         industry=arrays.industry[keep], valid=arrays.valid[keep])
-    return _append_update_step(slab, state, config, last, dev)
+    panels = _panels(slab, _dtype(config), dev)
+    if mesh is None:
+        return _append_update_step(panels, slab, state, config, last, dev)
+    nd, ns = mesh.shape["date"], mesh.shape["stock"]
+    Ts, Ns = len(slab.dates), len(slab.stocks)
+    if Ts % nd or Ns % ns:
+        raise ValueError(
+            f"sharded append: slab (T={Ts}, N={Ns}) must divide the "
+            f"({nd} date x {ns} stock) mesh exactly — the update folds "
+            "every row into the carries, so a padded slab would corrupt "
+            "them")
+    with use_mesh(mesh):
+        return _append_update_step(shard_panel(panels, mesh), slab, state,
+                                   config, last, dev)
 
 
-def _append_update_step(slab, state, config, last, device):
+def _append_update_step(panels, slab, state, config, last, device):
     from mfm_tpu_torch.serve.guard import host_date_reasons
 
-    rm = RiskModel(*_panels(slab, _dtype(config), device),
-                   n_industries=slab.n_industries, config=config.risk,
-                   device=device, factor_names=slab.factor_names())
+    rm = RiskModel(*panels, n_industries=slab.n_industries,
+                   config=config.risk, device=device,
+                   factor_names=slab.factor_names())
     last_date = date_stamp(slab.dates[-1])
     if config.risk.quarantine.enabled:
         # the host-side date-order pre-check feeds the guards: a

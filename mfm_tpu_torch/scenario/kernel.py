@@ -330,7 +330,8 @@ def sweep_chunk(carry, base_lib, xs, thetas, base_idx, src,
     blocks (:func:`stress_cov` + :func:`book_vols`), so streaming results
     are bitwise the materializing engine's; passthrough (identity-theta)
     lanes take the per-base vols instead, mirroring the serving kernel's
-    untouched-base passthrough.
+    untouched-base passthrough.  It is :func:`sweep_fold` of
+    :func:`sweep_lane_vols`.
 
     Args:
       carry: the tuple of :func:`_init_sweep_carry`.
@@ -344,23 +345,48 @@ def sweep_chunk(carry, base_lib, xs, thetas, base_idx, src,
         neither taken nor rejected).
       lo / width: (B,) histogram bin origin / width at compute dtype.
     """
+    vols = sweep_lane_vols(base_lib, xs, thetas, base_idx, passthrough)
+    return sweep_fold(carry, vols, thetas, base_idx, src, take, reject, lo,
+                      width)
+
+
+def _subchunk(C: int) -> int:
+    return SWEEP_SUBCHUNK if C % SWEEP_SUBCHUNK == 0 else C
+
+
+def sweep_lane_vols(base_lib, xs, thetas, base_idx, passthrough):
+    """(B, C) vols of every book under each of C certified lanes, in
+    ``SWEEP_SUBCHUNK`` slices; a lane's vols keep their bits whatever
+    lanes share the call (the sharded sweep computes each shard's lanes
+    alone)."""
     K = base_lib.shape[-1]
     C = thetas.shape[0]
     base_vols = book_vols(base_lib, xs)                         # (B, L)
-    sub = SWEEP_SUBCHUNK if C % SWEEP_SUBCHUNK == 0 else C
+    sub = _subchunk(C)
     base_idx = base_idx.long()
+    out = []
     for s in range(0, C, sub):
         th, bi = thetas[s:s + sub], base_idx[s:s + sub]
         covs = stress_cov(base_lib[bi], th[:, :K], th[:, K:2 * K],
                           th[:, 2 * K], th[:, 2 * K + 1])
         vols = book_vols(covs, xs)                              # (B, sub)
-        vols = torch.where(passthrough[None, s:s + sub], base_vols[:, bi],
-                           vols)
-        projected = torch.zeros(th.shape[0], dtype=torch.bool,
-                                device=th.device)               # certified
-        carry = _merge_into_carry(carry, vols, th, src[s:s + sub],
-                                  bi.to(torch.int32), take[s:s + sub],
-                                  reject[s:s + sub], projected, lo, width)
+        out.append(torch.where(passthrough[None, s:s + sub],
+                               base_vols[:, bi], vols))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
+
+
+def sweep_fold(carry, vols, thetas, base_idx, src, take, reject, lo, width):
+    """Fold a chunk's (B, C) certified lane vols (:func:`sweep_lane_vols`)
+    into the carry, one ``SWEEP_SUBCHUNK`` slice at a time."""
+    C = thetas.shape[0]
+    sub = _subchunk(C)
+    bi = base_idx.to(torch.int32)
+    projected = torch.zeros(C, dtype=torch.bool, device=thetas.device)
+    for s in range(0, C, sub):
+        part = slice(s, s + sub)
+        carry = _merge_into_carry(carry, vols[:, part], thetas[part],
+                                  src[part], bi[part], take[part],
+                                  reject[part], projected[part], lo, width)
     return carry
 
 

@@ -7,7 +7,8 @@ right shape for a drill report, the wrong one for a million-scenario
 search (~4 GB of transfer for answers that are scalars).  This module is
 the streaming counterpart: host-side spec GENERATORS feed blocks of C
 dense shock lanes to the device, where
-:func:`mfm_tpu_torch.scenario.kernel.sweep_chunk` folds each block into a
+:func:`mfm_tpu_torch.scenario.kernel.sweep_chunk`'s two halves
+(``sweep_lane_vols``, ``sweep_fold``) fold each block into a
 fixed-size carry — per-book top-k worst (vol, theta) entries, a
 fixed-bin vol histogram (the quantile sketch) and admission counters —
 so nothing S-shaped ever exists on device or host.
@@ -37,9 +38,12 @@ seed a reverse-stress ascent (:mod:`mfm_tpu_torch.grad.reverse`, two
 Jacobi eighs a step on the card), its endpoints fold through the exact
 path, and a dense local re-sweep around each book's best endpoint
 (:class:`_LocalSampler`) folds into the SAME carry, so the final worst
-case can only improve on the coarse top-1.  The reference's mesh
-sharding (``mesh=``) is not ported yet: it raises, naming ROADMAP.md
-§A 16d.
+case can only improve on the coarse top-1.  ``mesh=`` splits each
+chunk's lanes over every shard of a ``('date', 'stock')`` mesh
+(``parallel/mesh.py``): each shard computes its lanes' vols on its device,
+and the vols are gathered to fold into the carry, which with the books
+and the base library stays replicated; the result is bitwise the
+single-device sweep's.
 
 Host-side orchestration only: the device math lives in
 scenario/kernel.py.
@@ -57,11 +61,20 @@ import torch
 
 from mfm_tpu_torch.data.artifacts import _numpy
 from mfm_tpu_torch.obs import instrument as _obs
+from mfm_tpu_torch.parallel.mesh import (
+    P,
+    NamedSharding,
+    device_put,
+    gather,
+    map_shards,
+    replicate,
+)
 from mfm_tpu_torch.scenario.engine import ScenarioEngine
 from mfm_tpu_torch.scenario.kernel import (
     _init_sweep_carry,
     scenario_batch,
-    sweep_chunk,
+    sweep_fold,
+    sweep_lane_vols,
     sweep_merge,
 )
 from mfm_tpu_torch.scenario.spec import PRESETS, ScenarioSpec, validate_spec
@@ -405,16 +418,17 @@ class SweepEngine:
     what-if surface at a different aspect ratio (constructor and
     ``from_risk_state`` guards match).
 
-    Args mirror :class:`ScenarioEngine` (``device=None`` is the card).
-    ``mesh`` must stay None: sharding the chunk axis over a device mesh
-    waits for ROADMAP.md §A 16d.
+    Args mirror :class:`ScenarioEngine` (``device=None`` is the card, or
+    the mesh's first device).  ``mesh`` optionally shards the chunk axis
+    over a ``('date', 'stock')`` device mesh (carry, books and base
+    library stay replicated — the chunk axis is the only large one).
     """
 
     def __init__(self, cov, *, factor_names=None, staleness: int = 0,
                  dtype=None, replay_lookup=None, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SweepEngine(mesh=) is not ported yet (ROADMAP.md §A 16d)")
+        if mesh is not None and device is None:
+            device = mesh.first_device
+        self.mesh = mesh
         self._scen = ScenarioEngine(cov, factor_names=factor_names,
                                     staleness=staleness, dtype=dtype,
                                     replay_lookup=replay_lookup,
@@ -701,8 +715,21 @@ class SweepEngine:
                put(ident & clean))
         if contracts.listening():
             contracts.note_bucket(contracts.SWEEP_CHUNK, *ops)
-        return sweep_chunk(carry, dev["lib"], dev["xs"], *ops, dev["lo"],
-                           dev["width"])
+        th_t, row_t, src_t, take_t, reject_t, pass_t = ops
+        if self.mesh is None:
+            vols = sweep_lane_vols(dev["lib"], dev["xs"], th_t, row_t, pass_t)
+        else:
+            # the chunk's lanes over every shard, the library and books on
+            # each; a lane's vols keep their bits alone, so the gathered
+            # (B, C) vols fold bitwise as the single-device chunk's
+            spread = NamedSharding(self.mesh, P(("date", "stock")))
+            vols = gather(map_shards(
+                sweep_lane_vols, replicate(dev["lib"], self.mesh),
+                replicate(dev["xs"], self.mesh),
+                *device_put((th_t, row_t, pass_t), spread),
+                out_specs=P(None, ("date", "stock"))))
+        return sweep_fold(carry, vols, th_t, row_t, src_t, take_t, reject_t,
+                          dev["lo"], dev["width"])
 
     def _flush_offenders(self, carry, dev, state, m):
         """Run m buffered offender lanes through the EXACT serving path

@@ -21,6 +21,13 @@ checkpoints, and asserts the recovery contracts bitwise:
 - **Crash at the manifest write** (kill-at-manifest): the fenced checkpoint
   is untouched, no torn ``run_manifest.json`` is left, and the next run's
   manifest passes ``doctor``.
+- **Crash mid sharded append** (shard-kill-mid-append): the same SIGKILL
+  after the tmp write, while the ``risk --update --mesh 2x2`` subprocess
+  ran its one update step on a virtual ('date', 'stock') mesh of the
+  harness's device: the prior generation stays byte-identical, the
+  fenced load is clean, and an unsharded in-process replay is bitwise the
+  fault-free run (a sharded update is checkpoint-interchangeable with a
+  single-device one).
 - **Crash mid eigen-carry save** (eigen-kill-mid-update): the incremental
   eigen state rides the same fenced npz; the prior generation stays
   byte-identical, the reloaded eigen carry bitwise, the replay bitwise, and
@@ -74,9 +81,8 @@ or manifest's ``kernels`` block) go to the plan's record under
 ``subprocess_launches``.  Each slab is written once as a csv of its own
 dates, which is what ``risk --update`` reads (it serves the rows past the
 checkpoint's last date); the in-process appends read the same csv back,
-so both sides see the same parsed bits.  ``shard-kill-mid-append`` needs
-the mesh and is not ported yet (ROADMAP.md §A 16d): a run lists it under
-``not_ported``, and asking for it by name exits non-zero.
+so both sides see the same parsed bits.  Every plan of ``plan_suite`` is
+ported: ``not_ported`` stays empty.
 
 Everything is seeded; a failing plan replays exactly.  Exit 0 iff every
 plan run passes; ``--out`` writes the JSON report.  The device is the card
@@ -115,7 +121,7 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 DEFAULTS = dict(T=44, hist=32, slab=4, N=20, P=3, Q=2, sims=8)
 
 #: plans of plan_suite this harness does not run yet, by ROADMAP.md item
-NOT_PORTED_KINDS = {"shard_kill": "§A 16d"}
+NOT_PORTED_KINDS: dict = {}
 
 #: the plans of the serving surfaces (queries, scenarios, the sweep, grad,
 #: tracing, the flight recorder, the response cache and the fleet); the
@@ -356,12 +362,12 @@ class Baseline:
 
     def run_update(self, plan, slab: int, path: str, out: str,
                    kill_at: str | None = None, incremental: bool = False,
-                   extra=()):
+                   extra=(), env: dict | None = None):
         """``risk --update`` on slab ``slab``: with ``kill_at``, require
         death by SIGKILL; else success.  Returns the run's launches (None
         for a killed run)."""
         proc = self.cli(self.update_cmd(slab, path, out, incremental, extra),
-                        kill_at=kill_at)
+                        kill_at=kill_at, env=env)
         if kill_at:
             _require_killed(plan, proc, kill_at)
             return None
@@ -607,6 +613,60 @@ def run_eigen_kill(plan, base: Baseline, root: str) -> dict:
             "replay": "bitwise", "doctor": "green",
             "init_launches": init_launches, "subprocess_launches": [sub],
             "killed_subprocesses": 1}
+
+
+def run_shard_kill(plan, base: Baseline, root: str) -> dict:
+    """shard-kill-mid-append: SIGKILL a ``risk --update --quarantine --mesh
+    DxS`` subprocess between the checkpoint's tmp write and its rename —
+    the one update step ran sharded over a virtual mesh of the harness's
+    device (the slab's panels sharded, the state replicated).  Sharding
+    changes nothing about the crash story: the prior generation stays
+    byte-identical, the fenced load is clean, and an unsharded in-process
+    replay lands bitwise on the fault-free outputs and carries.  The next
+    slab then goes through the sharded CLI to its end: its checkpoint's
+    carries are bitwise the fault-free run's, and doctor is green."""
+    from mfm_tpu_torch._device import VIRTUAL_DEVICES_ENV
+
+    point = plan.param("point")
+    mesh = plan.param("mesh", "2x2")
+    nd, _, ns = mesh.partition("x")
+    n_dev = int(nd) * int(ns or 1)
+    d = base.fresh(root, plan.name, base.snaps[0])  # state after history
+    path = os.path.join(d, "state.npz")
+    with open(path, "rb") as fh:
+        pre_bytes = fh.read()
+    env = {VIRTUAL_DEVICES_ENV: os.environ.get(VIRTUAL_DEVICES_ENV)
+           or str(n_dev)}
+    tables = os.path.join(d, "tables")
+    base.run_update(plan, 0, path, tables, kill_at=point,
+                    extra=("--mesh", mesh), env=env)
+    with open(path, "rb") as fh:
+        if fh.read() != pre_bytes:
+            raise AssertionError(f"{plan.name}: checkpoint bytes changed "
+                                 "under a sharded write that never renamed")
+    _, meta = base.load(path)   # fenced: must load clean
+    if meta["last_date"] != base.hist_last:
+        raise AssertionError(f"{plan.name}: checkpoint advanced past a "
+                             "sharded write that never completed")
+    res = base.append(path, base.slabs[0])
+    _assert_outputs_equal(_outputs_by_date(res), base.outputs[0],
+                          base.slab_dates[0], plan.name)
+    _assert_carries_equal(_carries(res.state), base.carries[0], plan.name)
+    del res
+    sub = base.run_update(plan, 1, path, tables, extra=("--mesh", mesh),
+                          env=env)
+    state, meta = base.load(path)
+    if meta["last_date"] != base.slab_dates[1][-1]:
+        raise AssertionError(f"{plan.name}: the sharded CLI update did not "
+                             "carry the appended dates")
+    _assert_carries_equal(_carries(state), base.carries[1],
+                          f"{plan.name} (sharded subprocess checkpoint)")
+    base.doctor(plan, d)
+    return {"killed_at": point, "mesh": mesh, "virtual_devices": env[
+        VIRTUAL_DEVICES_ENV], "prior_state": "byte-identical",
+        "replay": "bitwise", "sharded_checkpoint": "bitwise",
+        "doctor": "green", "subprocess_launches": [sub],
+        "killed_subprocesses": 1}
 
 
 def run_kill_manifest(plan, base: Baseline, root: str) -> dict:
@@ -2400,7 +2460,7 @@ RUNNERS = {"truncate": run_byte_fault, "corrupt": run_byte_fault,
            "kill": run_kill, "kill_manifest": run_kill_manifest,
            "nan_slab": run_poison, "outlier_slab": run_poison,
            "universe_slab": run_poison, "flaky_store": run_flaky_store,
-           "eigen_kill": run_eigen_kill,
+           "eigen_kill": run_eigen_kill, "shard_kill": run_shard_kill,
            "sync_schedule_coalescer": run_sync_schedule_coalescer,
            "sync_schedule_cache": run_sync_schedule_cache,
            "query_kill": run_query_kill, "query_poison": run_query_poison,

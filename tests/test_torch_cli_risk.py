@@ -425,11 +425,31 @@ def test_bias_plot_without_matplotlib_exits_as_the_reference(runs):
 @pytest.mark.parametrize("flag,item", [(["--barra", "x.csv", "--mesh",
                                          "1x2"], "§A 16"),
                                        (["--barra", "x.csv", "--mesh",
-                                         "2x1"], "§A 16")])
-def test_unported_flags_name_their_item(flag, item):
-    with pytest.raises(SystemExit) as exc:
-        main(["risk", *flag, "--device", "cpu"])
-    assert "not ported" in exc.value.code and item in exc.value.code
+                                         "2x1"], "§A 16")],
+                         ids=["flag0-§A 16", "flag1-§A 16"])
+def test_unported_flags_name_their_item(flag, item, monkeypatch, tmp_path):
+    """``--mesh`` is ported (§A 16d).  With one device up it refuses as
+    the reference does, naming the virtual-device variable where the
+    reference names XLA_FLAGS; with two virtual devices the command gets
+    past its flags to its input and fails there exactly as the
+    reference does."""
+    from mfm_tpu_torch._device import VIRTUAL_DEVICES_ENV
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv(VIRTUAL_DEVICES_ENV, raising=False)
+    code, _ = run("port", ["risk", *flag])
+    spec = flag[-1]
+    assert code == (f"--mesh {spec}: needs 2 devices but only 1 are up — "
+                    f"set {VIRTUAL_DEVICES_ENV}=2 before launch for a "
+                    "virtual mesh")
+    assert "not ported" not in code
+    monkeypatch.setenv(VIRTUAL_DEVICES_ENV, "2")
+    errs = []
+    for pkg in ("ref", "port"):
+        with pytest.raises((ValueError, OSError)) as exc:
+            run(pkg, ["risk", *flag])
+        errs.append((type(exc.value), str(exc.value)))
+    assert errs[0] == errs[1]
 
 
 def test_device_cuda_raises_without_a_card(runs, tmp_path):

@@ -4,8 +4,8 @@ on the CPU at the reference's geometry (44 dates, a 32-date history, three
 plan of the risk path's checkpoint passes — their contracts are bitwise —
 and so does steady-state; a sabotaged run fails (a corrupted checkpoint
 that a loader lets through, a poisoned date the guard lets through), so the
-harness is not vacuous; the plan not ported yet is listed by name and
-ROADMAP item, not run, and asking for it exits non-zero.  The serving
+harness is not vacuous; every plan of the suite is ported, so a default
+run lists none as not ported.  The serving
 surfaces' plans run in ``test_torch_faultinject_service.py`` and
 ``test_torch_faultinject_fleet.py``.
 """
@@ -46,15 +46,14 @@ def test_the_ported_plans_are_the_risk_path_plans():
         "kill-after-tmp", "kill-after-rename", "nan-slab", "outlier-slab",
         "universe-collapse", "flaky-store", "kill-at-manifest",
         "eigen-kill-mid-update", "sync-schedule-coalescer",
-        "sync-schedule-cache"])
+        "sync-schedule-cache", "shard-kill-mid-append"])
     kinds = {p.kind for p in plan_suite(0)}
     assert kinds == set(fi.RUNNERS) | set(fi.NOT_PORTED_KINDS)
     assert not set(fi.RUNNERS) & set(fi.NOT_PORTED_KINDS)
-    # the other 15 ported plans are the serving surfaces'; only the
-    # mesh's plan is left
+    # the other 15 ported plans are the serving surfaces'; none is left
     assert fi.SERVICE_KINDS <= set(fi.RUNNERS)
-    assert len([p for p in plan_suite(0) if p.kind in fi.RUNNERS]) == 28
-    assert fi.NOT_PORTED_KINDS == {"shard_kill": "§A 16d"}
+    assert len([p for p in plan_suite(0) if p.kind in fi.RUNNERS]) == 29
+    assert fi.NOT_PORTED_KINDS == {}
 
 
 @pytest.mark.parametrize("plan", PORTED, ids=[p.name for p in PORTED])
@@ -116,9 +115,9 @@ def test_sabotage_poisoned_date_not_quarantined_fails(harness, monkeypatch):
 
 
 def test_main_lists_the_plans_not_ported(tmp_path, monkeypatch, capsys):
-    """A default run runs every ported plan and steady-state and lists the
-    rest with their ROADMAP items (the runners stubbed: the plans
-    themselves run above and in the service and fleet files)."""
+    """A default run runs every plan and steady-state and lists none as
+    not ported (the runners stubbed: the plans themselves run above and
+    in the service and fleet files)."""
     ran = []
     monkeypatch.setattr(fi, "RUNNERS", {
         k: (lambda plan, base, root: ran.append(plan.name) or {})
@@ -130,19 +129,24 @@ def test_main_lists_the_plans_not_ported(tmp_path, monkeypatch, capsys):
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     every = [p.name for p in plan_suite(0) if p.kind in fi.RUNNERS]
     assert sorted(ran) == sorted(every + ["steady-state"])
-    assert summary["plans"] == 29 and summary["failed"] == []
+    assert len(every) == 29
+    assert summary["plans"] == 30 and summary["failed"] == []
     listed = {r["plan"]: r["roadmap"] for r in summary["not_ported"]}
-    assert listed == {"shard-kill-mid-append": "§A 16d"}
+    assert listed == {}
     assert json.loads(out.read_text())["summary"] == summary
 
 
 @pytest.mark.parametrize("name,item", [("query-steady-state", None),
                                        ("fleet-kill-host", None),
-                                       ("shard-kill-mid-append", "§A 16")])
+                                       ("shard-kill-mid-append", None)],
+                         ids=["query-steady-state-None",
+                              "fleet-kill-host-None",
+                              "shard-kill-mid-append-§A 16"])
 def test_asking_for_an_unported_plan_exits_naming_its_item(name, item,
                                                            tmp_path):
-    """The mesh's plan exits naming its item; the two plans this case
-    asked for before they were ported now run by name and pass."""
+    """The three plans this case asked for before they were ported (the
+    query and fleet plans, and the mesh's) now run by name and pass; an
+    unported plan would exit naming its item."""
     out = tmp_path / "r.json"
     proc = subprocess.run(
         [sys.executable, "-m", "mfm_tpu_torch.tools.faultinject",

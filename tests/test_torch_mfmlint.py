@@ -9,8 +9,12 @@ package's (``tests/test_mfmlint.py``), test for test.
   and R5 the port gives, on the translation, the findings the reference
   gives on the original (the paths mapped ``mfm_tpu/`` -> ``mfm_tpu_torch/``
   and ``tools/`` -> ``mfm_tpu_torch/tools/``, the port's entrypoints); R1,
-  R2, R4, R6 and R7 need a traced region, donation or the mesh, which the
-  translation does not have, and the port gives none of them;
+  R2, R4 and R7 need a traced region or donation, which the translation
+  does not have, and the port gives none of them;
+- R6 reads ``PartitionSpec`` axis names against the axes
+  ``parallel/mesh.py`` builds its ``Mesh`` over, as the reference does,
+  and fires on a stray axis in the port's own spelling (``P`` from
+  ``mfm_tpu_torch.parallel.mesh``);
 - injection drills on scratch copies of the port flip the CLI to exit 1;
 - ``lint.py`` imports no torch, numpy, jax or ``mfm_tpu``.
 """
@@ -147,6 +151,19 @@ SHARED = {
                 with open(path, "w") as fh:
                     fh.write(str(ev))
                     fh.flush()
+        """},
+    "partition_spec_axes": {
+        # the reference's R6 fixture (tests/test_mfmlint.py:292)
+        "parallel/mesh.py": """
+            from jax.sharding import Mesh
+            def make(devs):
+                return Mesh(devs, ("row", "col"))
+        """,
+        "specs.py": """
+            from jax.sharding import PartitionSpec as P
+            GOOD = P("row", None)
+            ALSO = P(("row", "col"))
+            BAD = P("model")           # R6: not a doctrine axis
         """},
     "config_lookalikes": {
         # neither package's R3 reads a non-jax `config.update` or a
@@ -504,11 +521,30 @@ def test_traced_region_rules_have_no_torch_counterpart(tmp_path, rule):
 
 
 def test_r6_waits_for_the_mesh(tmp_path):
-    res = _lint(tmp_path, {"specs.py": """
-        from torch.distributed.tensor import Shard
-        BAD = Shard(7)
-    """})
-    assert res.new == [] and "§A 16d" in RULES["R6"]
+    """The mesh is ported (§A 16d): R6 fires on a stray axis name in a
+    spec of the port's mesh module, names the legal axes, and leaves
+    other sharding types (a DTensor ``Shard``) alone."""
+    res = _lint(tmp_path, {
+        "mfm_tpu_torch/parallel/mesh.py": """
+            def make_mesh(devs):
+                return Mesh(devs, ("date", "stock"))
+            P = PartitionSpec
+            SPREAD = P(("date", "stock"))
+        """,
+        "mfm_tpu_torch/models/m.py": """
+            from mfm_tpu_torch.parallel.mesh import P
+            OK = P("date", None)
+            BAD = P("model", "stock")
+        """,
+        "specs.py": """
+            from torch.distributed.tensor import Shard
+            ALSO_OK = Shard(7)
+        """})
+    assert [(v.file, v.line, v.rule) for v in res.new] == [
+        ("mfm_tpu_torch/models/m.py", 4, "R6")]
+    assert "'model'" in res.new[0].message
+    assert "['date', 'stock']" in res.new[0].message
+    assert "mesh doctrine" in RULES["R6"] and "16d" not in RULES["R6"]
 
 
 def test_baseline_roundtrip_and_stale_reporting(tmp_path):

@@ -464,23 +464,76 @@ def test_pipeline_config_from_reference_keeps_the_risk_config():
     assert pipeline_config_from_reference(
         dataclasses.asdict(RefPipelineConfig())) == PipelineConfig()
     assert PipelineConfig().dtype == "float32"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A 16"):
-        pipeline_config_from_reference(
-            {"mesh": {"n_date_shards": 2, "n_stock_shards": 1}})
+    # the mesh is ported (§A 16d): any shard counts carry over
+    assert pipeline_config_from_reference(
+        {"mesh": {"n_date_shards": 2, "n_stock_shards": 1}}).mesh \
+        == MeshConfig(2, 1)
     with pytest.raises(ValueError):
         pipeline_config_from_reference({"no_such_field": 1})
     with pytest.raises(ValueError):
         PipelineConfig(dtype="float16")
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda: run_risk_pipeline({}, mesh=object(), device="cpu"), 16),
-    (lambda: append_risk_pipeline("x.npz", {}, mesh=object(), device="cpu"),
-     16),
-])
-def test_parts_left_out_raise_naming_their_roadmap_item(call, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §A {item}"):
-        call()
+@pytest.mark.parametrize("call,item", [("run", 16), ("append", 16)],
+                         ids=["<lambda>-16_0", "<lambda>-16_1"])
+def test_parts_left_out_raise_naming_their_roadmap_item(call, item, case,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """``mesh=`` is ported (§A 16d): on a virtual 2x2 mesh the shard-local
+    pipeline run is bitwise the dense run (its arrays left undensified),
+    and the sharded guarded append is bitwise the unsharded append,
+    outputs and state; both within 1e-8 of the reference's ``mesh=`` runs
+    at float64."""
+    import jax
+
+    from mfm_tpu.parallel.mesh import make_mesh as ref_make_mesh
+    from mfm_tpu_torch._device import VIRTUAL_DEVICES_ENV
+    from mfm_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setenv(VIRTUAL_DEVICES_ENV, "4")
+    mesh = make_mesh(2, 2, device="cpu")
+    df, table, sim = case
+    if call == "run":
+        cfg, kw = _cfg("default"), _injected("default", sim, True)
+        dense = run_risk_pipeline(table, config=cfg, device="cpu", **kw)
+        got = run_risk_pipeline(table, config=cfg, device="cpu", mesh=mesh,
+                                **kw)
+        assert not got.arrays.densified
+        for f in dense.outputs._fields:
+            assert _same(getattr(got.outputs, f),
+                         getattr(dense.outputs, f)), f
+        want = ref_pipeline.run_risk_pipeline(
+            df, config=_ref_cfg("default"),
+            mesh=ref_make_mesh(2, 2, devices=jax.devices()[:4]),
+            **_injected("default", sim, False))
+        _close_outputs(got.outputs, want.outputs, "mesh run")
+        return
+    cfg, kw = _cfg("guarded"), _injected("guarded", sim, True)
+    head = run_risk_pipeline(_head(table, T0), config=cfg, with_state=True,
+                             device="cpu", **kw)
+    paths = [str(tmp_path / name / "state.npz") for name in ("a", "b", "c")]
+    for path in paths:
+        save_pipeline_state(path, head)
+    plain = append_risk_pipeline(paths[0], table, config=cfg, device="cpu")
+    sharded = append_risk_pipeline(paths[1], table, config=cfg, device="cpu",
+                                   mesh=mesh)
+    for f in plain.outputs._fields:
+        assert _same(getattr(sharded.outputs, f),
+                     getattr(plain.outputs, f)), f
+    for f in plain.report._fields:
+        assert _same(getattr(sharded.report, f), getattr(plain.report, f)), f
+    got, want = state_to_numpy(sharded.state), state_to_numpy(plain.state)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert _same(got[k], v) if isinstance(v, np.ndarray) \
+            else got[k] == v, k
+    ref = ref_pipeline.append_risk_pipeline(
+        paths[2], df, config=_ref_cfg("guarded"),
+        mesh=ref_make_mesh(2, 2, devices=jax.devices()[:4]))
+    _close_outputs(sharded.outputs, ref.outputs, "mesh append")
+    with pytest.raises(ValueError, match="must divide"):
+        append_risk_pipeline(paths[0], table, config=cfg, device="cpu",
+                             mesh=make_mesh(3, 1, device="cpu"))
 
 
 def test_query_engine_is_left_out(runs):

@@ -276,7 +276,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "cli", "data/etl", "serve/transport", "serve/replica",
         "serve/frontend", "obs/slo", "obs/manifest", "obs/exporters",
         "obs/trace", "obs/instrument", "obs/profile", "lint",
-        "analysis/__init__", "analysis/sync")} <= scanned
+        "analysis/__init__", "analysis/sync", "parallel/__init__",
+        "parallel/mesh", "parallel/distributed")} <= scanned
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -290,13 +291,20 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     {"mesh": {"n_date_shards": 2, "n_stock_shards": 1}},
 ])
 def test_unported_features_raise(fields):
-    # ported: the bfloat16 Monte-Carlo, and the associative Newey-West
+    # ported: the bfloat16 Monte-Carlo, the associative Newey-West and
+    # the mesh (§A 16d; the reference's risk config holds no mesh: the
+    # entry is checked as a MeshConfig and goes to the pipeline config)
     if "eigen_mc_dtype" in fields or "nw_method" in fields:
         port = config_from_reference(fields)
         assert port.identity() == RefConfig(**fields).identity()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        config_from_reference(fields)
+    from mfm_tpu_torch.config import MeshConfig
+    from mfm_tpu_torch.convert import pipeline_config_from_reference
+
+    assert config_from_reference(fields) == RiskModelConfig()
+    assert pipeline_config_from_reference(fields).mesh == MeshConfig(2, 1)
+    with pytest.raises(ValueError):
+        config_from_reference({"mesh": {"n_date_shards": 0}})
 
 
 @pytest.mark.parametrize("quarantine", [

@@ -336,7 +336,34 @@ def test_device_cuda_raises_without_a_card(ckpts):
     (["audit"], "§A 22"),
     (["doctor", ".", "--audit"], "§A 22"),
 ])
-def test_unported_commands_name_their_roadmap_item(argv, item):
+def test_unported_commands_name_their_roadmap_item(argv, item, monkeypatch,
+                                                   tmp_path):
+    """``audit`` and ``doctor --audit`` name their item; ``--mesh`` (§A
+    16d) is ported: ``risk`` refuses a mesh of more devices than are up,
+    naming the virtual-device variable, and ``pipeline`` (which reads the
+    flag at its append step) fails on its missing store exactly as
+    without the flag."""
+    from mfm_tpu_torch._device import VIRTUAL_DEVICES_ENV
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv(VIRTUAL_DEVICES_ENV, raising=False)
+    if item == "§A 16d":
+        def outcome(args):
+            try:
+                cli.main([*args, "--device", "cpu"])
+            except (SystemExit, ValueError, OSError) as e:
+                return type(e), str(e.code if isinstance(e, SystemExit)
+                                    else e)
+            return None
+
+        got = outcome(argv)
+        assert got is not None and "not ported" not in got[1]
+        if argv[0] == "risk":
+            assert got[0] is SystemExit and VIRTUAL_DEVICES_ENV in got[1]
+            assert "needs 2 devices but only 1 are up" in got[1]
+        else:
+            assert got == outcome(argv[:-2])
+        return
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
     assert isinstance(exc.value.code, str)

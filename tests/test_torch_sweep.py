@@ -416,9 +416,28 @@ def test_unresolvable_window_rejects_its_lanes(lookup):
     assert res.books[0]["top"] == []
 
 
-def test_unported_options_raise_naming_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="§A 16"):
-        SweepEngine(_base_cov(), mesh=object(), device="cpu")
+def test_unported_options_raise_naming_their_roadmap_items(monkeypatch):
+    """``mesh=`` is ported (§A 16d): each chunk's lanes split over every
+    shard of a virtual 2x2 mesh, the carry, books and library replicated;
+    the result is bitwise the unsharded sweep's, offenders and histogram
+    included."""
+    from mfm_tpu_torch._device import VIRTUAL_DEVICES_ENV
+    from mfm_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setenv(VIRTUAL_DEVICES_ENV, "4")
+    mesh = make_mesh(2, 2, device="cpu")
+    for dtype in (np.float64, np.float32):
+        xs = _books(3, dtype=dtype)
+        want = _engine(dtype).sweep(
+            xs, UniformSampler(ShockBall(), K, 3000, seed=4), chunk=512,
+            top_k=4)
+        eng = _engine(dtype, mesh=mesh)
+        assert eng.mesh is mesh and eng.device == mesh.first_device
+        got = eng.sweep(xs, UniformSampler(ShockBall(), K, 3000, seed=4),
+                        chunk=512, top_k=4)
+        assert json.dumps(got.to_dict(), sort_keys=True) == json.dumps(
+            want.to_dict(), sort_keys=True)
+        assert got.counts["n_chunks"] >= 6
 
 
 REFINE = {"steps": 20, "n_local": 32, "seed": 2}
