@@ -13,6 +13,13 @@ stocks, P=31 industries, Q=10 styles, K=42 factors, M=100 eigen
 simulations, float32) and checks that the main path went through the warp
 design of both kernels and agrees with the same path run on the plain
 versions within the ``risk`` budgets of ``tools/parity_budget.json``.
+The IR audit's probes follow (``mfm_tpu_torch/analysis/``):
+``audit_probes`` runs the audit's aliasing and dtype probes on that
+CSI300 ``run_fused`` (no argument written or aliased, the dtypes of the
+audit's ``risk.fused/base`` cell, its host reads counted) and
+``audit_kernels`` runs the registry's ``risk.*`` cells at the audit's
+(64, 48) shapes, counting each cell's launches by kernel and shape and
+holding every launch against its plain version, timed beside its bound.
 Then it drives the daily serving step at the same width — ``init_state``
 on the first 1350 dates, the last 40 as one-date updates and as a slab —
 in four phases (``serve_update``, ``serve_guarded``, ``serve_incremental``,
@@ -142,8 +149,12 @@ each guarded append and completed subprocess) and
 ``report_crosscheck`` (``report`` over cli_risk's results against a
 numpy recomputation, ``--plot``, ``crosscheck --gate 0`` over the store's
 from-scratch and appended barra tables, and a copy with one value
-moved).  Then the all-A universe (T=2500, N=5000, K=42, M=100), in two
-phases:
+moved) and ``audit`` (``python -m mfm_tpu_torch.cli audit --strict
+--json`` as a subprocess on the card beside the harness, the mesh cells
+on ``MFM_TORCH_VIRTUAL_DEVICES=8``: strict-clean on all 58 cells with
+the committed baseline and budgets, then ``doctor --audit`` on the
+committed snapshot).  Then the all-A universe (T=2500, N=5000, K=42,
+M=100), in two phases:
 ``alla_risk`` (bench config 1 at ``--universe alla``: ``run_fused``, its
 walls, busy share, peak
 memory and launches; both kernels at the run's own (250,000, 42, 42) and
@@ -262,9 +273,11 @@ def start_cli(argv, env=None) -> tuple:
     return proc, out, err, time.perf_counter()
 
 
-def finish_cli(started, what: str, timeout: float = 600) -> tuple:
+def finish_cli(started, what: str, timeout: float = 600,
+               last_json: bool = True) -> tuple:
     """The subprocess :func:`start_cli` started, to its end: (its last
-    standard-output line as JSON, its wall from start to end, its standard
+    standard-output line as JSON — its whole standard output as text
+    without ``last_json`` — its wall from start to end, its standard
     error).  A non-zero exit fails ``what``."""
     proc, out, err, t0 = started
     try:
@@ -280,7 +293,9 @@ def finish_cli(started, what: str, timeout: float = 600) -> tuple:
     out.close()
     err.close()
     require(proc.returncode == 0, f"{what}: exit {proc.returncode}: "
-            f"{stderr[-2000:]}")
+            f"{stdout[-2000:]} {stderr[-2000:]}")
+    if not last_json:
+        return stdout, wall, stderr
     return json.loads(stdout.strip().splitlines()[-1]), wall, stderr
 
 
@@ -5681,6 +5696,181 @@ def mesh_section(ctx) -> tuple:
     return launches, shard_ms
 
 
+# -- the IR audit: mfm_tpu_torch/analysis/ -----------------------------------
+
+#: the registry: 15 entry points, 58 cells (17 primary, 11 mesh, 30
+#: ladder), the reference's; the mesh cells on a virtual mesh of 8
+AUDIT_CELLS = 58
+AUDIT_DEVICES = 8
+
+
+def audit_start(tmp: str) -> tuple:
+    """``audit --strict --json`` as a subprocess on the card (A1–A5 against
+    the committed baseline and budgets, every cell run once, the budgeted
+    ones twice), its mesh cells on ``MFM_TORCH_VIRTUAL_DEVICES=8``; it runs
+    while this process does other work, :func:`audit_phase` collects it.
+    Returns (the started process, the report's path)."""
+    from mfm_tpu_torch._device import VIRTUAL_DEVICES_ENV
+
+    path = os.path.join(tmp, "audit.json")
+    env = {**os.environ, VIRTUAL_DEVICES_ENV: str(AUDIT_DEVICES)}
+    return start_cli(["audit", "--strict", "--json", path], env=env), path
+
+
+def audit_phase(ctx, started) -> dict:
+    """Phase audit: (a) the subprocess :func:`audit_start` started, to its
+    end — exit 0, no stale baseline entry, all 58 registry cells present
+    and every primary and mesh cell run (no ``mesh-skipped``), strict-clean
+    with the budgets; its findings by pass, baselined count and walls; (b)
+    ``doctor --audit`` on the committed snapshot through ``cli.main``,
+    exit 0."""
+    from mfm_tpu_torch.analysis.registry import registry
+
+    proc_started, path = started
+    stdout, wall, _ = finish_cli(proc_started, "audit --strict",
+                                 last_json=False)
+    with open(path, encoding="utf-8") as fh:
+        doc = json.load(fh)
+    n_cells = sum(len(ep.cells()) for ep in registry())
+    by_pass, baselined = {}, {}
+    for f in doc["findings"]:
+        key = f"{f['pass_id']} {f['severity']}"
+        by_pass[key] = by_pass.get(key, 0) + 1
+    for f in doc["baselined"]:
+        baselined[f["pass_id"]] = baselined.get(f["pass_id"], 0) + 1
+    skipped = [f for f in doc["findings"] if f["code"] == "mesh-skipped"]
+    ran = sum(c["ran"] for c in doc["cells"].values())
+    t0 = time.perf_counter()
+    code, out, _ = cli_call(["doctor", "--audit"])
+    doctor_wall = time.perf_counter() - t0
+    (rec,) = json.loads(out)["records"]
+    res = {"rc": 0, "strict_clean": doc["strict_clean"],
+           "registry_cells": n_cells, "report_cells": len(doc["cells"]),
+           "cells_ran": ran, "mesh_skipped": len(skipped),
+           "findings_by_pass": by_pass, "baselined_by_pass": baselined,
+           "baselined": len(doc["baselined"]),
+           "stale_baseline": doc["stale_baseline"],
+           "measured_cells": len(doc["measured"]),
+           "process_wall_s": wall, "audit_wall_s": doc["wall_s"],
+           "summary_line": stdout.strip().splitlines()[-1],
+           "doctor_audit": {"rc": code, "status": rec["status"],
+                            "problems": rec["problems"],
+                            "warnings": rec["warnings"],
+                            "wall_s": doctor_wall}}
+    emit("audit", **res)
+    require(doc["strict_clean"] and not doc["stale_baseline"]
+            and n_cells == AUDIT_CELLS and not skipped
+            and ran == len(doc["cells"]) == len(doc["measured"]),
+            f"audit: not strict-clean on every cell: {res}")
+    require(code == 0, f"doctor --audit: exit {code}: {rec}")
+    return res
+
+
+def audit_kernels_phase(ctx) -> dict:
+    """Phase audit_kernels: the registry's ``risk.*`` cells (primary, and
+    mesh on a virtual mesh of 8) run once each on the card as the audit
+    runs them, with every launch of either kernel recorded (the update
+    cells' history ``init_state`` too); each cell's launches counted from
+    0 just before its call and read just after, by kernel and shape; every
+    recorded launch held against its plain version at its own shape (w, V
+    bitwise, h within 1e-4), each shape's warp launch timed against its
+    bound (``obs/profile.kernel_flops``)."""
+    from mfm_tpu_torch._device import VIRTUAL_DEVICES_ENV
+    from mfm_tpu_torch.analysis.registry import registry
+    from mfm_tpu_torch.analysis.run import bind_cell
+    from mfm_tpu_torch.ops.eigh_cuda import launch_shapes, reset_launches
+    from mfm_tpu_torch.parallel.mesh import make_mesh
+
+    prev = os.environ.get(VIRTUAL_DEVICES_ENV)
+    os.environ[VIRTUAL_DEVICES_ENV] = str(AUDIT_DEVICES)
+    per_cell = {}
+    try:
+        with recorded_launches() as calls:
+            for ep in registry():
+                if not ep.name.startswith("risk."):
+                    continue
+                for cell in ep.cells():
+                    if cell.role == "ladder":
+                        continue
+                    mesh = (make_mesh(*cell.mesh, device="cuda")
+                            if cell.mesh else None)
+                    _, call, _= bind_cell(ep, cell, "cuda", mesh)
+                    sync()
+                    reset_launches()
+                    call()
+                    sync()
+                    per_cell[f"{ep.name}/{cell.name}"] = {
+                        kernel: {f"({B}, {n}, {n}), {sw}": c
+                                 for (B, n, sw), c in per.items()}
+                        for kernel, per in launch_shapes().items()}
+        held = hold_recorded(calls, "audit_kernels")
+    finally:
+        if prev is None:
+            os.environ.pop(VIRTUAL_DEVICES_ENV, None)
+        else:
+            os.environ[VIRTUAL_DEVICES_ENV] = prev
+    res = {"launches": per_cell, **held}
+    emit("audit_kernels", launches=per_cell)
+    require(all(sum(n for per in c.values() for n in per.values())
+                for c in per_cell.values()),
+            f"audit_kernels: a risk cell launched no kernel: {per_cell}")
+    return res
+
+
+def audit_probes_phase(ctx) -> dict:
+    """Phase audit_probes: the audit's A1 and A2 probes, which are
+    shape-generic, on the main path's CSI300 ``run_fused`` ((1390, 300),
+    K = 42) through the registry's ``risk.fused`` entry point: no argument
+    written or sharing its storage with an output, the run's dtype set
+    that of the audit's ``risk.fused/base`` cell (run here under the same
+    probe), its host reads and the card's sync count on the line; its
+    launches counted from 0."""
+    from mfm_tpu_torch.analysis import aliasing, ir
+    from mfm_tpu_torch.analysis.registry import registry_by_name
+    from mfm_tpu_torch.analysis.run import bind_cell
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+
+    ep = registry_by_name("risk.fused")
+    ops = {n: torch.as_tensor(p).to("cuda") for n, p in zip(
+        ("ret", "cap", "styles", "industry", "valid"), ctx["panel"])}
+    ops["sim_covs"] = ctx["sim_covs"]
+    before = aliasing.operand_versions(ops)
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    with ir.probe(on_card=True) as rec:
+        out = ep.fn(**ops, n_industries=ctx["P"], config=ctx["config"],
+                    sim_length=ctx["T"], device="cuda")
+        sync()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    found = aliasing.check_aliasing(
+        "risk.fused", "csi300", set(), before, aliasing.operand_versions(ops),
+        aliasing.output_storages(out))
+    base = next(c for c in ep.cells() if c.name == "base")
+    _, call, _= bind_cell(ep, base, "cuda")
+    with ir.probe(on_card=True) as rec_base:
+        call()
+        sync()
+    reads = {op: rec["host_reads"].count(op)
+             for op in sorted(set(rec["host_reads"]))}
+    res = {"shape": [ctx["T"], ops["ret"].shape[1], ctx["K"]],
+           "aliasing_findings": [f.to_dict() for f in found],
+           "tensor_dtypes": sorted(rec["dtypes"]),
+           "base_cell_dtypes": sorted(rec_base["dtypes"]),
+           "host_callbacks": len(rec["host_reads"]), "host_reads": reads,
+           "syncs": rec["syncs"], "launches": launches,
+           "probed_wall_s": wall}
+    emit("audit_probes", **res)
+    require(not found, f"audit_probes: an argument of the CSI300 run_fused "
+            f"was written or aliased: {found}")
+    require(res["tensor_dtypes"] == res["base_cell_dtypes"],
+            f"audit_probes: the CSI300 run's dtypes differ from the audit "
+            f"cell's: {res}")
+    require_launches(launches, "audit_probes run_fused", 1, 2)
+    return res
+
+
 # -- the host data layer: the store path at CSI300 width -----------------------
 
 #: the CSI300 store: T dates x N constituents (+ the outsider), K = 42;
@@ -7452,6 +7642,9 @@ def main() -> int:
             "budget": budget["risk"]}
     nw_assoc = nw_associative_phase(pctx)
     profiled = compile_profile_phase(pctx, build_walls)
+    # -- phase 4c: the IR audit's probes and kernels at the audit's shapes --
+    audit_probes = audit_probes_phase(pctx)
+    audit_kernels = audit_kernels_phase(pctx)
     del pctx
     torch.cuda.empty_cache()
 
@@ -7613,12 +7806,14 @@ def main() -> int:
     # -- phase 11d: faults — the recovery matrix at CSI300 width, report and
     # crosscheck over the results the CLI and store sections left ------------
     sctx["report_inputs"] = report_inputs
-    # report_crosscheck and the doctrine passes run in this process while
-    # the harness processes end
+    # the IR audit's subprocess (phase audit), report_crosscheck and the
+    # doctrine passes run in this process while the harness processes end
+    audit_started = audit_start(scratch.name)
     fault = fault_matrix_phase(
         sctx, fault_started,
         meanwhile=lambda: (report_crosscheck_phase(sctx),
-                           doctrine_tools_phase(sctx)))
+                           doctrine_tools_phase(sctx),
+                           audit_phase(sctx, audit_started)))
     torch.cuda.empty_cache()
     fault_scratch.cleanup()
     scratch.cleanup()
@@ -7799,6 +7994,16 @@ def main() -> int:
                                 s[f"{name}/warp"] for s in
                                 fault["subprocess_launches"].get(p, [])]}
                         for p, n in fault["plan_launches"].items()}},
+                "audit_launches": {
+                    cell: sum(per.get(name, {}).values())
+                    for cell, per in audit_kernels["launches"].items()},
+                "audit_shapes": {
+                    shape: {**t, "max_abs_err":
+                            audit_kernels["max_abs_err"][shape]}
+                    for shape, t in audit_kernels["shard_shapes"].items()
+                    if shape.startswith(key)},
+                "audit_csi300_launches":
+                    audit_probes["launches"][f"{name}/warp"],
                 **serve[key], **alla_entry(name, key)}
 
     kernels = [

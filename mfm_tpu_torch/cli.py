@@ -12,6 +12,9 @@
     python -m mfm_tpu_torch.cli serve STATE --listen HOST:PORT [--http]
     python -m mfm_tpu_torch.cli serve STATE --worker --listen HOST:PORT
     python -m mfm_tpu_torch.cli doctor DIR [--serve] [--scenarios]
+    python -m mfm_tpu_torch.cli doctor --audit [SNAPSHOT] [--sync]
+    python -m mfm_tpu_torch.cli audit [--strict] [--json FILE] \
+        [--passes A1,...] [--write-budgets] [--device cuda|cpu]
     python -m mfm_tpu_torch.cli metrics dump|snapshot|diff ...
     python -m mfm_tpu_torch.cli alpha --exprs FILE --panel LONG.csv \
         [--select K] [--llm] [--device cuda|cpu]
@@ -61,12 +64,14 @@ launches no CUDA kernel, and importing this module builds and loads none.
 
 ``lint`` and ``sync`` run the port's stdlib-only doctrine passes
 (``mfm_tpu_torch/lint.py``, ``mfm_tpu_torch/analysis/sync.py``) and
-``doctor --sync`` the latter against its committed baseline.
+``doctor --sync`` the latter against its committed baseline.  ``audit``
+runs the IR audit (``mfm_tpu_torch/analysis/``: every registered entry
+point once under probes, passes A1-A5; A5 measures on the card, so
+``--device cpu`` runs A1-A4) and ``doctor --audit`` verifies its
+committed snapshot (``mfm_tpu_torch/tools/AUDIT_r*.json``).
 ``risk --mesh DxS`` (and ``--update``) and ``pipeline --append --mesh
 DxS`` compute on a ('date', 'stock') device mesh; on one device a
-virtual one (``MFM_TORCH_VIRTUAL_DEVICES=N``).  The reference's
-``audit`` and ``doctor --audit`` are not ported yet; each exits non-zero
-naming its ROADMAP.md item.
+virtual one (``MFM_TORCH_VIRTUAL_DEVICES=N``).
 """
 
 from __future__ import annotations
@@ -79,19 +84,6 @@ import os
 from mfm_tpu_torch.data.columns import reindex
 
 SERVE_MANIFEST_NAME = "serve_manifest.json"
-
-#: the reference's subcommands this port does not carry yet, by the
-#: ROADMAP.md item that ports them
-UNPORTED_COMMANDS = {"audit": "§A 22"}
-
-
-def _unported(args):
-    raise SystemExit(
-        f"mfm_tpu_torch.cli: `{args.cmd}` is not ported yet (ROADMAP.md "
-        f"{UNPORTED_COMMANDS[args.cmd]}); this package runs `risk`, "
-        "`demo`, `factors`, `scenario`, `grad`, `serve`, `doctor`, "
-        "`metrics`, `alpha`, `prepare`, `pipeline`, `etl-*`, `report`, "
-        "`crosscheck`, `lint` and `sync`")
 
 
 def _metrics_init(args) -> None:
@@ -542,22 +534,17 @@ def _doctor(args):
     and fleet manifests and flight-recorder dumps beside them, with
     ``--scenarios`` the scenario and sweep manifests.  Prints one
     JSON record per file and exits non-zero when anything is corrupt,
-    stale, schema-broken or unhealthy."""
+    stale, schema-broken or unhealthy.  ``--audit`` verifies the
+    committed IR-audit snapshot and ``--sync`` runs the lock-discipline
+    pass; neither needs PATH."""
     import glob
 
-    if getattr(args, "audit", None):
-        raise SystemExit(
-            "mfm_tpu_torch.cli: `doctor --audit` is not ported yet "
-            "(ROADMAP.md §A 22); this package audits artifacts, the "
-            "run manifest and, with --serve, --scenarios and --sync, the "
-            "serve, fleet, scenario and sweep manifests and the "
-            "lock-discipline pass")
     if args.path is None:
-        if not args.sync:
+        if not (args.sync or args.audit):
             raise SystemExit("doctor: PATH is required unless --audit or "
                              "--sync is given (the static checks need no "
                              "serving artifacts)")
-        records = _audit_sync()
+        records = _static_records(args)
         unhealthy = sum(r["status"] != "ok" for r in records)
         print(json.dumps({"audited": len(records), "unhealthy": unhealthy,
                           "records": records}, indent=1))
@@ -589,12 +576,58 @@ def _doctor(args):
             records.append(_audit_flightrec(fr_path))
     if args.scenarios:
         records.extend(_audit_scenario_manifests(man_dir))
-    if args.sync:
-        records.extend(_audit_sync())
+    records.extend(_static_records(args))
     unhealthy = sum(r["status"] != "ok" for r in records)
     print(json.dumps({"audited": len(records), "unhealthy": unhealthy,
                       "records": records}, indent=1))
     raise SystemExit(1 if unhealthy else 0)
+
+
+def _static_records(args) -> list:
+    """The records of ``--audit`` and ``--sync``, which need no PATH."""
+    records = []
+    if args.audit:
+        records.append(_audit_snapshot(args.audit))
+    if args.sync:
+        records.extend(_audit_sync())
+    return records
+
+
+def _audit_snapshot(apath: str) -> dict:
+    """``doctor --audit [PATH]``: verify the committed IR-audit snapshot
+    (default the newest ``mfm_tpu_torch/tools/AUDIT_r*.json``) — torn
+    writes, broken seals, a run that was not strict-clean, measurements
+    that disagree with the budget file and cells that disagree with the
+    live registry are problems; another torch is a warning."""
+    from mfm_tpu_torch.analysis.run import (
+        latest_snapshot_path,
+        verify_snapshot,
+    )
+
+    if apath == "latest":
+        apath = latest_snapshot_path()
+    rec = {"file": apath, "kind": "audit_snapshot", "status": "ok",
+           "problems": [], "warnings": []}
+    if apath is None:
+        rec.update(file="mfm_tpu_torch/tools/AUDIT_r*.json",
+                   status="missing")
+        rec["problems"].append(
+            "no committed AUDIT_r*.json snapshot — run `audit "
+            "--write-budgets --json mfm_tpu_torch/tools/AUDIT_r01.json` "
+            "on the card and commit it")
+        return rec
+    problems, warns, doc = verify_snapshot(apath)
+    rec["problems"].extend(problems)
+    rec["warnings"].extend(warns)
+    if doc is None:
+        rec["status"] = "corrupt"
+        return rec
+    if isinstance(doc, dict):
+        rec["strict_clean"] = doc.get("strict_clean")
+        rec["summary"] = doc.get("summary")
+    if rec["problems"]:
+        rec["status"] = "unhealthy"
+    return rec
 
 
 def _audit_sync() -> list:
@@ -647,6 +680,25 @@ def _lint_cmd(args):
     from mfm_tpu_torch.lint import main as lint_main
 
     _gate_cmd(lint_main, args)
+
+
+def _audit_cmd(args):
+    # the IR audit (mfm_tpu_torch/analysis/run.py): every registered entry
+    # point run once under probes; the mesh cells run on
+    # MFM_TORCH_VIRTUAL_DEVICES=8 when the variable is unset
+    from mfm_tpu_torch.analysis.run import main as audit_main
+
+    argv = ["--device", args.device]
+    for flag, value in (("--passes", args.passes),
+                        ("--baseline", args.baseline),
+                        ("--budgets", args.budgets), ("--json", args.json)):
+        if value:
+            argv += [flag, value]
+    if args.write_budgets:
+        argv.append("--write-budgets")
+    if args.strict:
+        argv.append("--strict")
+    raise SystemExit(audit_main(argv))
 
 
 def _sync_cmd(args):
@@ -3680,7 +3732,12 @@ def main(argv=None):
                          "artifacts: exit non-zero on a torn write, a spec "
                          "hash mismatch or inconsistent counts")
     dr.add_argument("--audit", nargs="?", const="latest", default=None,
-                    metavar="FILE", help="not ported yet (ROADMAP.md §A 22)")
+                    metavar="FILE",
+                    help="verify the committed IR-audit snapshot (default "
+                         "the newest mfm_tpu_torch/tools/AUDIT_r*.json): "
+                         "its seal, a strict-clean run, measurements equal "
+                         "to audit_budgets.json, cells equal to the live "
+                         "registry; warn on another torch version")
     dr.add_argument("--sync", action="store_true",
                     help="also run the lock-discipline pass (sync "
                          "--strict) against its committed baseline: exit "
@@ -3743,16 +3800,36 @@ def main(argv=None):
                     help="machine-readable output")
     sy.set_defaults(fn=_sync_cmd)
 
-    for name, item in UNPORTED_COMMANDS.items():
-        up = sub.add_parser(name, help=f"not ported yet (ROADMAP.md {item})",
-                            add_help=False)
-        up.set_defaults(fn=_unported)
+    au = sub.add_parser(
+        "audit",
+        help="the IR audit of every registered entry point, each run once "
+             "under probes: aliasing, dtype leaks and host reads, "
+             "collectives, the recompile surface, and memory budgets on "
+             "the card (passes A1-A5)")
+    au.add_argument("--passes", default=None,
+                    help="comma-separated subset of A1,A2,A3,A4,A5 "
+                         "(default: all)")
+    au.add_argument("--baseline", default=None,
+                    help="baseline JSON of suppressed findings ('none' "
+                         "disables; default: "
+                         "mfm_tpu_torch/tools/mfmaudit_baseline.json)")
+    au.add_argument("--budgets", default=None,
+                    help="A5 budget file (default: "
+                         "mfm_tpu_torch/tools/audit_budgets.json)")
+    au.add_argument("--write-budgets", action="store_true",
+                    help="freeze the measured memory numbers as the new "
+                         "budget file instead of gating against them")
+    au.add_argument("--json", default=None, metavar="FILE",
+                    help="write the sealed report JSON to FILE "
+                         "('-' for stdout)")
+    au.add_argument("--strict", action="store_true",
+                    help="also fail on stale baseline entries")
+    au.add_argument("--device", default="cuda",
+                    help="where the cells run: cuda (default) or cpu "
+                         "(A1-A4; A5 measures on the card)")
+    au.set_defaults(fn=_audit_cmd)
 
-    # an unported subcommand takes the reference's arguments, which this
-    # parser does not know: it exits naming its item whatever they are
-    args, extra = ap.parse_known_args(argv)
-    if extra and args.cmd not in UNPORTED_COMMANDS:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = ap.parse_args(argv)
     if getattr(args, "select_out", None) and args.select is None:
         ap.error("--select-out requires --select")
     args.fn(args)

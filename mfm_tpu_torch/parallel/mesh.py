@@ -31,6 +31,9 @@ collectives of this module, each of which keeps bits:
 - :func:`replicate`: one tensor to every shard (``.to``; across processes
   a ``broadcast`` from the first position's rank first).
 
+Each of the three tells the IR audit's probes (:data:`_PROBES`,
+``analysis/collectives.py``) the bytes it moved, when one listens.
+
 In one process a replicated value is computed once, on the mesh's first
 device; across processes each rank holds its own copy.  A mesh whose
 devices repeat (:data:`mfm_tpu_torch._device.VIRTUAL_DEVICES_ENV`) is
@@ -396,6 +399,24 @@ def shard_panel(x, mesh: Mesh, *, rolling: bool = False):
 
 # -- the collectives -----------------------------------------------------------
 
+#: the IR audit's collective probes (``analysis/collectives.py``): each is
+#: called with ``(kind, nbytes, result)`` by every collective below that
+#: moves data, while it is registered.  ``kind`` is the name of the XLA
+#: collective that does the same (all three are ``"all-gather"``: every
+#: position that receives data ends holding a whole axis or array),
+#: ``nbytes`` the bytes of the result one position holds.
+_PROBES: list = []
+
+
+def _note_collective(result, nbytes: int) -> None:
+    for fn in list(_PROBES):
+        fn("all-gather", int(nbytes), result)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _distributed():
     import torch.distributed as dist
 
@@ -431,7 +452,10 @@ def all_gather_stock(x: ShardedPanel) -> ShardedPanel:
             blocks = [x.shards[(i, j)].to(dev) for j in range(ns)]
             rows[key] = blocks[0] if ns == 1 else torch.cat(blocks, dim=d)
         out[pos] = rows[key]
-    return ShardedPanel(x.shape, new, out, x.dtype)
+    res = ShardedPanel(x.shape, new, out, x.dtype)
+    if _PROBES and ns > 1:
+        _note_collective(res, max(_nbytes(t) for t in out.values()))
+    return res
 
 
 def _assemble(blocks: dict, nb: tuple, d: int = 0) -> torch.Tensor:
@@ -486,7 +510,10 @@ def gather(x: ShardedPanel) -> torch.Tensor:
     if len(have) < int(np.prod(nb)):
         have = _gather_across(x, have, nb)
     dev = mesh.first_device
-    return _assemble({k: v.to(dev) for k, v in have.items()}, nb)
+    res = _assemble({k: v.to(dev) for k, v in have.items()}, nb)
+    if _PROBES and int(np.prod(nb)) > 1:
+        _note_collective(res, _nbytes(res))
+    return res
 
 
 def replicate(x, mesh: Mesh) -> ShardedPanel:
@@ -500,7 +527,10 @@ def replicate(x, mesh: Mesh) -> ShardedPanel:
         wire = x.to(torch.uint8) if x.dtype == torch.bool else x
         dist.broadcast(wire, src=int(mesh.ranks[0, 0]))
         x = wire.to(torch.bool) if x.dtype == torch.bool else wire
-    return device_put(x, replicated(mesh))
+    res = device_put(x, replicated(mesh))
+    if _PROBES and mesh.size > 1:
+        _note_collective(res, _nbytes(x))
+    return res
 
 
 # -- computing on the shards -----------------------------------------------------
@@ -512,11 +542,11 @@ def map_shards(fn, *args, out_specs):
     same tensors on the same device (a date row of stock-local panels on
     a virtual mesh) compute once and share the result.  ``out_specs``:
     the :class:`PartitionSpec` of ``fn``'s tensor result, or a tuple of
-    them for a tuple result; global shapes follow from the blocks."""
+    them for a tuple result (one spec for a tuple result is every
+    element's); global shapes follow from the blocks."""
     mesh = next(a.mesh for a in args if isinstance(a, ShardedPanel))
     multi = isinstance(out_specs, tuple) and not isinstance(
         out_specs, PartitionSpec)
-    specs = out_specs if multi else (out_specs,)
     results, done = {}, {}
     for pos in mesh.local_positions:
         key = (str(mesh.devices[pos]),) + tuple(
@@ -524,8 +554,11 @@ def map_shards(fn, *args, out_specs):
         if key not in done:
             r = fn(*(a.shards[pos] if isinstance(a, ShardedPanel) else a
                      for a in args))
-            done[key] = r if multi else (r,)
+            done[key] = tuple(r) if isinstance(r, (tuple, list)) else (r,)
         results[pos] = done[key]
+    n_out = len(next(iter(results.values())))
+    specs = out_specs if multi else (out_specs,) * n_out
+    multi = multi or n_out > 1
     out = []
     pos0 = mesh.local_positions[0]
     for i, spec in enumerate(specs):

@@ -28,8 +28,12 @@ place:
 
 A state that drifts in shape shows up as a new signature, as in JAX it
 shows up as a retrace; so does a serving batch that escapes its bucket.
-Signatures are recorded only while a listener is registered — with none,
-a call pays two empty-list tests — so a warmup that should make the
+A signature is the operands' shapes, the dtype of every operand and the
+device, as a jit's cache key holds every operand's dtype: an index operand
+that drifts from int32 to int64 behind a float first operand is a new
+signature, as it is a retrace in the reference.  Signatures are recorded
+only while a listener is registered — with none, a call pays three
+empty-list tests — so a warmup that should make the
 steady state free runs under :func:`count_compiles` too (as a JAX warmup
 compiles).  A signature recorded once stays recorded for the process,
 like a jit cache entry.  A build or load event carries its wall seconds
@@ -68,14 +72,18 @@ CONSTRUCT_SOLVE = "GradEngine.construct_solve"
 _LISTENERS: list = []
 #: process-lifetime watchers (``obs/instrument.watch_compiles``)
 _WATCHERS: list = []
-#: ``(dispatcher, shapes, dtype, device)`` signatures seen while listening
+#: ``(dispatcher, shapes, dtypes, device)`` signatures seen while listening
 _SEEN: set = set()
+#: the IR audit's probes (``analysis/ir.py``): each is called with
+#: ``(where, tensors)`` at every :func:`note_signature`, first call of a
+#: signature or not, while it is registered
+_PROBES: list = []
 
 
 def listening() -> bool:
-    """Whether any listener or watcher would receive an event: the gate a
-    dispatcher tests before :func:`note_signature`."""
-    return bool(_LISTENERS or _WATCHERS)
+    """Whether any listener, watcher or probe would receive a call: the
+    gate a dispatcher tests before :func:`note_signature`."""
+    return bool(_LISTENERS or _WATCHERS or _PROBES)
 
 
 def notify(event: str, detail: str = "",
@@ -87,20 +95,23 @@ def notify(event: str, detail: str = "",
 
 
 def signature_of(where: str, *tensors) -> tuple:
-    """The signature :func:`note_signature` records for this call."""
+    """The signature :func:`note_signature` records for this call: every
+    operand's shape and dtype, and the first operand's device."""
     return (where, tuple(tuple(t.shape) for t in tensors),
-            str(tensors[0].dtype), str(tensors[0].device))
+            tuple(str(t.dtype) for t in tensors), str(tensors[0].device))
 
 
 def note_signature(where: str, *tensors,
                    event: str = NEW_SIGNATURE_EVENT) -> None:
     """Record a dispatcher call's signature; the first of each is an
     ``event``.  Callers test :func:`listening` first, so an unobserved
-    dispatch costs two empty-list tests."""
+    dispatch costs three empty-list tests."""
+    for fn in list(_PROBES):
+        fn(where, tensors)
     sig = signature_of(where, *tensors)
     if sig not in _SEEN:
         _SEEN.add(sig)
-        notify(event, f"{where}{list(sig[1])} {sig[2]} {sig[3]}")
+        notify(event, f"{where}{list(sig[1])} {','.join(sig[2])} {sig[3]}")
 
 
 def note_bucket(where: str, *tensors) -> None:

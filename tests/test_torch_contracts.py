@@ -138,3 +138,32 @@ def test_nested_counters_each_see_events():
             batched_eigh(_sym(17, batch=4, seed=4))
     assert outer.count == inner.count == 1
     assert isinstance(outer, CompileCounter)
+
+
+@jax.jit
+def _take_rows(w, idx):
+    return w, idx
+
+
+def test_second_operand_dtype_drift_is_a_new_bucket_signature():
+    """PR 1's s64 retrace trap at a bucketed entry point: the padded batch
+    keeps its shape while its index operand (the second) drifts from int32
+    to int64.  The reference's jit keys its cache on every operand's dtype
+    and retraces; the port's counter records every operand's dtype, so the
+    drift is a new :data:`BUCKET_SIGNATURE_EVENT`."""
+    w = torch.ones(8, 3)
+    idx32 = torch.zeros(8, dtype=torch.int32)
+    with count_compiles() as c:
+        contracts.note_bucket(contracts.QUERY_BATCH, w, idx32)
+        contracts.note_bucket(contracts.QUERY_BATCH, w, idx32)   # cached
+        contracts.note_bucket(contracts.QUERY_BATCH, w, idx32.long())
+    assert c.count == 2
+    assert c.events[-1].startswith(contracts.BUCKET_SIGNATURE_EVENT)
+    assert "torch.int64" in c.events[-1]
+    wj = jnp.ones((8, 3), dtype=jnp.float32)
+    i32, i64 = jnp.zeros(8, dtype=jnp.int32), jnp.zeros(8, dtype=jnp.int64)
+    _take_rows(wj, i32)
+    with ref_contracts.count_compiles() as rc:
+        _take_rows(wj, i32)                                      # cached
+        _take_rows(wj, i64)                                      # retrace
+    assert (c.count - 1, rc.count) == (1, 1)

@@ -333,20 +333,24 @@ def test_device_cuda_raises_without_a_card(ckpts):
 @pytest.mark.parametrize("argv,item", [
     (["risk", "--barra", "x.csv", "--mesh", "2x1"], "§A 16d"),
     (["pipeline", "--store", "s", "--mesh", "2x1"], "§A 16d"),
-    (["audit"], "§A 22"),
-    (["doctor", ".", "--audit"], "§A 22"),
+    (["audit", "--device", "cpu", "--passes", "A4"], "§A 22"),
+    (["doctor", "--audit"], "§A 22"),
 ])
-def test_unported_commands_name_their_roadmap_item(argv, item, monkeypatch,
-                                                   tmp_path):
-    """``audit`` and ``doctor --audit`` name their item; ``--mesh`` (§A
-    16d) is ported: ``risk`` refuses a mesh of more devices than are up,
-    naming the virtual-device variable, and ``pipeline`` (which reads the
-    flag at its append step) fails on its missing store exactly as
-    without the flag."""
+def test_mesh_and_audit_commands_are_ported(argv, item, monkeypatch,
+                                           tmp_path):
+    """Every subcommand of the reference is ported.  ``--mesh`` (§A 16d):
+    ``risk`` refuses a mesh of more devices than are up, naming the
+    virtual-device variable, and ``pipeline`` (which reads the flag at its
+    append step) fails on its missing store exactly as without the flag.
+    ``audit`` and ``doctor --audit`` (§A 22): the recompile-surface pass
+    on the CPU and the committed snapshot's verification exit 0, from any
+    working directory."""
     from mfm_tpu_torch._device import VIRTUAL_DEVICES_ENV
 
     monkeypatch.chdir(tmp_path)
-    monkeypatch.delenv(VIRTUAL_DEVICES_ENV, raising=False)
+    # absent for the test and after it (``audit`` sets it when unset)
+    monkeypatch.setenv(VIRTUAL_DEVICES_ENV, "1")
+    monkeypatch.delenv(VIRTUAL_DEVICES_ENV)
     if item == "§A 16d":
         def outcome(args):
             try:
@@ -366,8 +370,7 @@ def test_unported_commands_name_their_roadmap_item(argv, item, monkeypatch,
         return
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
-    assert isinstance(exc.value.code, str)
-    assert "not ported" in exc.value.code and item in exc.value.code
+    assert exc.value.code == 0
 
 
 def test_spawns_name_the_port_cli():
