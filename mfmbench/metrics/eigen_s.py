@@ -1,0 +1,6 @@
+"""eigen_s: seconds of the benchmark's span around the eigen stage's
+public method, ended by a synchronize (mean of repeats)."""
+
+
+def read(rec):
+    return rec.get("spans", {}).get("eigen")
