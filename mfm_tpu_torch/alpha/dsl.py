@@ -58,6 +58,7 @@ from typing import Callable, Dict, Mapping, Sequence
 import numpy as np
 import torch
 
+from mfm_tpu_torch.obs.trace import stage
 from mfm_tpu_torch.ops.masked import winsorize_cs
 
 _NAN = float("nan")
@@ -690,20 +691,28 @@ def compile_alpha_batch(sources: Sequence[str], chunk: int = 1000) -> Callable:
     at once) and each chunk is written into one preallocated (E, T, N)
     tensor, so live memory is the result plus one chunk's values.  Values
     do not depend on ``chunk``.  Reuse the returned callable over panels.
+    With stage spans on (``obs/trace.set_stage_tracing``), a call is an
+    ``alpha.batch`` span over one ``alpha.eval`` span a chunk (its
+    evaluation and its write).
     """
     exprs, groups = _groups(sources, chunk)
 
     def run(panel):
         env = _Env(panel)
         out, at = None, 0
-        for group in groups:
-            vals = _stack(group, env)
-            if out is None:
-                out = torch.empty((len(exprs),) + vals.shape[1:],
-                                  dtype=vals.dtype, device=vals.device)
-            out[at:at + len(group)] = vals
-            at += len(group)
-            del vals
+        with stage("alpha.batch", env.device, exprs=len(exprs),
+                   chunks=len(groups)):
+            for i, group in enumerate(groups):
+                with stage("alpha.eval", env.device, exprs=len(group),
+                           chunk=i):
+                    vals = _stack(group, env)
+                    if out is None:
+                        out = torch.empty((len(exprs),) + vals.shape[1:],
+                                          dtype=vals.dtype,
+                                          device=vals.device)
+                    out[at:at + len(group)] = vals
+                at += len(group)
+                del vals
         return out
 
     return run

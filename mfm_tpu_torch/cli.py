@@ -87,18 +87,20 @@ SERVE_MANIFEST_NAME = "serve_manifest.json"
 
 
 def _metrics_init(args) -> None:
-    """``--metrics-dir``: route the JSONL event stream there and start the
-    compile-event counter (telemetry records regardless; this adds
-    sinks)."""
+    """``--metrics-dir``: route the JSONL event stream there, start the
+    compile-event counter and record the stage spans (telemetry records
+    regardless; this adds sinks)."""
     mdir = getattr(args, "metrics_dir", None)
     if not mdir:
         return
     from mfm_tpu_torch.obs.exporters import emit_event, route_events_to
     from mfm_tpu_torch.obs.instrument import watch_compiles
+    from mfm_tpu_torch.obs.trace import set_stage_tracing
 
     os.makedirs(mdir, exist_ok=True)
     route_events_to(os.path.join(mdir, "events.jsonl"))
     watch_compiles()
+    set_stage_tracing(True)
     emit_event("info", "run_start", cmd=args.cmd)
 
 
@@ -123,12 +125,19 @@ def _metrics_flush(args) -> None:
     emit_event("info", "run_end", cmd=args.cmd)
 
 
-def _root_span(args):
+def _root_span(args, nest: bool = True):
     """Open the per-run root span; its trace_id lands in the run manifest
-    so ``doctor`` can join manifests to traces."""
-    from mfm_tpu_torch.obs.trace import new_trace_id, start_span
+    so ``doctor`` can join manifests to traces.  With ``nest`` the rest of
+    the run goes on under it (the stage spans of ``models/`` and
+    ``alpha/`` join its trace) until :func:`main` returns; ``serve`` opens
+    its requests' traces of their own."""
+    from mfm_tpu_torch.obs.trace import new_trace_id, push_span, start_span
 
-    return start_span(f"cli.{args.cmd}", trace_id=new_trace_id())
+    root = start_span(f"cli.{args.cmd}", trace_id=new_trace_id())
+    if nest:
+        push_span(root)
+        args.root_span = root
+    return root
 
 
 def _kernel_block() -> dict:
@@ -749,7 +758,7 @@ def _serve(args):
     # the card unless the caller asked for the CPU; raises without a card
     device = resolve_device(args.device)
     _metrics_init(args)
-    root = _root_span(args)
+    root = _root_span(args, nest=False)
     state_path = args.state
 
     def _dead_letter_startup(rec: dict) -> None:
@@ -2828,7 +2837,7 @@ _METRICS_DIR_HELP = (
     "write telemetry here: events.jsonl (structured event stream), "
     "metrics.prom (Prometheus textfile exposition), metrics.json "
     "(snapshot, diffable with `metrics diff`) and trace.json (the Chrome "
-    "trace).  The run manifest is independent of this flag — it always "
+    "trace, with the program's stage spans).  The run manifest is independent of this flag — it always "
     "lands beside the checkpoint.")
 
 
@@ -2894,7 +2903,10 @@ def _write_scorecard(path, exprs, columns) -> None:
 def _alpha(args):
     """Batch alpha evaluation + scorecard over a long panel (the config-5
     workload from the command line): expressions from a text file, one
-    per line, scored against next-traded-day returns, on ``--device``."""
+    per line, scored against next-traded-day returns, on ``--device``.
+    ``--metrics-dir``'s ``trace.json`` holds ``cli.alpha`` over the
+    evaluation (``alpha.batch``, an ``alpha.eval`` a chunk) and the
+    scoring (``alpha.score``)."""
     import contextlib
     import sys
     import time
@@ -2905,11 +2917,14 @@ def _alpha(args):
     from mfm_tpu_torch._device import resolve_device
     from mfm_tpu_torch.alpha.dsl import compile_alpha, compile_alpha_batch
     from mfm_tpu_torch.alpha.metrics import alpha_summary
+    from mfm_tpu_torch.obs.trace import end_span, stage
     from mfm_tpu_torch.panel import Panel
     from mfm_tpu_torch.pipeline import shift_ret_next_period
 
     # the card unless the caller asked for the CPU; raises without a card
     device = resolve_device(args.device)
+    _metrics_init(args)
+    root = _root_span(args)
     p = Panel.from_long(_read_long_table(args.panel))
     fields = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
               for k, v in p.fields.items()}
@@ -2952,8 +2967,9 @@ def _alpha(args):
 
     t0 = time.perf_counter()
     values = compile_alpha_batch(exprs, chunk=args.chunk)(fields)
-    summary = {k: v.cpu().numpy() for k, v in
-               alpha_summary(values, fwd, spread_q=args.spread_q).items()}
+    with stage("alpha.score", device, exprs=len(exprs)):
+        scores = alpha_summary(values, fwd, spread_q=args.spread_q)
+    summary = {k: v.cpu().numpy() for k, v in scores.items()}
     columns = dict(summary)
     report: dict = {
         "n_exprs": len(exprs),
@@ -3006,7 +3022,10 @@ def _alpha(args):
     report.update({
         "wall_s": round(wall, 3), "out": args.out, "device": str(device),
         "best_mean_ic": float(np.nanmax(summary["mean_ic"])),
+        "trace_id": root.trace_id,
     })
+    end_span(root, wall_s=round(wall, 3))
+    _metrics_flush(args)
     print(json.dumps(report))
 
 
@@ -3055,6 +3074,11 @@ def _alpha_parser(sub) -> None:
                          "numbered lists, `name = expr` labels, prose): "
                          "extract every valid DSL expression, dedup, and "
                          "report what was rejected instead of failing fast")
+    al.add_argument("--metrics-dir", default=None, metavar="DIR",
+                    help="write telemetry here: events.jsonl, metrics.prom, "
+                         "metrics.json and trace.json (the Chrome trace: "
+                         "the run's evaluation and scoring spans, on the "
+                         "card with their seconds on the device)")
     al.set_defaults(fn=_alpha)
 
 
@@ -3832,7 +3856,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if getattr(args, "select_out", None) and args.select is None:
         ap.error("--select-out requires --select")
-    args.fn(args)
+    from mfm_tpu_torch.obs import trace
+
+    stages = trace.stage_tracing_enabled()
+    try:
+        args.fn(args)
+    finally:
+        root = getattr(args, "root_span", None)
+        if root is not None:
+            trace.pop_span(root)
+        trace.set_stage_tracing(stages)
 
 
 if __name__ == "__main__":

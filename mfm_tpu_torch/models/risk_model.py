@@ -61,6 +61,8 @@ from mfm_tpu_torch.models.vol_regime import (
     vol_regime_adjust_by_time,
     vol_regime_adjust_resume,
 )
+from mfm_tpu_torch.obs.trace import stage
+from mfm_tpu_torch.ops.eigh_cuda import launch_total
 from mfm_tpu_torch.ops.xreg import _rowdot, regress_panel
 from mfm_tpu_torch.parallel.mesh import (
     P,
@@ -412,36 +414,58 @@ class RiskModel:
         :data:`MIN_EIGEN_DATES`: at a batch of one, cuBLAS runs other
         matmul kernels (the eigen rebuild).  The copies are marked skipped
         in the incremental eigen, so they consume no draw.
+
+        With stage spans on (``obs/trace.set_stage_tracing``; the CLI's
+        ``--metrics-dir`` turns them on) the call is a ``risk.run`` span
+        over one span a stage: ``risk.regression``, ``risk.newey_west``,
+        ``risk.eigen`` (its ``eigh_launches`` the eigh kernels it
+        launched) and ``risk.vol_regime``, each timed on the device too.
         """
-        T = self.T
-        factor_ret, specific_ret, r2 = self._regress(MIN_REGRESSION_DATES)
-        if self.config.nw_method == "scan":
-            nw_cov, nw_valid, nw_carry_out = newey_west_expanding_resume(
-                factor_ret, q=self.config.nw_lags,
-                half_life=self.config.nw_half_life, min_valid=self.K,
-                carry=nw_carry, skip_mask=skip_mask)
-        else:
-            # run / run_fused only: every entry point that carries or
-            # guards refuses the method first (_require_scan_method)
-            nw_cov, nw_valid = self.newey_west_by_time(factor_ret)
-            nw_carry_out = None
-        eig_carry_out = None
-        nw_cov_e, nw_valid_e = (_pad_dates(nw_cov, MIN_EIGEN_DATES),
-                                _pad_dates(nw_valid, MIN_EIGEN_DATES))
-        if self.config.eigen_incremental:
-            skip = host_flags(skip_mask, T) + [True] * (len(nw_cov_e) - T)
-            eigen_cov, eigen_valid, eig_carry_out = self._eigen_incremental(
-                nw_cov_e, nw_valid_e, eig_draws, eig_carry, eigen_sweeps,
-                skip_mask=skip)
-        else:
-            eigen_cov, eigen_valid = self.eigen_risk_adj_by_time(
-                nw_cov_e, nw_valid_e, sim_covs=sim_covs,
-                sim_length=sim_length)
-        eigen_cov, eigen_valid = eigen_cov[:T], eigen_valid[:T]
-        vr_cov, lamb, vr_carry_out = vol_regime_adjust_resume(
-            factor_ret, eigen_cov, eigen_valid,
-            half_life=self.config.vol_regime_half_life, carry=vr_carry,
-            skip_mask=skip_mask)
+        T, dev, cfg = self.T, self.device, self.config
+        with stage("risk.run", dev, dates=T, stocks=self.N,
+                   nw_method=cfg.nw_method, guarded=skip_mask is not None):
+            with stage("risk.regression", dev,
+                       dates=max(T, MIN_REGRESSION_DATES)):
+                factor_ret, specific_ret, r2 = self._regress(
+                    MIN_REGRESSION_DATES)
+            with stage("risk.newey_west", dev, dates=T):
+                if cfg.nw_method == "scan":
+                    nw_cov, nw_valid, nw_carry_out = (
+                        newey_west_expanding_resume(
+                            factor_ret, q=cfg.nw_lags,
+                            half_life=cfg.nw_half_life, min_valid=self.K,
+                            carry=nw_carry, skip_mask=skip_mask))
+                else:
+                    # run / run_fused only: every entry point that carries
+                    # or guards refuses the method first
+                    # (_require_scan_method)
+                    nw_cov, nw_valid = self.newey_west_by_time(factor_ret)
+                    nw_carry_out = None
+            with stage("risk.eigen", dev,
+                       dates=max(T, MIN_EIGEN_DATES)) as sp:
+                launches = launch_total() if sp else 0
+                eig_carry_out = None
+                nw_cov_e, nw_valid_e = (_pad_dates(nw_cov, MIN_EIGEN_DATES),
+                                        _pad_dates(nw_valid, MIN_EIGEN_DATES))
+                if cfg.eigen_incremental:
+                    skip = (host_flags(skip_mask, T)
+                            + [True] * (len(nw_cov_e) - T))
+                    eigen_cov, eigen_valid, eig_carry_out = (
+                        self._eigen_incremental(
+                            nw_cov_e, nw_valid_e, eig_draws, eig_carry,
+                            eigen_sweeps, skip_mask=skip))
+                else:
+                    eigen_cov, eigen_valid = self.eigen_risk_adj_by_time(
+                        nw_cov_e, nw_valid_e, sim_covs=sim_covs,
+                        sim_length=sim_length)
+                eigen_cov, eigen_valid = eigen_cov[:T], eigen_valid[:T]
+                if sp:
+                    sp.attrs["eigh_launches"] = launch_total() - launches
+            with stage("risk.vol_regime", dev, dates=T):
+                vr_cov, lamb, vr_carry_out = vol_regime_adjust_resume(
+                    factor_ret, eigen_cov, eigen_valid,
+                    half_life=cfg.vol_regime_half_life, carry=vr_carry,
+                    skip_mask=skip_mask)
         outputs = RiskModelOutputs(
             factor_ret, specific_ret, r2,
             nw_cov, nw_valid, eigen_cov, eigen_valid, vr_cov, lamb)

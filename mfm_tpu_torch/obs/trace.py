@@ -1,15 +1,22 @@
 """Request-scoped tracing: spans, a bounded ring buffer, the fleet-wire
 span merge and Chrome-trace export (counterpart of ``mfm_tpu/obs/trace.py``).
 
-Zero-dependency (stdlib only), thread-safe and host-side: spans open and
-close around the device work, never inside it.
+Zero-dependency (stdlib only; :func:`stage` reaches torch only for a
+stage on a CUDA device), thread-safe and host-side: spans open and close
+around the device work, never inside it, and add nothing to it.
 
 - :func:`span` — context-manager span with monotonic-clock timing and
   trace/span/parent ids; nesting uses a thread-local stack, so a child
   opened on the same thread inherits its parent's trace.
 - :func:`start_span` / :func:`end_span` — the explicit pair for async
   boundaries (a serve request's span opens at admission and closes at
-  response, batches apart).
+  response, batches apart); :func:`push_span` / :func:`pop_span` put such
+  a span on the nesting stack, so that spans opened under it join its
+  trace (a CLI run's root span).
+- :func:`stage` — a span around one stage of the device work, with the
+  stage's interval on the device from two CUDA events
+  (:func:`device_seconds`); off unless :func:`set_stage_tracing` turned
+  stages on, and then a shared null context that costs a flag check.
 - A bounded ring holds finished spans; overflow drops the OLDEST and
   tallies ``mfm_trace_dropped_total``.
 - :func:`drain_spans`, :func:`clock_offset_from_probe` and
@@ -51,6 +58,7 @@ DEFAULT_RING_CAPACITY = 4096
 _CHROME_PHASES = frozenset("XBEiIMCbens")
 
 _enabled = True
+_stages = False
 _lock = threading.Lock()
 _ring: collections.deque = collections.deque()
 _capacity = DEFAULT_RING_CAPACITY
@@ -65,6 +73,19 @@ def set_tracing(on: bool) -> None:
 
 def tracing_enabled() -> bool:
     return _enabled
+
+
+def set_stage_tracing(on: bool) -> None:
+    """Switch :func:`stage` spans on (off by default; they record only
+    while tracing is on too).  A stage span costs host time on the
+    program's hot path, so it is recorded only where a reader asks for
+    it, as the CLI's ``--metrics-dir`` does."""
+    global _stages
+    _stages = bool(on)
+
+
+def stage_tracing_enabled() -> bool:
+    return _stages
 
 
 def set_ring_capacity(n: int) -> None:
@@ -91,10 +112,12 @@ class Span:
     """One finished-or-open span.  ``start_us``/``dur_us`` are on the
     monotonic ``perf_counter`` clock (microseconds) — a consistent
     process-local timeline, which is all the Chrome trace format needs;
-    ``wall_ts`` is the wall-clock open time for joining to JSONL events."""
+    ``wall_ts`` is the wall-clock open time for joining to JSONL events;
+    ``events`` the (open, close) CUDA timing events of a :func:`stage` on
+    the card, else None."""
 
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "start_us",
-                 "dur_us", "wall_ts", "tid", "attrs")
+                 "dur_us", "wall_ts", "tid", "attrs", "events")
 
     def __init__(self, name, trace_id, span_id, parent_id, start_us,
                  wall_ts, tid, attrs):
@@ -107,6 +130,7 @@ class Span:
         self.wall_ts = wall_ts
         self.tid = tid
         self.attrs = attrs
+        self.events = None
 
 
 def _stack() -> list:
@@ -179,6 +203,83 @@ def span(name: str, *, trace_id: str | None = None,
     finally:
         st.pop()
     end_span(sp)
+
+
+def push_span(sp: Span) -> None:
+    """Make ``sp`` (opened by :func:`start_span`) the calling thread's
+    current span: spans opened under it join its trace until
+    :func:`pop_span`."""
+    _stack().append(sp)
+
+
+def pop_span(sp: Span) -> None:
+    """Take ``sp`` off the calling thread's nesting stack, where it is."""
+    st = _stack()
+    if sp in st:
+        st.remove(sp)
+
+
+#: what :func:`stage` returns with stage spans off
+_OFF = contextlib.nullcontext()
+
+
+def stage(name: str, device=None, **attrs):
+    """A :func:`span` around one stage of the device work; ``with`` gives
+    the open span, whose ``attrs`` the stage may add counts to.
+
+    With stage spans off (the default; :func:`set_stage_tracing`) or
+    tracing off it is a shared null context (``with`` gives None): no
+    span, no id, no event, a flag check.  On a CUDA ``device`` the span
+    also records a timing event on the device's current stream at open
+    and at close (``Span.events``), so that :func:`device_seconds` reads
+    the stage's interval on the device once the caller has synchronized;
+    no synchronize and no operation of the device's own is added."""
+    if not (_stages and _enabled):
+        return _OFF
+    return _Stage(name, device, attrs)
+
+
+class _Stage:
+    """:func:`stage` with stage spans on: :func:`span`'s open, nest and
+    close, without a generator's frame."""
+
+    __slots__ = ("name", "device", "attrs", "sp", "events")
+
+    def __init__(self, name, device, attrs):
+        self.name, self.device, self.attrs = name, device, attrs
+
+    def __enter__(self) -> Span:
+        sp = self.sp = start_span(self.name, **self.attrs)
+        _stack().append(sp)
+        self.events = None
+        if self.device is not None and self.device.type == "cuda":
+            import torch
+
+            stream = torch.cuda.current_stream(self.device)
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True), stream)
+            self.events[0].record(stream)
+        return sp
+
+    def __exit__(self, kind, err, tb) -> None:
+        sp = self.sp
+        _stack().pop()
+        if kind is not None:
+            end_span(sp, error=f"{kind.__name__}: {err}"[:500])
+            return
+        if self.events is not None:
+            opened, closed, stream = self.events
+            closed.record(stream)
+            sp.events = (opened, closed)
+        end_span(sp)
+
+
+def device_seconds(sp: Span) -> float | None:
+    """Seconds between a stage's two CUDA events, once the close event
+    has completed; None for a span without events or before then."""
+    if sp.events is None or not sp.events[1].query():
+        return None
+    return sp.events[0].elapsed_time(sp.events[1]) / 1e3
 
 
 def current_trace_id() -> str | None:
@@ -309,7 +410,8 @@ def ingest_foreign_spans(span_dicts, *, offset_us: float = 0.0,
 
 def chrome_trace_events(span_list=None) -> list:
     """The ring (or an explicit span list) as Chrome trace-event dicts:
-    complete ("X") events, µs timestamps, ids and attrs under ``args``."""
+    complete ("X") events, µs timestamps, ids and attrs under ``args``,
+    with a stage's seconds on the device as ``device_s`` once known."""
     pid = os.getpid()
     out = []
     for s in (spans() if span_list is None else span_list):
@@ -319,6 +421,9 @@ def chrome_trace_events(span_list=None) -> list:
         for k in sorted(s.attrs):
             if k not in args:
                 args[k] = s.attrs[k]
+        dev = device_seconds(s)
+        if dev is not None:
+            args["device_s"] = dev
         out.append({"name": s.name, "cat": "mfm", "ph": "X",
                     "ts": round(s.start_us, 3),
                     "dur": round(s.dur_us or 0.0, 3),

@@ -90,6 +90,11 @@ def launch_shapes() -> dict:
     return {kernel: dict(shapes) for kernel, shapes in LAUNCH_SHAPES.items()}
 
 
+def launch_total() -> int:
+    """Every launch :data:`LAUNCHES` has counted, of both kernels."""
+    return sum(sum(counts.values()) for counts in LAUNCHES.values())
+
+
 def launch_counts() -> dict[str, int]:
     """A copy of :data:`LAUNCHES` as ``{"<kernel>/<design>": count}``."""
     return {f"{kernel}/{design}": count

@@ -1,5 +1,5 @@
 """Observability helpers: structured logging, stage timing, determinism
-checks and profiler spans (counterpart of ``mfm_tpu/utils/obs.py``).
+checks and memory measurement (counterpart of ``mfm_tpu/utils/obs.py``).
 
 - :func:`log` — structured JSON-lines logging with levels, a shim over
   the :mod:`mfm_tpu_torch.obs.exporters` event stream.
@@ -12,12 +12,10 @@ checks and profiler spans (counterpart of ``mfm_tpu/utils/obs.py``).
 - :func:`compiled_memory` — the memory one call of a function needs: its
   arguments, outputs, the outputs that alias an argument and, on the card,
   the transient peak above them.
-- :func:`trace_annotation` — a named ``torch.profiler`` range.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable
 
 import torch
@@ -155,10 +153,3 @@ def compiled_memory(fn: Callable, *args) -> dict:
     exists.
     """
     return measured_call(fn, *args)[1]
-
-
-@contextlib.contextmanager
-def trace_annotation(name: str):
-    """Named range visible in ``torch.profiler`` traces."""
-    with torch.profiler.record_function(name):
-        yield

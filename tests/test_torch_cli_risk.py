@@ -481,4 +481,15 @@ def test_profile_and_metrics_dir(runs, tmp_path, flag):
     stages = {s["labels"]["stage"] for s in
               snap["mfm_stage_seconds"]["series"]}
     assert {"read_barra_csv", "write_result_tables", "risk_full"} <= stages
-    assert json.loads(lines[-1])["trace_id"]
+    tid = json.loads(lines[-1])["trace_id"]
+    assert tid
+    # the run's body goes on under its root span: the rebuild's stage
+    # spans land in the root's trace, in the run's trace.json
+    events = [e for e in json.loads((mdir / "trace.json").read_text())[
+        "traceEvents"] if e["args"]["trace_id"] == tid]
+    (root,) = [e for e in events if e["name"] == "cli.risk"]
+    ids = {e["name"]: e["args"] for e in events}
+    assert ids["risk.run"]["parent_id"] == root["args"]["span_id"]
+    for name in ("risk.regression", "risk.newey_west", "risk.eigen",
+                 "risk.vol_regime"):
+        assert ids[name]["parent_id"] == ids["risk.run"]["span_id"]

@@ -344,5 +344,3 @@ def test_force_is_the_checksum_of_the_finite_entries():
     tree = {"a": (x, torch.tensor([True])), "b": [torch.tensor([0.5])]}
     assert obs.force(tree) == 4.0
     assert obs.force({"i": torch.tensor([1, 2])}) == 0.0
-    with obs.trace_annotation("span"):
-        pass
