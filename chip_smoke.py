@@ -11,8 +11,12 @@ and the other n), against its plain PyTorch version on the card; drives
 ``RiskModel.run_fused`` once at the CSI300 width (T=1390 dates, N=300
 stocks, P=31 industries, Q=10 styles, K=42 factors, M=100 eigen
 simulations, float32) and checks that the main path went through the warp
-design of both kernels and agrees with the same path run on the plain
-versions within the ``risk`` budgets of ``tools/parity_budget.json``.
+design of both kernels and the Newey-West scan kernel once, and agrees
+with the same path run on the plain versions within the ``risk`` budgets
+of ``tools/parity_budget.json``; then holds the Newey-West kernel's
+covariances, ``valid`` and carry equal to its plain loop's on that run's
+factor returns (phase ``nw_kernel_check``; again at all-A in
+``alla_nw_kernel_check``) and times both beside the kernel's bound.
 The IR audit's probes follow (``mfm_tpu_torch/analysis/``):
 ``audit_probes`` runs the audit's aliasing and dtype probes on that
 CSI300 ``run_fused`` (no argument written or aliased, the dtypes of the
@@ -25,8 +29,10 @@ on the first 1350 dates, the last 40 as one-date updates and as a slab —
 in four phases (``serve_update``, ``serve_guarded``, ``serve_incremental``,
 ``serve_checkpoint``), each held against the full-history run and each
 required to go through the warp design of both kernels and to be bitwise
-the full run; one more (``serve_bitwise_ops``) requires each op of the
-update to keep a date's bits at the batch sizes an update gives it.  Then
+the full run (``init_state``, each update and each guarded update launch
+the Newey-West kernel once); one more (``serve_bitwise_ops``) requires
+each op of the update to keep a date's bits at the batch sizes an update
+gives it.  Then
 the risk pipeline at the same width, in five phases: ``pipeline_ingest``
 (the synthetic barra table, ~398,000 rows, densified),
 ``pipeline_run`` (``run_risk_pipeline``, bitwise ``run_fused`` on the
@@ -219,6 +225,9 @@ SOURCES = {"warp": "mfm_tpu_torch/csrc/jacobi_eigh_warp.cu",
 _KERNEL_NAME = re.compile(
     r"(warp_eigh_kernel|warp_weighted_kernel|jacobi_eigh_kernel|"
     r"jacobi_eigh_weighted_kernel)I(?:Li(\d+)E|([fd]))E")
+NW_SOURCE = "mfm_tpu_torch/csrc/newey_west_scan.cu"
+_NW_KERNEL_NAME = re.compile(r"newey_west_scan_kernelI([fd])Li(\d+)E")
+_NW_TYPES = {"f": "float", "d": "double"}
 
 
 class SmokeFailure(RuntimeError):
@@ -393,17 +402,24 @@ def ptxas_table(build):
     """Phase 1b: registers, stack and spill bytes of every kernel from
     ``-Xptxas -v``; the warp design must not spill at any n it takes."""
     rows = []
+
+    def row(k, name, **size):
+        rows.append({"kernel": name, **size, "registers": k.get("registers"),
+                     "stack_bytes": k.get("stack_bytes"),
+                     "spill_bytes": k.get("spill_store_bytes", 0)
+                     + k.get("spill_load_bytes", 0)})
+
     for stem in ("jacobi_eigh_warp", "jacobi_eigh"):
         for k in build.ptxas_report(stem):
             m = _KERNEL_NAME.search(k["kernel"])
-            name = (f"{m.group(1)}<{m.group(2) or m.group(3)}>" if m
-                    else k["kernel"])
-            rows.append({"kernel": name,
-                         "n": int(m.group(2)) if m and m.group(2) else None,
-                         "registers": k.get("registers"),
-                         "stack_bytes": k.get("stack_bytes"),
-                         "spill_bytes": k.get("spill_store_bytes", 0)
-                         + k.get("spill_load_bytes", 0)})
+            row(k, f"{m.group(1)}<{m.group(2) or m.group(3)}>" if m
+                else k["kernel"],
+                n=int(m.group(2)) if m and m.group(2) else None)
+    for k in build.ptxas_report("newey_west_scan"):
+        m = _NW_KERNEL_NAME.search(k["kernel"])
+        row(k, f"newey_west_scan_kernel<{_NW_TYPES[m.group(1)]}, "
+               f"{m.group(2)}>" if m else k["kernel"],
+            q=int(m.group(2)) if m else None)
     emit("ptxas", kernels=rows)
     warp = [r for r in rows if r["kernel"].startswith("warp_")]
     spilled = [r["kernel"] for r in warp
@@ -696,6 +712,83 @@ def hold_kernels(F0, G, d0, sw, sf, where: str) -> dict:
             "weighted_plain_ms": start.elapsed_time(stop)}
 
 
+def reset_nw_launches() -> None:
+    """Count the Newey-West kernel's launches from 0."""
+    from mfm_tpu_torch.ops import newey_west_cuda
+
+    newey_west_cuda.LAUNCHES["newey_west_scan"] = 0
+
+
+def require_nw_launches(n: int, what: str) -> int:
+    """The Newey-West kernel launched ``n`` times since
+    :func:`reset_nw_launches`; returns the count."""
+    from mfm_tpu_torch.ops.newey_west_cuda import launch_total
+
+    got = launch_total()
+    require(got == n, f"{what}: the Newey-West kernel must launch {n} "
+                      f"times, launched {got}")
+    return got
+
+
+def nw_kernel_bound(T, K, q, itemsize) -> dict:
+    """The least time the card could take for the Newey-West scan of a
+    (T, K) series: the series read and the covariances written once at the
+    memory rate, and K^2 (6 + 13 q) flops a date at the FP32 peak; the
+    larger bounds it (the chain of T dependent date steps bounds it in
+    fact)."""
+    nbytes = (T * K + T * K * K) * itemsize
+    flops = T * K * K * (6 + 13 * q)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes)
+
+
+def hold_nw_kernel(fr, cfg, where: str) -> dict:
+    """The Newey-West kernel against its plain loop on a run's own factor
+    returns ``fr`` (T, K): ``newey_west_expanding_resume`` as the model
+    calls it, with the kernel and with ``models/newey_west._scan_loop`` in
+    its place, on the same inputs; covs, valid and every carry tensor
+    equal (:func:`same`).  Then the kernel's device time (the wrapper
+    alone, 50 launches), the whole call's (20 calls, with its host reads),
+    the loop's (one call) and the bound.  Emits phase ``{where}``; returns
+    it."""
+    from unittest import mock
+
+    from mfm_tpu_torch.models import newey_west as NW
+    from mfm_tpu_torch.ops.newey_west_cuda import newey_west_scan_cuda
+
+    T, K = fr.shape
+    q, half_life = cfg.nw_lags, cfg.nw_half_life
+
+    def run():
+        return NW.newey_west_expanding_resume(fr, q, half_life, min_valid=K)
+
+    def leaves(result):
+        covs, valid, (t, S, A, Z, *groups) = result
+        return [covs, valid, t, S, A, Z, *(x for grp in groups for x in grp)]
+
+    got = leaves(run())
+    with mock.patch.object(NW, "newey_west_scan_cuda", NW._scan_loop):
+        want = leaves(run())
+        plain_ms = time_ms(run, 1, warmup=False)
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if not same(a, b)]
+    lam = torch.tensor(0.5, dtype=fr.dtype, device=fr.device) ** (
+        1.0 / half_life)
+    sums, skip = NW.nw_init_carry(K, q, fr.dtype, fr.device)[1:], [False] * T
+    res = {"shape": [T, K], "q": q, "dtype": str(fr.dtype).split(".")[-1],
+           "leaves": len(want), "leaves_differing": differ,
+           "ms": time_ms(lambda: newey_west_scan_cuda(fr, lam, q, 0, sums,
+                                                      skip), 50),
+           "call_ms": time_ms(run, 20), "plain_ms": plain_ms,
+           **nw_kernel_bound(T, K, q, fr.element_size())}
+    emit(where, **res)
+    require(not differ, f"{where}: the Newey-West kernel's leaves {differ} "
+                        f"(0 covs, 1 valid, then the carry) are not its "
+                        f"loop's")
+    return res
+
+
 # -- the daily serving step ---------------------------------------------------
 
 #: the serving split: init on the first SERVE_T0 dates, then the rest one by
@@ -822,18 +915,24 @@ def serve_update(ctx) -> dict:
         lambda: model(slice(0, T)).init_state(sim_covs=sim_covs,
                                               sim_length=T))
     fused = compare_rows(full_out, ctx["fused_out"])
+    reset_nw_launches()
     (_, st0), init_s = timed(lambda: model(slice(0, T0)).init_state(
         sim_covs=sim_covs, sim_length=T))
+    nw = {"init_state": require_nw_launches(1, "serve_update init_state")}
 
     st, rows, walls = st0, [], []
     reset_launches()
+    reset_nw_launches()
     for t in range(T0, T):
         (o, st), dt = timed(lambda: model(slice(t, t + 1)).update(st))
         rows.append(o)
         walls.append(dt)
     per_update = serving_launches(T - T0, "serve_update")
+    nw["per_update"] = require_nw_launches(T - T0, "serve_update") / (T - T0)
     seq_state = st
+    reset_nw_launches()
     o_slab, st_slab = model(slice(T0, T)).update(st0)
+    nw["slab"] = require_nw_launches(1, "serve_update slab")
     seq_rows = cat_rows(rows)
     want = suffix(full_out, T0)
     records, failed = budget_check(outputs_to_numpy(seq_rows),
@@ -858,7 +957,7 @@ def serve_update(ctx) -> dict:
         "carries": carries, "budget_failed": failed + failed_slab,
         "budget_records": records,
         "update_wall": wall_stats(walls),
-        "launches_per_update": per_update,
+        "launches_per_update": per_update, "nw_launches": nw,
         # the one profile held against key_averages: ~300 kernels
         "profile_one_update": profile_run(
             lambda: model(slice(T - 1, T)).update(seq_state), hold=True),
@@ -1222,9 +1321,11 @@ def serve_guarded(ctx) -> dict:
     (_, gst), init_s = timed(lambda: model(slice(0, T0), gcfg).init_state(
         sim_covs=sim_covs, sim_length=T))
     reset_launches()
+    reset_nw_launches()
     (o_g, rep, st_g), slab_s = timed(
         lambda: model(slice(T0, T), gcfg, bad).update_guarded(gst))
     slab_launches = serving_launches(1, "serve_guarded slab")
+    nw = {"slab": require_nw_launches(1, "serve_guarded slab")}
     q = rep.quarantined.cpu()
     reasons = rep.reasons.cpu()
     keep = np.r_[T0:t_bad, t_bad + 1:T]
@@ -1243,11 +1344,14 @@ def serve_guarded(ctx) -> dict:
 
     st, walls = gst, []
     reset_launches()
+    reset_nw_launches()
     for t in range(T0, T):
         (_, _, st), dt = timed(
             lambda: model(slice(t, t + 1), gcfg, bad).update_guarded(st))
         walls.append(dt)
     per_update = serving_launches(T - T0, "serve_guarded")
+    nw["per_update"] = require_nw_launches(T - T0, "serve_guarded") / (
+        T - T0)
     singles_carries = compare_carries(st, st_g, guard=True)
     res = {
         "T0": T0, "poisoned_offset": off, "init_state_s": init_s,
@@ -1263,7 +1367,7 @@ def serve_guarded(ctx) -> dict:
         "quarantine_count": int(st.quarantine_count),
         "singles_vs_slab_carries": singles_carries,
         "update_wall": wall_stats(walls),
-        "launches_per_update": per_update,
+        "launches_per_update": per_update, "nw_launches": nw,
     }
     emit("serve_guarded", **res)
     require(res["quarantined"] == [off]
@@ -6961,8 +7065,10 @@ def alla_risk_phase(ctx) -> dict:
         return rm.run_fused(sim_covs=sim_covs, sim_length=T)
 
     reset_launches()
+    reset_nw_launches()
     out, first_s = timed(run)
     launches = launch_counts()
+    nw_launches = require_nw_launches(1, "alla_risk")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finite = outputs_finite(out, rm.valid)
     walls = [timed(run)[1] for _ in range(3)]
@@ -6970,6 +7076,7 @@ def alla_risk_phase(ctx) -> dict:
     fr, _, _ = rm.reg_by_time()
     (nw_cov, nw_valid), stages["newey_west"] = timed(
         lambda: rm.newey_west_by_time(fr))
+    nw_kernel = hold_nw_kernel(fr, config, "alla_nw_kernel_check")
     nw_assoc = nw_methods(fr, K, config, ctx["budget"], 1)
     emit("nw_associative_alla", **nw_assoc)
     require(nw_assoc["valid_equal"] and not nw_assoc["failed"],
@@ -6989,7 +7096,8 @@ def alla_risk_phase(ctx) -> dict:
     records, failed = budget_check(outputs_to_numpy(out),
                                    outputs_to_numpy(ref), ctx["budget"])
     res = {"universe": u.name, "T": T, "N": N, "P": P, "Q": Q, "K": K, "M": M,
-           "eigen_chunk": chunk, "launches": launches, "finite": finite,
+           "eigen_chunk": chunk, "launches": launches,
+           "nw_launches": nw_launches, "finite": finite,
            "first_run_s": first_s, "e2e_median_s": statistics.median(walls),
            "e2e_runs_s": walls, "stages_s": stages,
            "peak_mem_gb": peak_gb, "base_mem_gb": base_gb,
@@ -7002,7 +7110,7 @@ def alla_risk_phase(ctx) -> dict:
     require(all(finite.values()), f"alla_risk: non-finite outputs: {finite}")
     require(not failed, f"alla_risk: the float32 path is outside the risk "
             f"budgets of float64: {failed}")
-    return {**res, "kernel_times": kernels}
+    return {**res, "kernel_times": kernels, "nw_kernel": nw_kernel}
 
 
 def alla_factors_phase(ctx) -> dict:
@@ -7582,10 +7690,12 @@ def main() -> int:
     rm = model()
     sync()
     reset_launches()
+    reset_nw_launches()
     out = rm.run_fused(sim_covs=sim_covs, sim_length=T)
     sync()
     launches = launch_counts()
-    emit("main_path_launches", **launches)
+    nw_launches = require_nw_launches(1, "the main path")
+    emit("main_path_launches", **launches, newey_west_scan=nw_launches)
     require_launches(launches, "the main path", 1, 2)
     finite = outputs_finite(out, rm.valid)
     emit("main_path_finite", **finite)
@@ -7601,6 +7711,7 @@ def main() -> int:
                                    outputs_to_numpy(plain), budget["risk"])
     emit("main_path_vs_plain", failed=failed, **records)
     require(not failed, f"kernel path outside the risk budgets: {failed}")
+    nw_kernel = hold_nw_kernel(out.factor_ret, config, "nw_kernel_check")
 
     walls = []
     for _ in range(3):
@@ -7660,7 +7771,7 @@ def main() -> int:
            "budget": budget["risk"], "tmp": scratch.name}
     serving = serve_update(ctx)
     serve_bitwise_ops(ctx)
-    serve_guarded(ctx)
+    guarded = serve_guarded(ctx)
     serve_incremental(ctx)
     serve_checkpoint(ctx)
 
@@ -8006,6 +8117,8 @@ def main() -> int:
                     audit_probes["launches"][f"{name}/warp"],
                 **serve[key], **alla_entry(name, key)}
 
+    nw_alla, nw_name = alla["nw_kernel"], (
+        f"newey_west_scan_kernel<float, {nw_kernel['q']}>")
     kernels = [
         entry("jacobi_eigh_weighted", "weighted",
               "mfm_tpu/ops/eigh_pallas.py:339", weighted_err, [B, K, K], sw,
@@ -8020,6 +8133,24 @@ def main() -> int:
          "grad_plain_ms": grad_kernel["plain_ms"],
          "grad_bound_ms": grad_kernel["bound_ms"],
          "grad_library_ms": grad_kernel["library_ms"]},
+        {"name": "newey_west_scan", "route": "cuda",
+         "design": "a thread per (i, j) of the K x K state", "source": NW_SOURCE,
+         "replaces": None, "plain_version":
+             "mfm_tpu_torch/models/newey_west.py:_scan_loop",
+         "launches": nw_launches,
+         "leaves_differing": nw_kernel["leaves_differing"],
+         **{k: nw_kernel[k] for k in ("shape", "q", "ms", "call_ms",
+                                      "plain_ms", "bound_ms", "bound_by")},
+         "registers": ptxas[nw_name]["registers"],
+         "spill_bytes": ptxas[nw_name]["spill_bytes"],
+         "init_state_launches": serving["nw_launches"]["init_state"],
+         "serve_launches_per_update": serving["nw_launches"]["per_update"],
+         "guarded_launches_per_update": guarded["nw_launches"]["per_update"],
+         "alla_launches": alla["nw_launches"],
+         "alla_leaves_differing": nw_alla["leaves_differing"],
+         **{f"alla_{k}": nw_alla[k] for k in ("shape", "ms", "call_ms",
+                                              "plain_ms", "bound_ms",
+                                              "bound_by")}},
     ]
     mark("kernel_times")
     emit("smoke", seconds=time.perf_counter() - t_start,

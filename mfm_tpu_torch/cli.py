@@ -2840,6 +2840,12 @@ _METRICS_DIR_HELP = (
     "trace, with the program's stage spans).  The run manifest is independent of this flag — it always "
     "lands beside the checkpoint.")
 
+#: ``--nw-lags``; the limit is ``ops/newey_west_cuda.MAX_Q``, which a model on
+#: the card checks when it is built
+_NW_LAGS_HELP = (
+    "Newey-West lags q (default 2).  On the card the serial scan takes "
+    "q <= 8 (its kernel's limit) and refuses more before any stage runs; "
+    "--nw-method associative and --device cpu take any q")
 
 # -- alpha ----------------------------------------------------------------------
 
@@ -3108,7 +3114,7 @@ def _risk_parser(sub) -> None:
     _device_arg(r)
     r.add_argument("--industry-info", default=None)
     r.add_argument("--out", default="results")
-    r.add_argument("--nw-lags", type=int, default=2)
+    r.add_argument("--nw-lags", type=int, default=2, help=_NW_LAGS_HELP)
     r.add_argument("--nw-half-life", type=float, default=252.0)
     r.add_argument("--nw-method", choices=["scan", "associative"],
                    default="scan",
@@ -3214,7 +3220,7 @@ def _risk_parser(sub) -> None:
 
 def _risk_flags(p) -> None:
     """The risk-model flags ``pipeline`` shares with ``risk``."""
-    p.add_argument("--nw-lags", type=int, default=2)
+    p.add_argument("--nw-lags", type=int, default=2, help=_NW_LAGS_HELP)
     p.add_argument("--nw-half-life", type=float, default=252.0)
     p.add_argument("--nw-method", choices=["scan", "associative"],
                    default="scan",

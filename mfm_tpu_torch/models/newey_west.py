@@ -11,10 +11,11 @@ normalized to sum 1, demeaned by the weighted mean:
 
 and the estimate is *invalid* when t <= q or t <= K.  Every sum is an
 exponentially-weighted cumulative sum, so the whole expanding family is one
-serial pass of EWMA recursions over the dates — here a Python loop of small
-K x K tensor ops on the device (about three dozen launches a date) — or,
-in the "associative" method, one prefix scan of the same recursions in
-O(log T) passes over a packed (T, D) state.
+serial pass of EWMA recursions over the dates — on the card one launch of
+a hand-written kernel (``csrc/newey_west_scan.cu``), on the CPU its plain
+version, a Python loop of small K x K tensor ops — or, in the
+"associative" method, one prefix scan of the same recursions in O(log T)
+passes over a packed (T, D) state.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from mfm_tpu_torch._device import host_flags
+from mfm_tpu_torch.ops.newey_west_cuda import newey_west_scan_cuda
 from mfm_tpu_torch.parallel.mesh import replicate_under_mesh
 from mfm_tpu_torch.utils.prec import highest_matmul_precision
 
@@ -114,6 +116,9 @@ def newey_west_expanding_resume(
     in the date cannot reach the sums.  The masked date's stacked output V
     is the discarded candidate and its ``valid`` is False.
 
+    A CUDA tensor runs the recursion in one launch of the Hopper kernel
+    (:func:`mfm_tpu_torch.ops.newey_west_cuda.newey_west_scan_cuda`),
+    bitwise the plain loop :func:`_scan_loop`, which a CPU tensor runs.
     Under a mesh the tiny (T, K) series runs replicated: a date-sharded
     input is gathered first.
     """
@@ -125,9 +130,26 @@ def newey_west_expanding_resume(
     state = nw_init_carry(K, q, dtype, dev) if carry is None else carry
     skip = host_flags(skip_mask, T)
     t = int(state[0])
-    S, A, Z, Ps, hs, gs, Slags, xlags = state[1:]
-    covs = torch.empty((T, K, K), dtype=dtype, device=dev)
+    scan = newey_west_scan_cuda if dev.type == "cuda" else _scan_loop
+    covs, sums = scan(ret, lam, q, t, state[1:], skip)
     valid = []
+    for skipped in skip:
+        if not skipped:
+            t += 1
+        valid.append(not skipped and t > q and t > kmin)
+    carry_out = (torch.tensor(t, dtype=torch.int32, device=dev), *sums)
+    return covs, torch.tensor(valid, dtype=torch.bool, device=dev), carry_out
+
+
+def _scan_loop(ret: torch.Tensor, lam: torch.Tensor, q: int, t: int,
+               sums: tuple, skip: list[bool]):
+    """The recursion of :func:`newey_west_expanding_resume` as a Python
+    loop of small tensor ops, a date at a time from the carry's sums
+    ``(S, A, Z, Ps, hs, gs, Slags, xlags)`` at window length ``t``: the
+    plain version of the CUDA kernel.  Returns ``(covs, sums_out)``."""
+    T, K = ret.shape
+    S, A, Z, Ps, hs, gs, Slags, xlags = sums
+    covs = torch.empty((T, K, K), dtype=ret.dtype, device=ret.device)
 
     for i in range(T):
         xt = ret[i]
@@ -154,9 +176,7 @@ def newey_west_expanding_resume(
             V = V + (1.0 - lag / (1.0 + q)) * (G + G.T)
         covs[i] = V
         if skip[i]:
-            valid.append(False)
             continue
-        valid.append(t1 > q and t1 > kmin)
         t = t1
         S, A, Z = Snew, Anew, Znew
         Ps, hs, gs = tuple(Ps_new), tuple(hs_new), tuple(gs_new)
@@ -164,9 +184,7 @@ def newey_west_expanding_resume(
             Slags = (Snew,) + Slags[:-1]
             xlags = (xt,) + xlags[:-1]
 
-    carry_out = (torch.tensor(t, dtype=torch.int32, device=dev),
-                 S, A, Z, Ps, hs, gs, Slags, xlags)
-    return covs, torch.tensor(valid, dtype=torch.bool, device=dev), carry_out
+    return covs, (S, A, Z, Ps, hs, gs, Slags, xlags)
 
 
 def linear_prefix_scan(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -63,6 +63,10 @@ from mfm_tpu_torch.models.vol_regime import (
 )
 from mfm_tpu_torch.obs.trace import stage
 from mfm_tpu_torch.ops.eigh_cuda import launch_total
+from mfm_tpu_torch.ops.newey_west_cuda import (
+    launch_total as nw_launch_total,
+    require_lags,
+)
 from mfm_tpu_torch.ops.xreg import _rowdot, regress_panel
 from mfm_tpu_torch.parallel.mesh import (
     P,
@@ -167,6 +171,15 @@ _INJECTED = ("eigen_incremental=True derives its draws from config.seed "
              "generator/sim_covs would break the bitwise-suffix contract")
 
 
+def _require_kernel_lags(config: RiskModelConfig, device) -> None:
+    """On the card the serial Newey-West scan is one launch of its kernel,
+    which takes at most ``ops/newey_west_cuda.MAX_Q`` lags: a model there
+    refuses more when it is built, before any stage runs.  The associative
+    method and the CPU's loop take any ``nw_lags``."""
+    if config.nw_method == "scan" and torch.device(device).type == "cuda":
+        require_lags(config.nw_lags)
+
+
 @dataclasses.dataclass
 class RiskModel:
     """Batched Barra-style risk model over a dense masked panel.
@@ -220,6 +233,7 @@ class RiskModel:
             if self.valid.dtype != torch.bool:
                 self.valid = map_shards(lambda v: v.to(torch.bool),
                                         self.valid, out_specs=P("date"))
+        _require_kernel_lags(self.config, self.device)
         self.T, self.N = self.ret.shape
         self.Q = self.styles.shape[-1]
         self.K = 1 + self.n_industries + self.Q
@@ -417,7 +431,8 @@ class RiskModel:
 
         With stage spans on (``obs/trace.set_stage_tracing``; the CLI's
         ``--metrics-dir`` turns them on) the call is a ``risk.run`` span
-        over one span a stage: ``risk.regression``, ``risk.newey_west``,
+        over one span a stage: ``risk.regression``, ``risk.newey_west``
+        (its ``nw_launches`` the Newey-West kernels it launched),
         ``risk.eigen`` (its ``eigh_launches`` the eigh kernels it
         launched) and ``risk.vol_regime``, each timed on the device too.
         """
@@ -428,7 +443,8 @@ class RiskModel:
                        dates=max(T, MIN_REGRESSION_DATES)):
                 factor_ret, specific_ret, r2 = self._regress(
                     MIN_REGRESSION_DATES)
-            with stage("risk.newey_west", dev, dates=T):
+            with stage("risk.newey_west", dev, dates=T) as sp:
+                nw_launches = nw_launch_total() if sp else 0
                 if cfg.nw_method == "scan":
                     nw_cov, nw_valid, nw_carry_out = (
                         newey_west_expanding_resume(
@@ -441,6 +457,8 @@ class RiskModel:
                     # (_require_scan_method)
                     nw_cov, nw_valid = self.newey_west_by_time(factor_ret)
                     nw_carry_out = None
+                if sp:
+                    sp.attrs["nw_launches"] = nw_launch_total() - nw_launches
             with stage("risk.eigen", dev,
                        dates=max(T, MIN_EIGEN_DATES)) as sp:
                 launches = launch_total() if sp else 0
