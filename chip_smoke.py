@@ -16,7 +16,8 @@ with the same path run on the plain versions within the ``risk`` budgets
 of ``tools/parity_budget.json``; then holds the Newey-West kernel's
 covariances, ``valid`` and carry equal to its plain loop's on that run's
 factor returns (phase ``nw_kernel_check``; again at all-A in
-``alla_nw_kernel_check``) and times both beside the kernel's bound.
+``alla_nw_kernel_check`` and at USE4's K = 73 in ``use4_nw_kernel_check``)
+and times both beside the kernel's bound.
 The IR audit's probes follow (``mfm_tpu_torch/analysis/``):
 ``audit_probes`` runs the audit's aliasing and dtype probes on that
 CSI300 ``run_fused`` (no argument written or aliased, the dtypes of the
@@ -168,7 +169,16 @@ memory and launches; both kernels at the run's own (250,000, 42, 42) and
 the ``risk`` budgets of the path at float64 through the plain versions on
 the card) and ``alla_factors`` (bench config 4: ``FactorEngine(block=16)``
 within the ``factors`` budgets of float64 on the card, the t+1 label, the
-risk run within the ``risk`` budgets).  Then alpha, in three phases:
+risk run within the ``risk`` budgets).  Then ``use4_risk``: USE4's factor
+structure (1 country, 60 industries, 12 styles, K=73) at (2500, 3000),
+M=100, as the benchmark's ``use4.rebuild`` runs it; every eigh is wider
+than the warp design takes, so the run and its stage spans must show the
+block design only (the n=42 paths must show the warp design only, the
+main path's stage spans included), and the block design is held to its
+plain versions at the run's own (250,000, 74, 74), (2500, 74, 74) and the
+pseudo-inverse's (2500, 72, 72), each launch timed beside its bound, and
+the Newey-West kernel to its loop on the run's (2500, 73) factor returns.
+Then alpha, in three phases:
 ``alpha_engine`` (bench config 5: 1,000 expressions at CSI300 width
 through ``compile_alpha_batch`` and ``alpha_summary``; chunked ==
 unchunked bitwise; the fused scores; float32 against the CPU at float64
@@ -635,17 +645,21 @@ def outputs_finite(out, valid):
     return checks
 
 
-def require_launches(launches: dict, what: str, weighted: int, full: int):
-    """A path launched the warp design of the weighted kernel at least
+def require_launches(launches: dict, what: str, weighted: int, full: int,
+                     design: str = "warp"):
+    """A path launched ``design`` of the weighted kernel at least
     ``weighted`` and of the full kernel at least ``full`` times, and the
-    block design never (n=42, float32)."""
-    require(launches["jacobi_eigh_weighted/warp"] >= weighted
-            and launches["jacobi_eigh/warp"] >= full,
+    other design never: the warp design at n=42, float32 (every 42-wide
+    path); the block design at USE4's K = 73, whose pseudo-inverse (n = 72)
+    and padded eighs (n = 74) are wider than the warp design takes."""
+    other = "block" if design == "warp" else "warp"
+    require(launches[f"jacobi_eigh_weighted/{design}"] >= weighted
+            and launches[f"jacobi_eigh/{design}"] >= full,
             f"{what}: the weighted kernel must launch >= {weighted} and the "
             f"full kernel >= {full} times: {launches}")
-    require(launches["jacobi_eigh_weighted/block"] == 0
-            and launches["jacobi_eigh/block"] == 0,
-            f"{what} launched a block-design kernel: {launches}")
+    require(launches[f"jacobi_eigh_weighted/{other}"] == 0
+            and launches[f"jacobi_eigh/{other}"] == 0,
+            f"{what} launched a {other}-design kernel: {launches}")
 
 
 def kernel_inputs(out, sim_covs, T, K, M):
@@ -7113,6 +7127,224 @@ def alla_risk_phase(ctx) -> dict:
     return {**res, "kernel_times": kernels, "nw_kernel": nw_kernel}
 
 
+# -- USE4's factor structure: every eigh on the block design ------------------
+
+#: (T, N, P, Q) of the benchmark's ``use4`` configuration: USE4's 1 country,
+#: 60 industry and 12 style factors (K = 73) over 3,000 stocks and 2,500
+#: dates
+USE4_SHAPE = (2500, 3000, 60, 12)
+#: matrices of G the weighted kernel's plain version takes at a time
+USE4_PLAIN_CHUNK = 50000
+
+
+def stage_eigh_launches(run) -> dict:
+    """``run()`` once with stage spans on: the eigh counts
+    (``eigh_warp_launches``, ``eigh_block_launches``, ``eigh_n``) of its
+    ``risk.regression`` and ``risk.eigen`` spans, by span name."""
+    from mfm_tpu_torch.obs import trace
+
+    trace.set_stage_tracing(True)
+    try:
+        run()
+        sync()
+    finally:
+        trace.set_stage_tracing(False)
+    got = {}
+    for s in trace.spans():
+        if s.name in ("risk.regression", "risk.eigen"):
+            got[s.name] = {k: v for k, v in s.attrs.items()
+                           if k.startswith("eigh_")}
+    return got
+
+
+def require_stage_designs(spans: dict, what: str, design: str, n: int):
+    """Both stages of :func:`stage_eigh_launches` launched ``design`` and
+    never the other, and the Monte-Carlo ran at ``n``."""
+    other = "warp" if design == "block" else "block"
+    require(set(spans) == {"risk.regression", "risk.eigen"}
+            and all(s[f"eigh_{design}_launches"] >= 1
+                    and s[f"eigh_{other}_launches"] == 0
+                    for s in spans.values())
+            and spans["risk.eigen"]["eigh_n"] == n,
+            f"{what}: the stage spans' eigh counts are not {design} only "
+            f"at n = {n}: {spans}")
+
+
+def hold_block_kernels(rm, out, sim_covs, T, K, M) -> dict:
+    """The block design at the USE4 path's own inputs, against the plain
+    versions, to the block design's float32 tolerances (``check_kernels``:
+    eigenvalues within 1e-5 and h within 1e-4 of each matrix's largest,
+    reconstruction 5e-5, orthogonality :data:`ORTH_TOL_F32` scaled by the
+    rounds, n - 1 a sweep, over n = 42's 7 sweeps): the weighted
+    kernel on the Monte-Carlo's (T*M, 74, 74) padded G at its sweeps, the
+    full kernel on F0's (T, 74, 74) at its sweeps, and the regression's
+    pseudo-inverse of the (T, 72, 72) normal matrices within 1e-4; each
+    kernel timed by CUDA events beside its bound at the model's K."""
+    from mfm_tpu_torch.ops import eigh as E
+    from mfm_tpu_torch.ops import xreg
+    from mfm_tpu_torch.ops.eigh_cuda import (
+        design_for,
+        jacobi_eigh_cuda,
+        jacobi_eigh_weighted_diag_cuda,
+        launch_counts,
+    )
+
+    F0, G, d0, sw, sf = kernel_inputs(out, sim_covs, T, K, M)
+    F0p, _ = E._pad_odd(F0)
+    Gp, d0p = E._pad_odd(G, d0)
+    del G, d0
+    Gp, d0p, n = Gp.contiguous(), d0p.contiguous(), Gp.shape[-1]
+    require(design_for(n, Gp.dtype) == "block",
+            f"use4: n = {n} float32 does not go to the block design")
+    ww, hh = jacobi_eigh_weighted_diag_cuda(Gp, d0p, sweeps=sw)
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    wp, hp = (torch.cat(parts) for parts in zip(*(
+        E.jacobi_eigh_weighted_diag_slots(Gp[a:a + USE4_PLAIN_CHUNK],
+                                          d0p[a:a + USE4_PLAIN_CHUNK], sw)
+        for a in range(0, Gp.shape[0], USE4_PLAIN_CHUNK))))
+    stop.record()
+    sync()
+    weighted = {"shape": list(Gp.shape), "sweeps": sw,
+                "w_equal": bool(torch.equal(ww, wp)),
+                "w_rel": rel_per_matrix(ww, wp),
+                "h_rel": rel_per_matrix(hh, hp),
+                "ms": time_ms(lambda: jacobi_eigh_weighted_diag_cuda(
+                    Gp, d0p, sweeps=sw), 3),
+                "plain_ms": start.elapsed_time(stop),
+                **weighted_kernel_bound(Gp.shape[0], K, sw)}
+    del Gp, d0p, ww, hh, wp, hp
+    torch.cuda.empty_cache()
+
+    wf, Vf = jacobi_eigh_cuda(F0p, sweeps=sf, sort=False,
+                              canonical_signs=False)
+    wfp, Vfp = E.jacobi_eigh_slots(F0p, sf)
+    sync()
+    # F0's own K x K block: the pad's dummy slot (index K, isolated) is
+    # left out, as the path leaves it out
+    rec, orth = recon_orth(wf[:, :K], Vf[:, :K, :K], F0)
+    # V's rounding grows with the rounds: ORTH_TOL_F32 is for n = 42's 287
+    orth_tol = ORTH_TOL_F32 * sf * (F0p.shape[-1] - 1) / 287
+    full = {"shape": list(F0p.shape), "sweeps": sf,
+            "wV_equal": bool(torch.equal(wf, wfp) and torch.equal(Vf, Vfp)),
+            "w_rel": rel_per_matrix(wf[:, :K], wfp[:, :K]), "recon": rec,
+            "orth": orth, "orth_tol": orth_tol,
+            "plain_orth": recon_orth(wfp[:, :K], Vfp[:, :K, :K], F0)[1],
+            "ms": time_ms(lambda: jacobi_eigh_cuda(
+                F0p, sweeps=sf, sort=False, canonical_signs=False), 20),
+            "plain_ms": time_ms(lambda: E.jacobi_eigh_slots(F0p, sf), 2),
+            **full_kernel_bound(F0p.shape[0], K, sf)}
+    del wf, Vf, wfp, Vfp
+
+    normal = xreg._normal_equations(rm.ret, rm.cap, rm.styles, rm.industry,
+                                    rm.valid, n_industries=rm.n_industries,
+                                    standardize_styles=True)
+    before = launch_counts()
+    P1 = E.pinv_psd(normal.G)
+    sync()
+    after = launch_counts()
+    P0 = E.pinv_psd(normal.G, kernels=False)
+    # the pseudo-inverse's one launch, as it makes it: even n, the
+    # kernel's own sweeps
+    Gn = normal.G.reshape(-1, *normal.G.shape[-2:]).contiguous()
+    n, sp = Gn.shape[-1], E._sweeps_for(Gn.shape[-1], Gn.dtype)
+    pinv = {"shape": list(normal.G.shape), "sweeps": sp,
+            "launched_block": after["jacobi_eigh/block"]
+            - before["jacobi_eigh/block"],
+            "equal": bool(torch.equal(P1, P0)),
+            "rel": rel_per_matrix(P1, P0),
+            "ms": time_ms(lambda: jacobi_eigh_cuda(
+                Gn, sweeps=sp, sort=False, canonical_signs=False), 20),
+            "plain_ms": time_ms(lambda: E.jacobi_eigh_slots(Gn, sp), 2),
+            **full_kernel_bound(Gn.shape[0], n, sp)}
+    del normal, P1, P0, Gn
+    emit("use4_kernel_check", weighted=weighted, full=full, pinv=pinv)
+    require(weighted["w_rel"] <= 1e-5 and weighted["h_rel"] <= 1e-4,
+            f"use4: the weighted kernel's block design disagrees with its "
+            f"plain version: {weighted}")
+    require(full["w_rel"] <= 1e-5 and rec <= 5e-5 and orth <= orth_tol,
+            f"use4: the full kernel's block design disagrees with its plain "
+            f"version: {full}")
+    require(pinv["launched_block"] == 1 and pinv["rel"] <= 1e-4,
+            f"use4: pinv_psd at n = 72 through the block design: {pinv}")
+    return {"weighted": weighted, "full": full, "pinv": pinv}
+
+
+def use4_risk_phase(ctx) -> dict:
+    """Phase use4_risk: USE4's factor structure (1 country, 60 industries,
+    12 styles; K = 73) through ``RiskModel.run_fused`` at (T, N) = (2500,
+    3000), M = 100, float32, ``sim_length=T``, as the benchmark's
+    ``use4.rebuild`` runs it.  Every eigh of the path is wider than the
+    warp design takes (the pseudo-inverse at n = 72, F0 and the
+    Monte-Carlo at 73 padded to 74), so the run must launch the block
+    design of both kernels and never the warp design
+    (:func:`require_launches` with ``design="block"``), and its stage
+    spans must say so;
+    the block design is held to its plain versions on the run's own
+    inputs (:func:`hold_block_kernels`), and the Newey-West kernel to its
+    loop on the run's own (T, 73) factor returns (:func:`hold_nw_kernel`,
+    phase ``use4_nw_kernel_check``); walls, stage walls, peak memory and
+    the device's top kernels."""
+    from mfm_tpu_torch import RiskModel, RiskModelConfig
+    from mfm_tpu_torch.data.synthetic import synthetic_risk_inputs
+    from mfm_tpu_torch.models.eigen import auto_eigen_chunk, simulated_eigen_covs
+    from mfm_tpu_torch.ops.eigh_cuda import launch_counts, reset_launches
+
+    T, N, P, Q = USE4_SHAPE
+    K, M, dev = 1 + P + Q, ALLA_SIMS, ctx["device"]
+    config = RiskModelConfig(eigen_n_sims=M)
+    panel = synthetic_risk_inputs(T, N, P, Q, seed=0)
+    sim_covs = simulated_eigen_covs(
+        torch.Generator(device=dev).manual_seed(ALLA_SEED), K, T, M,
+        dtype=torch.float32)
+    rm = RiskModel(*panel, n_industries=P, config=config, device=dev)
+    chunk = auto_eigen_chunk(T, M, K, 4, dev)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        return rm.run_fused(sim_covs=sim_covs, sim_length=T)
+
+    reset_launches()
+    reset_nw_launches()
+    out, first_s = timed(run)
+    launches = launch_counts()
+    nw_launches = require_nw_launches(1, "use4_risk")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = outputs_finite(out, rm.valid)
+    spans = stage_eigh_launches(run)
+    walls = [timed(run)[1] for _ in range(3)]
+    stages = {}
+    fr, stages["regression"] = timed(lambda: rm.reg_by_time()[0])
+    (nw_cov, nw_valid), stages["newey_west"] = timed(
+        lambda: rm.newey_west_by_time(fr))
+    (ecov, evalid), stages["eigen"] = timed(
+        lambda: rm.eigen_risk_adj_by_time(nw_cov, nw_valid,
+                                          sim_covs=sim_covs, sim_length=T))
+    _, stages["vol_regime"] = timed(
+        lambda: rm.vol_regime_adj_by_time(fr, ecov, evalid))
+    del fr, nw_cov, nw_valid, ecov, evalid
+    prof = profile_run(run)
+    res = {"T": T, "N": N, "P": P, "Q": Q, "K": K, "M": M,
+           "eigen_chunk": chunk, "launches": launches,
+           "nw_launches": nw_launches, "stage_spans": spans,
+           "finite": finite, "first_run_s": first_s,
+           "e2e_median_s": statistics.median(walls), "e2e_runs_s": walls,
+           "stages_s": stages, "peak_mem_gb": peak_gb,
+           "busy_s": prof["busy_s"], "busy_share": prof["busy_share"],
+           "device_kernels": prof["device_kernels"], "top_kernels": prof["top"]}
+    emit("use4_risk", **res)
+    require_launches(launches, "use4_risk", 1, 2, design="block")
+    require_stage_designs(spans, "use4_risk", "block", K + 1)
+    require(all(finite.values()), f"use4_risk: non-finite outputs: {finite}")
+    torch.cuda.empty_cache()
+    nw_kernel = hold_nw_kernel(out.factor_ret, config, "use4_nw_kernel_check")
+    return {**res, "nw_kernel": nw_kernel,
+            "kernels": hold_block_kernels(rm, out, sim_covs, T, K, M)}
+
+
 def alla_factors_phase(ctx) -> dict:
     """Phase alla_factors: bench config 4 (bench.py:747-826).
     ``FactorEngine(block=16)`` on ``synthetic_market_panel(T=2500, N=5000,
@@ -7697,6 +7929,11 @@ def main() -> int:
     nw_launches = require_nw_launches(1, "the main path")
     emit("main_path_launches", **launches, newey_west_scan=nw_launches)
     require_launches(launches, "the main path", 1, 2)
+    # the stage spans count the same launches by design: warp only at n=42
+    main_spans = stage_eigh_launches(
+        lambda: rm.run_fused(sim_covs=sim_covs, sim_length=T))
+    emit("main_path_stage_launches", **main_spans)
+    require_stage_designs(main_spans, "the main path", "warp", K)
     finite = outputs_finite(out, rm.valid)
     emit("main_path_finite", **finite)
     require(all(finite.values()), f"non-finite or empty outputs: {finite}")
@@ -7942,6 +8179,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     alla_factors = alla_factors_phase(actx)
     torch.cuda.empty_cache()
+    # -- phase 12b: USE4's factor structure, K = 73, on the block design ----
+    use4 = use4_risk_phase(actx)
+    torch.cuda.empty_cache()
 
     mark("all_a")
     # -- phase 13: alpha, bench configs 5 and alpha_alla ----------------------
@@ -8066,6 +8306,21 @@ def main() -> int:
                 "alpha_launches": sum(n[f"{name}/warp"]
                                       for n in alpha_launches)}
 
+    def use4_entry(name, key):
+        kt = use4["kernels"][key]
+        row = {"use4_shape": kt["shape"], "use4_sweeps": kt["sweeps"],
+               "use4_design": "block",
+               "use4_launches": use4["launches"][f"{name}/block"],
+               "use4_ms": kt["ms"], "use4_plain_ms": kt["plain_ms"],
+               "use4_bound_ms": kt["bound_ms"],
+               "use4_bound_by": kt["bound_by"]}
+        if key == "full":
+            pinv = use4["kernels"]["pinv"]
+            row.update({f"use4_pinv_{k}": pinv[k] for k in (
+                "shape", "sweeps", "launched_block", "ms", "plain_ms",
+                "bound_ms", "bound_by")})
+        return row
+
     def entry(name, key, replaces, err, shape, sweeps, kernel):
         return {"name": name, "route": "cuda", "design": "warp",
                 "source": SOURCES["warp"], "replaces": replaces,
@@ -8115,9 +8370,10 @@ def main() -> int:
                     if shape.startswith(key)},
                 "audit_csi300_launches":
                     audit_probes["launches"][f"{name}/warp"],
-                **serve[key], **alla_entry(name, key)}
+                **serve[key], **alla_entry(name, key),
+                **use4_entry(name, key)}
 
-    nw_alla, nw_name = alla["nw_kernel"], (
+    nw_alla, nw_use4, nw_name = alla["nw_kernel"], use4["nw_kernel"], (
         f"newey_west_scan_kernel<float, {nw_kernel['q']}>")
     kernels = [
         entry("jacobi_eigh_weighted", "weighted",
@@ -8149,6 +8405,11 @@ def main() -> int:
          "alla_launches": alla["nw_launches"],
          "alla_leaves_differing": nw_alla["leaves_differing"],
          **{f"alla_{k}": nw_alla[k] for k in ("shape", "ms", "call_ms",
+                                              "plain_ms", "bound_ms",
+                                              "bound_by")},
+         "use4_launches": use4["nw_launches"],
+         "use4_leaves_differing": nw_use4["leaves_differing"],
+         **{f"use4_{k}": nw_use4[k] for k in ("shape", "ms", "call_ms",
                                               "plain_ms", "bound_ms",
                                               "bound_by")}},
     ]

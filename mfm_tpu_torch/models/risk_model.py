@@ -62,7 +62,7 @@ from mfm_tpu_torch.models.vol_regime import (
     vol_regime_adjust_resume,
 )
 from mfm_tpu_torch.obs.trace import stage
-from mfm_tpu_torch.ops.eigh_cuda import launch_total
+from mfm_tpu_torch.ops.eigh_cuda import launch_counts, launch_shapes
 from mfm_tpu_torch.ops.newey_west_cuda import (
     launch_total as nw_launch_total,
     require_lags,
@@ -164,6 +164,25 @@ def _pad_dates(a, rows: int):
     if T >= rows or T == 0:
         return a
     return torch.cat([a, a[-1:].expand((rows - T,) + a.shape[1:])])
+
+
+def _design_launches_since(before: dict) -> dict:
+    """The eigh launches of both kernels by design since ``before`` (a
+    ``launch_counts()``), as a stage span's ``eigh_<design>_launches``."""
+    now = launch_counts()
+    return {f"eigh_{design}_launches": sum(
+                now[key] - before[key] for key in now
+                if key.endswith("/" + design))
+            for design in ("warp", "block")}
+
+
+def _weighted_n_since(before: dict) -> int:
+    """The widest n the weighted kernel launched at since ``before`` (a
+    ``launch_shapes()``), 0 where it launched none."""
+    before = before["jacobi_eigh_weighted"]
+    return max((n for (B, n, sweeps), count
+                in launch_shapes()["jacobi_eigh_weighted"].items()
+                if count > before.get((B, n, sweeps), 0)), default=0)
 
 
 _INJECTED = ("eigen_incremental=True derives its draws from config.seed "
@@ -431,18 +450,25 @@ class RiskModel:
 
         With stage spans on (``obs/trace.set_stage_tracing``; the CLI's
         ``--metrics-dir`` turns them on) the call is a ``risk.run`` span
-        over one span a stage: ``risk.regression``, ``risk.newey_west``
-        (its ``nw_launches`` the Newey-West kernels it launched),
-        ``risk.eigen`` (its ``eigh_launches`` the eigh kernels it
-        launched) and ``risk.vol_regime``, each timed on the device too.
+        over one span a stage: ``risk.regression`` (its
+        ``eigh_warp_launches`` and ``eigh_block_launches`` the eigh kernels
+        it launched in either design), ``risk.newey_west`` (its
+        ``nw_launches`` the Newey-West kernels it launched), ``risk.eigen``
+        (the same counts by design, and ``eigh_n`` the padded n of its
+        weighted launches, 0 where it made none) and ``risk.vol_regime``,
+        each timed on the device too.  The counts are the host's own: 0 on
+        the CPU, no synchronize.
         """
         T, dev, cfg = self.T, self.device, self.config
         with stage("risk.run", dev, dates=T, stocks=self.N,
                    nw_method=cfg.nw_method, guarded=skip_mask is not None):
             with stage("risk.regression", dev,
-                       dates=max(T, MIN_REGRESSION_DATES)):
+                       dates=max(T, MIN_REGRESSION_DATES)) as sp:
+                designs = launch_counts() if sp else None
                 factor_ret, specific_ret, r2 = self._regress(
                     MIN_REGRESSION_DATES)
+                if sp:
+                    sp.attrs.update(_design_launches_since(designs))
             with stage("risk.newey_west", dev, dates=T) as sp:
                 nw_launches = nw_launch_total() if sp else 0
                 if cfg.nw_method == "scan":
@@ -461,7 +487,8 @@ class RiskModel:
                     sp.attrs["nw_launches"] = nw_launch_total() - nw_launches
             with stage("risk.eigen", dev,
                        dates=max(T, MIN_EIGEN_DATES)) as sp:
-                launches = launch_total() if sp else 0
+                designs = launch_counts() if sp else None
+                shapes = launch_shapes() if sp else None
                 eig_carry_out = None
                 nw_cov_e, nw_valid_e = (_pad_dates(nw_cov, MIN_EIGEN_DATES),
                                         _pad_dates(nw_valid, MIN_EIGEN_DATES))
@@ -478,7 +505,8 @@ class RiskModel:
                         sim_length=sim_length)
                 eigen_cov, eigen_valid = eigen_cov[:T], eigen_valid[:T]
                 if sp:
-                    sp.attrs["eigh_launches"] = launch_total() - launches
+                    sp.attrs.update(_design_launches_since(designs),
+                                    eigh_n=_weighted_n_since(shapes))
             with stage("risk.vol_regime", dev, dates=T):
                 vr_cov, lamb, vr_carry_out = vol_regime_adjust_resume(
                     factor_ret, eigen_cov, eigen_valid,

@@ -307,7 +307,8 @@ def _both(monkeypatch, *args, **kw):
     return got, want
 
 
-SHAPES = [(1390, 42), (2500, 42), (61, 1), (61, 5), (61, 11), (61, 64)]
+SHAPES = [(1390, 42), (2500, 42), (2500, 73), (61, 1), (61, 5), (61, 11),
+          (61, 64)]
 
 
 @pytest.mark.card

@@ -133,6 +133,20 @@ def test_run_fused_matches_reference_f64_at_csi300_width():
         _assert_same(port[f], ref[f], rtol=1e-8)
 
 
+def test_run_fused_matches_reference_f64_at_use4_width():
+    """K = 73 (P=60, Q=12) as in the ``use4`` cell, at small T, N and M:
+    odd K through the port's pads (F0's and G's with d0) and an even
+    pseudo-inverse (n = 72), the reference through its own odd-n route."""
+    T, N, P, Q, M = 96, 300, 60, 12, 3
+    case = _case(T, N, P, Q, M, seed=7)
+    ref = _ref_run(case, P, M, np.float64)
+    port = _port_run(case, P, M, torch.float64)
+    assert port["factor_ret"].shape == (T, 73)
+    assert port["nw_valid"].any() and port["eigen_valid"].any()
+    for f in FIELDS:
+        _assert_same(port[f], ref[f], rtol=1e-8)
+
+
 def test_run_fused_within_f32_budgets():
     c = SMALL
     case = _case(c["T"], c["N"], c["P"], c["Q"], c["M"], seed=5)

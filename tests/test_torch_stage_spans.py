@@ -93,12 +93,15 @@ def test_every_entry_point_opens_the_stage_tree(entry):
     assert root.attrs == {"dates": dates, "stocks": N, "nw_method": "scan",
                           "guarded": guarded}
     by = {s.name: s.attrs for s in got}
-    assert by["risk.regression"] == {"dates": max(dates,
-                                                  MIN_REGRESSION_DATES)}
     # the CPU runs the kernels' plain versions: no launch is counted
+    assert by["risk.regression"] == {"dates": max(dates,
+                                                  MIN_REGRESSION_DATES),
+                                     "eigh_warp_launches": 0,
+                                     "eigh_block_launches": 0}
     assert by["risk.newey_west"] == {"dates": dates, "nw_launches": 0}
     assert by["risk.eigen"] == {"dates": max(dates, MIN_EIGEN_DATES),
-                                "eigh_launches": 0}
+                                "eigh_warp_launches": 0,
+                                "eigh_block_launches": 0, "eigh_n": 0}
     assert by["risk.vol_regime"] == {"dates": dates}
     # host intervals nest; a CPU stage has no device events
     for s in got[:-1]:
