@@ -17,7 +17,12 @@ of ``tools/parity_budget.json``; then holds the Newey-West kernel's
 covariances, ``valid`` and carry equal to its plain loop's on that run's
 factor returns (phase ``nw_kernel_check``; again at all-A in
 ``alla_nw_kernel_check`` and at USE4's K = 73 in ``use4_nw_kernel_check``)
-and times both beside the kernel's bound.
+and times both beside the kernel's bound; and holds the vol-regime
+kernel's fvm2, lamb, covariances and carry equal to its plain loop's on
+that run's factor returns and eigen covariances and times both beside the
+kernel's chain bound (``vr_kernel_check``, ``alla_vr_kernel_check``,
+``use4_vr_kernel_check``); every rebuild and serving step it counts
+launches each of the two scan kernels once.
 The IR audit's probes follow (``mfm_tpu_torch/analysis/``):
 ``audit_probes`` runs the audit's aliasing and dtype probes on that
 CSI300 ``run_fused`` (no argument written or aliased, the dtypes of the
@@ -236,6 +241,8 @@ _KERNEL_NAME = re.compile(
     r"(warp_eigh_kernel|warp_weighted_kernel|jacobi_eigh_kernel|"
     r"jacobi_eigh_weighted_kernel)I(?:Li(\d+)E|([fd]))E")
 NW_SOURCE = "mfm_tpu_torch/csrc/newey_west_scan.cu"
+VR_SOURCE = "mfm_tpu_torch/csrc/vol_regime_scan.cu"
+_VR_KERNEL_NAME = re.compile(r"vol_regime_scan_kernelI([fd])E")
 _NW_KERNEL_NAME = re.compile(r"newey_west_scan_kernelI([fd])Li(\d+)E")
 _NW_TYPES = {"f": "float", "d": "double"}
 
@@ -430,6 +437,10 @@ def ptxas_table(build):
         row(k, f"newey_west_scan_kernel<{_NW_TYPES[m.group(1)]}, "
                f"{m.group(2)}>" if m else k["kernel"],
             q=int(m.group(2)) if m else None)
+    for k in build.ptxas_report("vol_regime_scan"):
+        m = _VR_KERNEL_NAME.search(k["kernel"])
+        row(k, f"vol_regime_scan_kernel<{_NW_TYPES[m.group(1)]}>" if m
+            else k["kernel"])
     emit("ptxas", kernels=rows)
     warp = [r for r in rows if r["kernel"].startswith("warp_")]
     spilled = [r["kernel"] for r in warp
@@ -727,20 +738,25 @@ def hold_kernels(F0, G, d0, sw, sf, where: str) -> dict:
 
 
 def reset_nw_launches() -> None:
-    """Count the Newey-West kernel's launches from 0."""
-    from mfm_tpu_torch.ops import newey_west_cuda
+    """Count the Newey-West and vol-regime kernels' launches from 0."""
+    from mfm_tpu_torch.ops import newey_west_cuda, vol_regime_cuda
 
     newey_west_cuda.LAUNCHES["newey_west_scan"] = 0
+    vol_regime_cuda.LAUNCHES["vol_regime_scan"] = 0
 
 
 def require_nw_launches(n: int, what: str) -> int:
     """The Newey-West kernel launched ``n`` times since
-    :func:`reset_nw_launches`; returns the count."""
+    :func:`reset_nw_launches`, and the vol-regime kernel as often (every
+    rebuild and serving step runs each stage once); returns the count."""
+    from mfm_tpu_torch.ops import vol_regime_cuda
     from mfm_tpu_torch.ops.newey_west_cuda import launch_total
 
-    got = launch_total()
+    got, vr = launch_total(), vol_regime_cuda.launch_total()
     require(got == n, f"{what}: the Newey-West kernel must launch {n} "
                       f"times, launched {got}")
+    require(vr == n, f"{what}: the vol-regime kernel must launch {n} "
+                     f"times, launched {vr}")
     return got
 
 
@@ -800,6 +816,93 @@ def hold_nw_kernel(fr, cfg, where: str) -> dict:
     require(not differ, f"{where}: the Newey-West kernel's leaves {differ} "
                         f"(0 covs, 1 valid, then the carry) are not its "
                         f"loop's")
+    return res
+
+
+#: a date of the vol-regime chain: a dependent float32 multiply and add,
+#: ~4 cycles each on Hopper, at the H100 SXM's top SM clock (1,980 MHz)
+VR_CHAIN_CYCLES = 8
+SM_CLOCK_HZ = 1.98e9
+
+
+def vr_kernel_bound(T, itemsize) -> dict:
+    """The least time the card could take for the vol-regime scan of T
+    dates: the chain of T dependent steps (:data:`VR_CHAIN_CYCLES` a date)
+    against okf, B2z and the mask read and fvm2 and lamb written once at
+    the memory rate; the larger bounds it (the chain)."""
+    nbytes = (4 * itemsize + 1) * T
+    t_chain, t_bytes = T * VR_CHAIN_CYCLES / SM_CLOCK_HZ, nbytes / PEAK_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_chain, t_bytes),
+                bound_by="chain" if t_chain >= t_bytes else "bytes",
+                bytes=nbytes)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls back to back: the
+    card sleeps while the host queues them, so a launch shorter than its
+    host call reads its own time, not the host's."""
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e7))  # ~10 ms: more than the host takes to queue
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    sync()
+    return start.elapsed_time(stop) / reps
+
+
+def hold_vr_kernel(out, cfg, where: str) -> dict:
+    """The vol-regime kernel against its plain loop on a run's own factor
+    returns and eigen covariances (``out``, a ``run_fused`` result):
+    ``vol_regime_adjust_resume`` as the model calls it, with the kernel and
+    with ``models/vol_regime._scan_loop`` in its place, vr_cov, lamb and
+    both carry leaves equal (:func:`same`); then the wrapper and the loop
+    on the same inputs, fvm2, lamb and the carry equal.  Then the kernel's
+    device time (:func:`device_ms`, 50 launches), the whole call's (20
+    calls), the loop's (one call) and the bound.  Emits phase
+    ``{where}``; returns it."""
+    from unittest import mock
+
+    from mfm_tpu_torch.models import vol_regime as VR
+    from mfm_tpu_torch.ops.vol_regime_cuda import vol_regime_scan_cuda
+
+    fr, ecov, evalid = out.factor_ret, out.eigen_cov, out.eigen_valid
+    T, half_life = fr.shape[0], cfg.vol_regime_half_life
+
+    def run():
+        return VR.vol_regime_adjust_resume(fr, ecov, evalid, half_life)
+
+    def leaves(result):  # (vr_cov or fvm2, lamb, (num, den))
+        first, lamb, (num, den) = result
+        return [first, lamb, num, den]
+
+    b2z, okf = VR.scan_inputs(fr, ecov, evalid)
+    lam = torch.tensor(0.5, dtype=fr.dtype, device=fr.device) ** (
+        1.0 / half_life)
+    carry = VR.vr_init_carry(fr.dtype, fr.device)
+
+    def kernel():
+        return vol_regime_scan_cuda(b2z, okf, None, lam, carry)
+
+    got = leaves(run()) + leaves(kernel())
+    with mock.patch.object(VR, "vol_regime_scan_cuda", VR._scan_loop):
+        want = leaves(run())
+        plain_ms = time_ms(run, 1, warmup=False)
+    want += leaves(VR._scan_loop(b2z, okf, None, lam, carry))
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if not same(a, b)]
+    res = {"shape": [T], "dtype": str(fr.dtype).split(".")[-1],
+           "valid_dates": int(okf.sum()), "leaves": len(want),
+           "leaves_differing": differ, "ms": device_ms(kernel, 50),
+           "call_ms": time_ms(run, 20), "plain_ms": plain_ms,
+           **vr_kernel_bound(T, fr.element_size())}
+    emit(where, **res)
+    require(not differ, f"{where}: the vol-regime kernel's leaves {differ} "
+                        f"(vr_cov, lamb, num, den from the model's call, "
+                        f"then fvm2, lamb, num, den from the wrapper) are "
+                        f"not its loop's")
     return res
 
 
@@ -7091,6 +7194,7 @@ def alla_risk_phase(ctx) -> dict:
     (nw_cov, nw_valid), stages["newey_west"] = timed(
         lambda: rm.newey_west_by_time(fr))
     nw_kernel = hold_nw_kernel(fr, config, "alla_nw_kernel_check")
+    vr_kernel = hold_vr_kernel(out, config, "alla_vr_kernel_check")
     nw_assoc = nw_methods(fr, K, config, ctx["budget"], 1)
     emit("nw_associative_alla", **nw_assoc)
     require(nw_assoc["valid_equal"] and not nw_assoc["failed"],
@@ -7124,7 +7228,8 @@ def alla_risk_phase(ctx) -> dict:
     require(all(finite.values()), f"alla_risk: non-finite outputs: {finite}")
     require(not failed, f"alla_risk: the float32 path is outside the risk "
             f"budgets of float64: {failed}")
-    return {**res, "kernel_times": kernels, "nw_kernel": nw_kernel}
+    return {**res, "kernel_times": kernels, "nw_kernel": nw_kernel,
+            "vr_kernel": vr_kernel}
 
 
 # -- USE4's factor structure: every eigh on the block design ------------------
@@ -7341,7 +7446,8 @@ def use4_risk_phase(ctx) -> dict:
     require(all(finite.values()), f"use4_risk: non-finite outputs: {finite}")
     torch.cuda.empty_cache()
     nw_kernel = hold_nw_kernel(out.factor_ret, config, "use4_nw_kernel_check")
-    return {**res, "nw_kernel": nw_kernel,
+    vr_kernel = hold_vr_kernel(out, config, "use4_vr_kernel_check")
+    return {**res, "nw_kernel": nw_kernel, "vr_kernel": vr_kernel,
             "kernels": hold_block_kernels(rm, out, sim_covs, T, K, M)}
 
 
@@ -7949,6 +8055,7 @@ def main() -> int:
     emit("main_path_vs_plain", failed=failed, **records)
     require(not failed, f"kernel path outside the risk budgets: {failed}")
     nw_kernel = hold_nw_kernel(out.factor_ret, config, "nw_kernel_check")
+    vr_kernel = hold_vr_kernel(out, config, "vr_kernel_check")
 
     walls = []
     for _ in range(3):
@@ -8375,6 +8482,7 @@ def main() -> int:
 
     nw_alla, nw_use4, nw_name = alla["nw_kernel"], use4["nw_kernel"], (
         f"newey_west_scan_kernel<float, {nw_kernel['q']}>")
+    vr_name = "vol_regime_scan_kernel<float>"
     kernels = [
         entry("jacobi_eigh_weighted", "weighted",
               "mfm_tpu/ops/eigh_pallas.py:339", weighted_err, [B, K, K], sw,
@@ -8412,6 +8520,22 @@ def main() -> int:
          **{f"use4_{k}": nw_use4[k] for k in ("shape", "ms", "call_ms",
                                               "plain_ms", "bound_ms",
                                               "bound_by")}},
+        {"name": "vol_regime_scan", "route": "cuda",
+         "design": "one thread walks the date chain, seven warps move data",
+         "source": VR_SOURCE, "replaces": None,
+         "plain_version": "mfm_tpu_torch/models/vol_regime.py:_scan_loop",
+         "launches": nw_launches,
+         "registers": ptxas[vr_name]["registers"],
+         "spill_bytes": ptxas[vr_name]["spill_bytes"],
+         "init_state_launches": serving["nw_launches"]["init_state"],
+         "serve_launches_per_update": serving["nw_launches"]["per_update"],
+         "guarded_launches_per_update": guarded["nw_launches"]["per_update"],
+         **{f"{pre}{k}": v for pre, row in (("", vr_kernel),
+                                            ("alla_", alla["vr_kernel"]),
+                                            ("use4_", use4["vr_kernel"]))
+            for k, v in row.items() if k not in ("dtype", "leaves")},
+         "alla_launches": alla["nw_launches"],
+         "use4_launches": use4["nw_launches"]},
     ]
     mark("kernel_times")
     emit("smoke", seconds=time.perf_counter() - t_start,

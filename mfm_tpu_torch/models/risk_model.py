@@ -67,6 +67,9 @@ from mfm_tpu_torch.ops.newey_west_cuda import (
     launch_total as nw_launch_total,
     require_lags,
 )
+from mfm_tpu_torch.ops.vol_regime_cuda import (
+    launch_total as vr_launch_total,
+)
 from mfm_tpu_torch.ops.xreg import _rowdot, regress_panel
 from mfm_tpu_torch.parallel.mesh import (
     P,
@@ -455,8 +458,9 @@ class RiskModel:
         it launched in either design), ``risk.newey_west`` (its
         ``nw_launches`` the Newey-West kernels it launched), ``risk.eigen``
         (the same counts by design, and ``eigh_n`` the padded n of its
-        weighted launches, 0 where it made none) and ``risk.vol_regime``,
-        each timed on the device too.  The counts are the host's own: 0 on
+        weighted launches, 0 where it made none) and ``risk.vol_regime``
+        (its ``vr_launches`` the vol-regime kernels it launched), each
+        timed on the device too.  The counts are the host's own: 0 on
         the CPU, no synchronize.
         """
         T, dev, cfg = self.T, self.device, self.config
@@ -507,11 +511,14 @@ class RiskModel:
                 if sp:
                     sp.attrs.update(_design_launches_since(designs),
                                     eigh_n=_weighted_n_since(shapes))
-            with stage("risk.vol_regime", dev, dates=T):
+            with stage("risk.vol_regime", dev, dates=T) as sp:
+                vr_launches = vr_launch_total() if sp else 0
                 vr_cov, lamb, vr_carry_out = vol_regime_adjust_resume(
                     factor_ret, eigen_cov, eigen_valid,
                     half_life=cfg.vol_regime_half_life, carry=vr_carry,
                     skip_mask=skip_mask)
+                if sp:
+                    sp.attrs["vr_launches"] = vr_launch_total() - vr_launches
         outputs = RiskModelOutputs(
             factor_ret, specific_ret, r2,
             nw_cov, nw_valid, eigen_cov, eigen_valid, vr_cov, lamb)

@@ -10,8 +10,10 @@ Contract (``Barra-master/mfm/MFM.py:130-167``):
 - factor-volatility multiplier ``lambda_t = sqrt(sum_i w_i B_i^2)`` over
   i <= t, and the adjusted covariance is ``cov_t * lambda_t^2``.
 
-The restricted renormalized EWMA is two scalar recursions, run as a serial
-loop over the dates on the device.
+The restricted renormalized EWMA is two scalar recursions over the dates:
+on the card one launch of a hand-written kernel
+(``csrc/vol_regime_scan.cu``), on the CPU its plain version, a Python loop
+of scalar tensor ops.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ from __future__ import annotations
 import torch
 
 from mfm_tpu_torch._device import host_flags
+from mfm_tpu_torch.ops.vol_regime_cuda import vol_regime_scan_cuda
 from mfm_tpu_torch.parallel.mesh import replicate_under_mesh
+
 
 def vr_init_carry(dtype, device=None) -> tuple:
     """The ``(num, den)`` EWMA state before any date — the resumable
@@ -55,19 +59,49 @@ def vol_regime_adjust_resume(factor_ret, covs, valid, half_life: float = 42.0,
     bitwise.  The masked date's stored multiplier is the frozen carry's
     ratio, the value a degraded-mode reader would see.  Under a mesh the
     (T,) series run replicated: date-sharded inputs are gathered first.
+
+    A CUDA series runs the recursion in one launch of the Hopper kernel
+    (:func:`mfm_tpu_torch.ops.vol_regime_cuda.vol_regime_scan_cuda`), which
+    reads the mask on the card, bitwise the plain loop :func:`_scan_loop`,
+    which a CPU series runs.
     """
     factor_ret, covs, valid = replicate_under_mesh((factor_ret, covs, valid))
     dtype, dev = factor_ret.dtype, factor_ret.device
     lam = torch.tensor(0.5, dtype=dtype, device=dev) ** (1.0 / half_life)
+    B2z, okf = scan_inputs(factor_ret, covs, valid)
+    if carry is None:
+        carry = vr_init_carry(dtype, dev)
+    if dev.type == "cuda":
+        # the kernel reads the mask on the card: no host read of it here
+        if skip_mask is not None:
+            skip_mask = torch.as_tensor(skip_mask, dtype=torch.bool,
+                                        device=dev).reshape(-1).contiguous()
+        fvm2, lamb, carry_out = vol_regime_scan_cuda(B2z, okf, skip_mask, lam,
+                                                     carry)
+    else:
+        fvm2, lamb, carry_out = _scan_loop(B2z, okf, skip_mask, lam, carry)
+    return covs * fvm2[:, None, None], lamb, carry_out
+
+
+def scan_inputs(factor_ret, covs, valid):
+    """The recursion's (T,) inputs, torch's parallel part: ``B2z``, each
+    date's B_t^2 (0 where the date is not usable), and ``okf``, 1.0 where
+    it is (valid, with a finite variance row) and 0.0 elsewhere."""
     var = covs.diagonal(dim1=-2, dim2=-1)  # (T, K)
     ok = valid & torch.isfinite(var).all(dim=-1)
     B2 = (factor_ret ** 2 / var).mean(dim=-1)  # (T,) B_t^2
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    B2z = torch.where(ok, B2, zero)
-    okf = ok.to(dtype)
-    T = B2z.shape[0]
+    zero = torch.zeros((), dtype=factor_ret.dtype, device=factor_ret.device)
+    return torch.where(ok, B2, zero), ok.to(factor_ret.dtype)
 
-    num, den = vr_init_carry(dtype, dev) if carry is None else carry
+
+def _scan_loop(B2z, okf, skip_mask, lam, carry):
+    """The recursion of :func:`vol_regime_adjust_resume` as a Python loop
+    of scalar tensor ops, a date at a time from the carry ``(num, den)``:
+    the plain version of the CUDA kernel.  ``skip_mask`` is read to the
+    host once.  Returns ``(fvm2, lamb, (num, den))``."""
+    T = B2z.shape[0]
+    zero = torch.zeros((), dtype=B2z.dtype, device=B2z.device)
+    num, den = carry
     skip = host_flags(skip_mask, T)
     fvm2 = []
     for i in range(T):
@@ -76,6 +110,5 @@ def vol_regime_adjust_resume(factor_ret, covs, valid, half_life: float = 42.0,
             den = lam * den + okf[i]
         # before any valid date numpy sums over empty arrays yield 0.0, not NaN
         fvm2.append(torch.where(den > 0, num / den, zero))
-    fvm2 = torch.stack(fvm2) if T else torch.zeros((0,), dtype=dtype, device=dev)
-    lamb = torch.sqrt(fvm2)
-    return covs * fvm2[:, None, None], lamb, (num, den)
+    fvm2 = torch.stack(fvm2) if T else B2z.new_zeros((0,))
+    return fvm2, torch.sqrt(fvm2), (num, den)

@@ -102,7 +102,7 @@ def test_every_entry_point_opens_the_stage_tree(entry):
     assert by["risk.eigen"] == {"dates": max(dates, MIN_EIGEN_DATES),
                                 "eigh_warp_launches": 0,
                                 "eigh_block_launches": 0, "eigh_n": 0}
-    assert by["risk.vol_regime"] == {"dates": dates}
+    assert by["risk.vol_regime"] == {"dates": dates, "vr_launches": 0}
     # host intervals nest; a CPU stage has no device events
     for s in got[:-1]:
         assert root.start_us <= s.start_us
